@@ -1,0 +1,512 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Drives ``consensus_specs_tpu_torch`` (never jax, never the JAX package)
+through four phases, each printing one JSON line:
+
+  1. build   -- compile every CUDA kernel of the port from csrc/ with nvcc
+               for sm_90a (one nvcc per source, all started together);
+  2. kernels -- hold each kernel against its plain PyTorch version on the
+               card, limb-exact, and time both (CUDA events);
+  3. program -- one assembled VM program (hard_part_frobenius, fold 1) on
+               the CUDA executor against the plain executor, limb-exact;
+  4. slice   -- the main path at mainnet size: batch_fast_aggregate_verify
+               over one slot of 64 committee aggregates of 146 members
+               (300k validators / 32 slots / 64 committees), 4 of them
+               planted invalid; the verdicts must equal the planted ones,
+               three items must agree with the pure-int pairing oracle, and
+               the step kernel must have been launched.
+
+Then it prints the card's name and power limit, a ``{"kernels": [...]}``
+line, and last ``{"ok": true, "device": {...}}``. Any failure exits
+non-zero before the last line. Without a CUDA device, or without the
+package beside this script, it exits non-zero and prints no result.
+"""
+import contextlib
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SEED = 20261016
+
+# H100 SXM data-sheet rate: HBM bandwidth.
+HBM_BYTES_PER_S = 3.35e12
+# 32-bit integer multiply-adds issued per SM per clock on Hopper (the INT32
+# pipe: 16 lanes in each of the SM's 4 partitions); the rate is this times
+# the SM count and the card's maximum SM clock, both read at run time.
+IMAD_PER_SM_CLOCK = 64
+# A 28x28-bit limb product accumulated into 64 bits is one 32x32->64
+# multiply-add, counted as two 32-bit IMADs (low and high halves).
+IMAD_PER_WIDE_MAC = 2
+# Montgomery product over 15 limbs: 225 schoolbook products, 15 reduction
+# factors m_i, 225 products m_i * p_j.
+WIDE_MACS_PER_MONT = 225 + 15 + 225
+# LIN lane: 15 limbs of (complement, add, add carry, mask, shift).
+INT_OPS_PER_LIN = 15 * 5
+LIMB_BYTES = 8  # int64 limbs
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def _check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def _emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def _nvidia_smi(query):
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def _ptxas_summary(log):
+    """Registers a thread and spill bytes from nvcc's -Xptxas -v report."""
+    regs = re.findall(r"Used (\d+) registers", log)
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                        log)
+    return {"registers": [int(r) for r in regs],
+            "spill_bytes": [int(a) + int(b) for a, b in spills]}
+
+
+def _cuda_ms(torch, fn, reps):
+    """Mean device time of fn() over reps launches (CUDA events), after
+    one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _rand_loose_limbs(rng, shape, bits=401):
+    """Random loose residues below 2^bits as (..., 15) int64 limbs < 2^28."""
+    limbs = rng.integers(0, 1 << 28, size=tuple(shape) + (15,), dtype=np.int64)
+    full, rest = divmod(bits, 28)
+    limbs[..., full] &= (1 << rest) - 1
+    limbs[..., full + 1:] = 0
+    return limbs
+
+
+# ---------------------------------------------------------------------------
+# phase 2: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def phase_mont_mul(torch, dev, rng, imad_rate):
+    from consensus_specs_tpu_torch.ops import cuda_fq, fq
+
+    m = 65536
+    a = torch.from_numpy(_rand_loose_limbs(rng, (m,))).to(dev)
+    b = torch.from_numpy(_rand_loose_limbs(rng, (m,))).to(dev)
+    got = cuda_fq.mont_mul(a, b)
+    want = fq.mont_mul_plain(a, b)
+    torch.cuda.synchronize()
+    err = int((got - want).abs().max().item())
+    _check(err == 0, f"mont_mul kernel differs from plain: max |err| {err}")
+    _check(int(got.max().item()) < (1 << 28), "mont_mul limbs not carried")
+    ms = _cuda_ms(torch, lambda: cuda_fq.mont_mul(a, b), 200)
+    plain_ms = _cuda_ms(torch, lambda: fq.mont_mul_plain(a, b), 10)
+    n_bytes = 3 * m * 15 * LIMB_BYTES
+    n_ops = m * WIDE_MACS_PER_MONT * IMAD_PER_WIDE_MAC
+    return {
+        "name": "mont_mul", "products": m, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bytes": n_bytes, "imad": n_ops,
+        **_bound(n_bytes, n_ops, imad_rate),
+    }
+
+
+def _synthetic_step(rng, rows, w_mul, w_lin, n_regs):
+    """One full-width VM step whose writes alias some of its reads: random
+    loose registers, distinct destinations, sub lanes' b below 2^381."""
+    regs = _rand_loose_limbs(rng, (rows, n_regs))
+    msa = rng.integers(0, n_regs, w_mul, dtype=np.int32)
+    msb = rng.integers(0, n_regs, w_mul, dtype=np.int32)
+    lsa = rng.integers(0, n_regs, w_lin, dtype=np.int32)
+    lsb = rng.integers(0, n_regs, w_lin, dtype=np.int32)
+    lsub = rng.random(w_lin) < 0.5
+    dests = rng.choice(n_regs, w_mul + w_lin, replace=False).astype(np.int32)
+    msd, lsd = dests[:w_mul], dests[w_mul:]
+    # read-before-write: lanes read registers this step also writes
+    msa[:8] = lsd[:8]
+    msb[8:16] = msd[:8]
+    lsa[:8] = msd[8:16]
+    lsb[8:16] = lsd[16:24]
+    for r in np.unique(lsb[lsub]):
+        regs[:, r] = _rand_loose_limbs(rng, (rows,), bits=381)
+    return regs, (msa, msb, msd, lsa, lsb, lsub, lsd)
+
+
+def phase_vm_step(torch, dev, rng, imad_rate):
+    from consensus_specs_tpu_torch.ops import cuda_step, vm
+
+    rows, w_mul, w_lin, n_regs = 8, 96, 192, 4096
+    regs_np, instr_np = _synthetic_step(rng, rows, w_mul, w_lin, n_regs)
+    aliased = set(instr_np[2].tolist() + instr_np[6].tolist()) & set(
+        np.concatenate([instr_np[i] for i in (0, 1, 3, 4)]).tolist())
+    _check(len(aliased) >= 16, "synthetic step does not alias reads/writes")
+
+    def to_dev(x):
+        x = x.astype(np.uint8) if x.dtype == bool else x
+        return torch.from_numpy(np.ascontiguousarray(x[None])).to(dev)
+
+    instr = tuple(to_dev(x) for x in instr_np)
+    regs0 = torch.from_numpy(regs_np).to(dev)
+    got = cuda_step.run_steps(regs0.clone(), instr)
+    want = vm._vm_step_plain(regs0.clone(), tuple(x[0] for x in instr))
+    torch.cuda.synchronize()
+    err = int((got - want).abs().max().item())
+    _check(err == 0, f"vm_step kernel differs from plain: max |err| {err}")
+
+    # time: the same step repeated, all launches from one C call
+    reps = 2000
+    instr_rep = tuple(x.expand(reps, -1).contiguous() for x in instr)
+    work = regs0.clone()
+    ms = _cuda_ms(torch, lambda: cuda_step.run_steps(work, instr_rep), 1) / reps
+    plain_work = regs0.clone()
+    one = tuple(x[0] for x in instr)
+    plain_ms = _cuda_ms(torch, lambda: vm._vm_step_plain(plain_work, one), 20)
+
+    n_read = len(set(np.concatenate(
+        [instr_np[i] for i in (0, 1, 3, 4)]).tolist()))
+    n_write = w_mul + w_lin
+    instr_bytes = sum(x.nbytes for x in instr_np)
+    n_bytes = rows * (n_read + n_write) * 15 * LIMB_BYTES + instr_bytes
+    n_ops = rows * (w_mul * WIDE_MACS_PER_MONT * IMAD_PER_WIDE_MAC
+                    + w_lin * INT_OPS_PER_LIN)
+    return {
+        "name": "vm_step", "rows": rows, "w_mul": w_mul, "w_lin": w_lin,
+        "n_regs": n_regs, "aliased_regs": len(aliased), "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bytes": n_bytes, "imad": n_ops,
+        **_bound(n_bytes, n_ops, imad_rate),
+    }
+
+
+def _bound(n_bytes, n_ops, imad_rate):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / imad_rate * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+# ---------------------------------------------------------------------------
+# phase 3: one program, CUDA executor against the plain executor
+# ---------------------------------------------------------------------------
+
+
+def phase_program(torch, dev, rng):
+    from consensus_specs_tpu_torch.ops import bls_backend, fq, vm
+
+    prog, fold = bls_backend._program("hard_part_frobenius", 0, 1)
+    rows = 2
+    ins = {}
+    for name in prog.input_names:
+        ins[name] = np.stack([
+            fq.to_mont_int(int(rng.integers(1, 1 << 62)) ** 6 % fq.P)
+            for _ in range(rows)])
+    t0 = time.perf_counter()
+    got = vm.execute(prog, ins, batch_shape=(rows,), device=dev)
+    cuda_s = time.perf_counter() - t0
+    stacked = prog.stack_inputs(ins, (rows,))
+    regs = vm._init_regs(prog, stacked, dev)
+    t0 = time.perf_counter()
+    vm._run_steps_plain(regs, prog.device_instr(dev))
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    want = regs[:, torch.as_tensor(prog.output_regs.astype(np.int64),
+                                   device=dev)].cpu().numpy()
+    for i, name in enumerate(prog.output_names):
+        _check(np.array_equal(got[name], want[:, i].astype(np.uint64)),
+               f"program output {name} differs between executors")
+    return {"phase": "program", "kind": "hard_part_frobenius", "fold": fold,
+            "rows": rows, "steps": prog.n_steps, "n_regs": prog.n_regs,
+            "outputs": len(prog.output_names), "exact": True,
+            "cuda_s": cuda_s, "plain_s": plain_s}
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the slice at mainnet size
+# ---------------------------------------------------------------------------
+
+N_COMMITTEES = 64
+COMMITTEE = 146  # 300,000 validators / 32 slots / 64 committees
+KEY_POOL = 512
+
+
+def make_slot(seed=SEED, n_committees=N_COMMITTEES, committee=COMMITTEE,
+              pool=KEY_POOL):
+    """One slot's attestation aggregates: (pubkey_sets, messages,
+    signatures, expected verdicts, planted {reason: index}, pool info).
+
+    Members come from a pool of distinct keys with small secret keys
+    (index + 1) << 16 | salt, so SkToPk is a short double-and-add; each
+    aggregate is one signature by the committee's summed secret key (an
+    aggregate of same-message signatures equals it)."""
+    from consensus_specs_tpu_torch.ops.bls_backend import DST
+    from consensus_specs_tpu_torch.utils import bls12_381 as O
+
+    rng = np.random.default_rng(seed)
+    salt = int(rng.integers(0, 1 << 16))
+    sks = [((i + 1) << 16) | salt for i in range(pool)]
+    pks = [O.g1_to_bytes(O.ec_mul(O.G1_GEN, sk)) for sk in sks]
+    members = [rng.choice(pool, committee, replace=False)
+               for _ in range(n_committees)]
+    messages = [rng.bytes(32) for _ in range(n_committees)]
+
+    def sign(idx, msg):
+        agg_sk = sum(sks[int(i)] for i in idx) % O.R
+        return O.g2_to_bytes(O.ec_mul(O.hash_to_g2(msg, DST), agg_sk))
+
+    pubkey_sets = [[pks[int(i)] for i in m] for m in members]
+    signatures = [sign(m, msg) for m, msg in zip(members, messages)]
+    expected = np.ones(n_committees, dtype=bool)
+    planted = {"wrong_message": 5, "other_committee_signature": 17,
+               "missing_member": 33, "malformed_signature": 50}
+    i = planted["wrong_message"]
+    messages[i] = rng.bytes(32)
+    i = planted["other_committee_signature"]
+    signatures[i] = signatures[i + 1]
+    i = planted["missing_member"]
+    pubkey_sets[i] = pubkey_sets[i][:-1]
+    i = planted["malformed_signature"]
+    signatures[i] = bytes([signatures[i][0] ^ 0x80]) + signatures[i][1:]
+    for i in planted.values():
+        expected[i] = False
+    return pubkey_sets, messages, signatures, expected, planted
+
+
+def oracle_verdict(pubkeys, message, signature):
+    """FastAggregateVerify by the pure-int oracle: e(sum pk, H(m)) ==
+    e(G1, sig) as one multi-pairing."""
+    from consensus_specs_tpu_torch.ops.bls_backend import DST
+    from consensus_specs_tpu_torch.utils import bls12_381 as O
+
+    try:
+        sig = O.g2_from_bytes(signature)
+        pts = [O.g1_from_bytes(pk) for pk in pubkeys]
+    except ValueError:
+        return False
+    if sig is None or not pts or any(p is None for p in pts):
+        return False
+    agg = None
+    for p in pts:
+        agg = O.ec_add(agg, O.ec_from_affine(p))
+    if agg is None:
+        return False
+    h = O.ec_to_affine(O.hash_to_g2(message, DST))
+    neg_g1 = O.ec_to_affine(O.ec_neg(O.G1_GEN))
+    f = O.multi_pairing([(O.ec_to_affine(agg), h), (neg_g1, sig)])
+    return f == O.Fq12.one()
+
+
+@contextlib.contextmanager
+def _patched(module, name, wrap):
+    """Replace module.name by wrap(original) for the duration."""
+    real = getattr(module, name)
+    setattr(module, name, wrap(real))
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def _host_timer(sink):
+    def wrap(fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                sink.append(time.perf_counter() - t0)
+        return timed
+    return wrap
+
+
+def _device_timer(torch, sink):
+    def wrap(fn):
+        def timed(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            end.synchronize()
+            sink.append(start.elapsed_time(end))
+            return out
+        return timed
+    return wrap
+
+
+def _verify_timed(torch, slot):
+    """One batch_fast_aggregate_verify call on the card, with its wall time
+    split into program assembly, the device stages (vm.execute: upload,
+    steps, readback), the step kernels alone (CUDA events), the host easy
+    part, and the rest of the host work (decode, subgroup checks,
+    hash-to-G2, staging)."""
+    from consensus_specs_tpu_torch.ops import bls_backend, cuda_step, vm
+
+    pubkey_sets, messages, signatures = slot
+    asm, execs, easy, steps = [], [], [], []
+    with _patched(bls_backend, "_program", _host_timer(asm)), \
+            _patched(vm, "execute", _host_timer(execs)), \
+            _patched(bls_backend, "_easy_part_batch", _host_timer(easy)), \
+            _patched(cuda_step, "run_steps", _device_timer(torch, steps)):
+        t0 = time.perf_counter()
+        got = bls_backend.batch_fast_aggregate_verify(
+            pubkey_sets, messages, signatures)
+        wall = time.perf_counter() - t0
+    split = {"wall_s": wall, "assemble_s": sum(asm),
+             "vm_execute_s": sum(execs), "vm_executions": len(execs),
+             "step_kernel_ms": sum(steps), "easy_part_s": sum(easy)}
+    split["other_host_s"] = wall - split["assemble_s"] \
+        - split["vm_execute_s"] - split["easy_part_s"]
+    return got, split
+
+
+def phase_slice(torch, card):
+    from consensus_specs_tpu_torch.ops import bls_backend, cuda_fq, cuda_step
+
+    t0 = time.perf_counter()
+    pubkey_sets, messages, signatures, expected, planted = make_slot()
+    setup_s = time.perf_counter() - t0
+    slot = (pubkey_sets, messages, signatures)
+
+    cuda_step.LAUNCHES = 0
+    cuda_fq.LAUNCHES = 0
+    got, cold = _verify_timed(torch, slot)
+    launches = {"vm_step": cuda_step.LAUNCHES, "mont_mul": cuda_fq.LAUNCHES}
+    _check(list(got) == list(expected),
+           f"verdicts {np.flatnonzero(~got).tolist()} false, planted "
+           f"{sorted(planted.values())}")
+    _check(launches["vm_step"] > 0, "the step kernel was never launched")
+
+    # warm: programs assembled, host caches filled
+    warm_runs = []
+    for _ in range(3):
+        got2, warm = _verify_timed(torch, slot)
+        _check(list(got2) == list(expected), "warm run verdicts differ")
+        warm_runs.append(warm)
+    warm = min(warm_runs, key=lambda r: r["wall_s"])
+
+    checked = {}
+    for i in (0, 1, planted["wrong_message"]):
+        t0 = time.perf_counter()
+        want = oracle_verdict(pubkey_sets[i], messages[i], signatures[i])
+        _check(bool(got[i]) == want,
+               f"item {i}: port says {bool(got[i])}, oracle {want}")
+        checked[str(i)] = {"verdict": want,
+                           "oracle_s": time.perf_counter() - t0}
+
+    n = len(expected)
+    return {
+        "phase": "slice", "entry": "batch_fast_aggregate_verify",
+        "committees": n, "committee_size": COMMITTEE,
+        "k_bucket": bls_backend._k_bucket(COMMITTEE),
+        "key_pool": KEY_POOL, "planted_invalid": planted,
+        "verdicts_exact": True, "oracle_checked": checked,
+        "setup_s": setup_s, "cold": cold, "warm_best_of_3": warm,
+        "warm_wall_s_all": [r["wall_s"] for r in warm_runs],
+        "verifications_per_s_warm": n / warm["wall_s"],
+        "step_kernel_launches": launches["vm_step"],
+        "mont_mul_kernel_launches": launches["mont_mul"], **card,
+    }, launches
+
+
+# ---------------------------------------------------------------------------
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    try:
+        import consensus_specs_tpu_torch as port
+    except ImportError as e:
+        print(f"chip_smoke: the port package is missing beside this script "
+              f"({e})", file=sys.stderr)
+        return 2
+    if not os.path.abspath(port.__file__).startswith(HERE + os.sep):
+        print(f"chip_smoke: imported {port.__file__}, not this checkout's "
+              "package", file=sys.stderr)
+        return 2
+    from consensus_specs_tpu_torch.ops import cuda_build
+
+    dev = torch.device("cuda")
+    name, power = (s.strip() for s in _nvidia_smi("name,power.limit").split(","))
+    card = {"card": name, "power_limit": power}
+    props = torch.cuda.get_device_properties(0)
+    sm_clock_mhz = float(_nvidia_smi("clocks.max.sm").split()[0])
+    imad_rate = props.multi_processor_count * IMAD_PER_SM_CLOCK \
+        * sm_clock_mhz * 1e6
+    rng = np.random.default_rng(SEED)
+
+    try:
+        t0 = time.perf_counter()
+        reports = cuda_build.build()
+        build_s = time.perf_counter() - t0
+        _emit({"phase": "build", "kernels": list(cuda_build.KERNELS),
+               "compiled": sorted(reports), "build_s": build_s,
+               "ptxas": {k: _ptxas_summary(log) for k, log in reports.items()},
+               "sms": props.multi_processor_count,
+               "sm_clock_max_mhz": sm_clock_mhz, **card})
+
+        k_mont = phase_mont_mul(torch, dev, rng, imad_rate)
+        k_step = phase_vm_step(torch, dev, rng, imad_rate)
+        _emit({"phase": "kernels", "results": [k_mont, k_step], **card})
+
+        _emit({**phase_program(torch, dev, rng), **card})
+
+        slice_line, launches = phase_slice(torch, card)
+        _emit(slice_line)
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+
+    kernels = [
+        {"name": "vm_step", "route": "cuda",
+         "source": "consensus_specs_tpu_torch/csrc/vm_step.cu",
+         "replaces": "consensus_specs_tpu/ops/pallas_step.py:53",
+         "launches": launches["vm_step"], "max_abs_err": k_step["max_abs_err"],
+         "ms": k_step["ms"], "plain_ms": k_step["plain_ms"],
+         "bound_ms": k_step["bound_ms"], "bound_by": k_step["bound_by"],
+         "library_ms": None},
+        {"name": "mont_mul", "route": "cuda",
+         "source": "consensus_specs_tpu_torch/csrc/mont_mul.cu",
+         "replaces": "consensus_specs_tpu/ops/pallas_fq.py:129",
+         "launches": launches["mont_mul"], "max_abs_err": k_mont["max_abs_err"],
+         "ms": k_mont["ms"], "plain_ms": k_mont["plain_ms"],
+         "bound_ms": k_mont["bound_ms"], "bound_by": k_mont["bound_by"],
+         "library_ms": None},
+    ]
+    print(f"{name}, {power}", flush=True)
+    _emit({"kernels": kernels})
+    _emit({"ok": True, "device": {"platform": "gpu",
+                                  "kind": torch.cuda.get_device_name(0),
+                                  "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

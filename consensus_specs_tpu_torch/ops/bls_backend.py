@@ -1,0 +1,588 @@
+"""Batched BLS aggregate-signature verification on the CUDA card: the
+verify subset of consensus_specs_tpu/ops/bls_backend.py.
+
+Pipeline (the same as the JAX package's, with the same programs):
+
+  HOST  decode / KeyValidate pubkeys, decode + subgroup-check signatures,
+        hash messages to G2 — per item with the exact-int oracle
+        (utils/bls12_381.py), the Montgomery limb encodings cached.
+  PROG A (device) aggregate K projective pubkeys + both Miller loops
+        -> f, agg_Z (vmlib miller_product / aggregate_verify).
+  HOST  easy part of the final exponentiation (one exact Fq12 inversion +
+        Frobenius), serially.
+  PROG B (device) hard part -> res (vmlib hard_part_frobenius / hard_part).
+  HOST  res == 1, AND precheck AND agg != infinity.
+
+Every device stage is one ``vm.execute``, which on the card runs each VM
+step through the fused CUDA step kernel. A verification whose host prep
+fails (bad encoding, subgroup failure, infinity pubkey) is False without
+touching the device.
+
+Entry points take ``device=None`` (the CUDA card; raises without one) or
+``device="cpu"`` (the plain PyTorch steps).
+"""
+import functools
+import hashlib
+import os
+import pickle
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..device import resolve_device
+from ..utils import bls12_381 as O
+from ..utils.bls12_381 import P
+from . import fq, vm, vmlib
+
+DST = b"BLS_SIG_BLS12381G2_XMD:SHA-256_SSWU_RO_POP_"
+
+# VM shape (the JAX package's): lane widths of the two ALU units, step
+# count padding, committee-size buckets. 160 covers the mainnet committee
+# (~146 members at 300k validators) without padding to 256.
+W_MUL = 96
+W_LIN = 192
+PAD_STEPS = 256
+_K_BUCKETS = [1, 2, 4, 8, 16, 32, 64, 128, 160, 256, 512, 1024, 2048]
+
+_VM_CACHE_VERSION = 1
+
+
+def _k_bucket(k: int) -> int:
+    for b in _K_BUCKETS:
+        if k <= b:
+            return b
+    raise ValueError(f"committee size {k} exceeds max bucket {_K_BUCKETS[-1]}")
+
+
+def _pow2(n: int) -> int:
+    b = 1
+    while b < n:
+        b <<= 1
+    return b
+
+
+def _pow2_floor(n: int) -> int:
+    b = 1
+    while b * 2 <= n:
+        b <<= 1
+    return b
+
+
+def _fold_for(kind: str, k: int, n_items: int = 1 << 30) -> int:
+    """Items folded per program row (lane folding): enough to saturate
+    the lanes, capped so the register file stays modest for wide-committee
+    buckets, and never more than the batch itself."""
+    if kind == "hard_part":
+        table = 32
+    elif kind in ("hard_part_windowed", "hard_part_frobenius"):
+        table = 8
+    elif kind == "rlc_combine":
+        table = max(1, 16 // max(1, k))
+    elif kind in ("g1_subgroup", "h2g_finish"):
+        table = 4
+    elif kind == "g2_subgroup":
+        table = 8
+    elif k <= 160:
+        table = 8
+    elif k <= 256:
+        table = 4
+    elif k <= 512:
+        table = 2
+    else:
+        table = 1
+    return min(table, _pow2_floor(max(1, n_items)))
+
+
+def _vm_cache_dir() -> str:
+    """Port-owned program cache beside the package (gitignored). It never
+    reads the JAX package's .vm_cache: those pickles hold the JAX
+    package's Program class."""
+    d = os.path.join(
+        os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__)))),
+        ".vm_cache_torch",
+    )
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+@functools.lru_cache(maxsize=1)
+def _program_fingerprint() -> str:
+    """Hash of the sources an assembled program depends on (the assembler,
+    the limb layout, the builders): any edit re-keys the whole cache."""
+    h = hashlib.sha256()
+    for mod in (vm, fq, vmlib):
+        with open(mod.__file__, "rb") as fh:
+            h.update(fh.read())
+    return h.hexdigest()[:10]
+
+
+@functools.lru_cache(maxsize=None)
+def _program(kind: str, k: int = 0, fold: int = None) -> Tuple[vm.Program, int]:
+    """Assembled program + its fold factor, disk-cached per program in
+    ``.vm_cache_torch/`` (only pickles this code wrote are read back)."""
+    if fold is None:
+        fold = _fold_for(kind, k)
+    builder = vmlib.BUILDERS.get(kind)
+    if builder is None:
+        raise ValueError(kind)
+    path = os.path.join(
+        _vm_cache_dir(),
+        f"v{_VM_CACHE_VERSION}_{_program_fingerprint()}_{kind}_k{k}_f{fold}"
+        f"_w{W_MUL}x{W_LIN}_p{PAD_STEPS}.pkl",
+    )
+    try:
+        with open(path, "rb") as fh:
+            loaded = pickle.load(fh)
+        if isinstance(loaded, vm.Program):
+            return loaded, fold
+    except (OSError, pickle.UnpicklingError, EOFError, AttributeError):
+        pass  # absent or unreadable entry: assemble below
+    assembled = builder(k, fold).assemble(
+        w_mul=W_MUL, w_lin=W_LIN, pad_steps_to=PAD_STEPS,
+        pad_regs_to=_pow2(64),
+    )
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        with open(tmp, "wb") as fh:
+            pickle.dump(assembled, fh)
+        os.replace(tmp, path)
+    except OSError:
+        pass  # the cache is an optimization only
+    return assembled, fold
+
+
+# ---------------------------------------------------------------------------
+# host-side codecs (cached limb encodings)
+# ---------------------------------------------------------------------------
+
+_INF_G1 = (
+    fq.to_mont_int(0),
+    fq.to_mont_int(1),
+    fq.to_mont_int(0),
+)  # projective infinity (0:1:0)
+_ONE_LIMBS = fq.to_mont_int(1)
+
+# G2 generator limbs, stacked (x.0, x.1, y.0, y.1) x L — filler for
+# inactive batch lanes
+_G2GEN = O.ec_to_affine(O.G2_GEN)
+_G2GEN_LIMBS = np.stack(
+    [
+        fq.to_mont_int(_G2GEN[0].c0),
+        fq.to_mont_int(_G2GEN[0].c1),
+        fq.to_mont_int(_G2GEN[1].c0),
+        fq.to_mont_int(_G2GEN[1].c1),
+    ]
+)
+
+_G2_COMPS = ("x.0", "x.1", "y.0", "y.1")
+
+_SIG_CACHE: Dict[bytes, object] = {}
+_MSG_CACHE: Dict[bytes, np.ndarray] = {}
+_PK_CACHE: Dict[bytes, object] = {}
+# pubkeys get the big cache: a mainnet validator set is ~1M keys and they
+# repeat every slot; messages/signatures churn per epoch
+_CACHE_CAPS = {id(_SIG_CACHE): 1 << 16, id(_MSG_CACHE): 1 << 16,
+               id(_PK_CACHE): 1 << 20}
+
+
+def _cache_put(cache: Dict, key: bytes, value) -> None:
+    """Insert; at capacity, drop the least-recently-used half (hits
+    refresh insertion order, so dict order is recency order)."""
+    if len(cache) >= _CACHE_CAPS[id(cache)]:
+        for k in list(cache.keys())[: len(cache) // 2]:
+            cache.pop(k, None)
+    cache[key] = value
+
+
+def _cached(cache: Dict, key: bytes, compute):
+    """Compute fns RETURN a ValueError value on validation failure; only
+    successes are cached, so invalid inputs can neither occupy slots nor
+    force evictions. A failure is raised here."""
+    v = cache.get(key)
+    if v is None:
+        v = compute(key)
+        if not isinstance(v, ValueError):
+            _cache_put(cache, key, v)
+    else:
+        cache.pop(key, None)  # refresh recency
+        cache[key] = v
+    if isinstance(v, ValueError):
+        raise v
+    return v
+
+
+def _pubkey_limbs_compute(pk: bytes):
+    """KeyValidate + Montgomery-encode; failures are ValueError values."""
+    aff = O.g1_from_bytes(pk)
+    if aff is None:
+        return ValueError("pubkey is the point at infinity")
+    if not O.is_in_g1_subgroup(O.ec_from_affine(aff)):
+        return ValueError("pubkey not in G1 subgroup")
+    return fq.to_mont_int(aff[0].n), fq.to_mont_int(aff[1].n)
+
+
+def _pubkey_limbs(pk: bytes) -> Tuple[np.ndarray, np.ndarray]:
+    """Cached: validator pubkeys repeat across every slot of an epoch."""
+    return _cached(_PK_CACHE, pk, _pubkey_limbs_compute)
+
+
+def _signature_limbs_compute(sig: bytes):
+    """(4, L) stacked Montgomery limbs, or the ValueError to re-raise."""
+    aff = O.g2_from_bytes(sig)
+    if aff is None:
+        return ValueError("signature is the point at infinity")
+    if not O.is_in_g2_subgroup(O.ec_from_affine(aff)):
+        return ValueError("signature not in G2 subgroup")
+    x, y = aff
+    return np.stack(
+        [
+            fq.to_mont_int(x.c0),
+            fq.to_mont_int(x.c1),
+            fq.to_mont_int(y.c0),
+            fq.to_mont_int(y.c1),
+        ]
+    )
+
+
+def _signature_limbs(sig: bytes) -> np.ndarray:
+    return _cached(_SIG_CACHE, sig, _signature_limbs_compute)
+
+
+def _message_limbs_compute(message: bytes) -> np.ndarray:
+    x, y = O.ec_to_affine(O.hash_to_g2(message, DST))
+    return np.stack(
+        [
+            fq.to_mont_int(x.c0),
+            fq.to_mont_int(x.c1),
+            fq.to_mont_int(y.c0),
+            fq.to_mont_int(y.c1),
+        ]
+    )
+
+
+def _message_limbs(message: bytes) -> np.ndarray:
+    """(4, L) stacked hash-to-G2 point limbs (dict-cached)."""
+    return _cached(_MSG_CACHE, message, _message_limbs_compute)
+
+
+# ---------------------------------------------------------------------------
+# final exponentiation: host easy part, device hard part
+# ---------------------------------------------------------------------------
+
+
+def _flat_ints_to_oracle(coeffs: Sequence[int]) -> O.Fq12:
+    sixes = []
+    for half in range(2):
+        fq2s = []
+        for vi in range(3):
+            k = 2 * vi + half
+            b = coeffs[k + 6]
+            a = (coeffs[k] + b) % P
+            fq2s.append(O.Fq2(a, b))
+        sixes.append(O.Fq6(*fq2s))
+    return O.Fq12(sixes[0], sixes[1])
+
+
+def _oracle_to_flat_ints(x: O.Fq12) -> List[int]:
+    coeffs = [0] * 12
+    for half, f6 in enumerate((x.c0, x.c1)):
+        for vi, f2 in enumerate((f6.c0, f6.c1, f6.c2)):
+            k = 2 * vi + half
+            coeffs[k] = (coeffs[k] + f2.c0 - f2.c1) % P
+            coeffs[k + 6] = (coeffs[k + 6] + f2.c1) % P
+    return coeffs
+
+
+def _easy_part_flat(f_coeffs: List[int]) -> Optional[List[int]]:
+    """Host easy part: f -> f^((p^6-1)(p^2+1)); None if f is degenerate."""
+    f = _flat_ints_to_oracle(f_coeffs)
+    if f.is_zero():
+        return None
+    g = f.conjugate() * f.inverse()
+    g = g.frobenius().frobenius() * g
+    return _oracle_to_flat_ints(g)
+
+
+def _ns(fold: int, t: int) -> str:
+    return f"i{t}." if fold > 1 else ""
+
+
+class _FoldLayout:
+    """Row/lane layout of a folded batch — the one place that knows item i
+    lives at row i // fold under name prefix _ns(fold, i % fold), so the
+    scatter and the readback can never diverge."""
+
+    __slots__ = ("program", "fold", "rows", "nb")
+
+    def __init__(self, kind: str, k: int, n_items: int, fold=None):
+        if fold is None:
+            fold = _fold_for(kind, k, n_items)
+        self.program, self.fold = _program(kind, k, fold=fold)
+        self.rows = _pow2(max(1, -(-n_items // self.fold)))
+        self.nb = self.rows * self.fold
+
+    def views(self, arr: np.ndarray) -> np.ndarray:
+        """(nb, ...) staging array -> (rows, fold, ...) view."""
+        return arr.reshape((self.rows, self.fold) + arr.shape[1:])
+
+    def split(self, i: int) -> Tuple[int, str]:
+        """Item index -> (row, name prefix)."""
+        r, t = divmod(i, self.fold)
+        return r, _ns(self.fold, t)
+
+    def scatter(self, ins: Dict[str, np.ndarray], arr: np.ndarray, name_fn):
+        """Register a (nb, *inner, L) staging array's slices under their
+        folded input names: ins[prefix + name_fn(*inner_idx)]."""
+        v = self.views(arr)
+        inner = v.shape[2:-1]
+        for t in range(self.fold):
+            ns = _ns(self.fold, t)
+            for idx in np.ndindex(*inner):
+                ins[ns + name_fn(*idx)] = v[(slice(None), t) + idx]
+
+
+def _easy_part_batch(out, lay, precheck, aggz: bool):
+    """Readback of PROG A outputs + the easy part for every active item,
+    serially. Returns (g_batch, agg_nonzero | None); degenerate items
+    clear their precheck bit in place."""
+    nb = len(precheck)
+    agg_nonzero = np.zeros(nb, dtype=bool) if aggz else None
+    g_batch = np.zeros((nb, 12, fq.NUM_LIMBS), dtype=np.uint64)
+    for i in range(nb):
+        if not precheck[i]:
+            continue
+        r, ns = lay.split(i)
+        if aggz:
+            agg_nonzero[i] = fq.from_mont_limbs(out[f"{ns}aggz"][r]) != 0
+        g = _easy_part_flat(
+            [fq.from_mont_limbs(out[f"{ns}f.{j}"][r]) for j in range(12)])
+        if g is None:
+            precheck[i] = False
+        else:
+            g_batch[i] = np.stack([fq.to_mont_int(c) for c in g])
+    return g_batch, agg_nonzero
+
+
+def _hard_part_kind(n_items: int) -> str:
+    """Which hard-part program serves an n_items batch: the Frobenius
+    width-for-depth variant for small batches (shorter critical path),
+    the bit-serial chain (fewer multiplies) once the lanes saturate."""
+    return "hard_part_frobenius" if n_items <= 16 else "hard_part"
+
+
+def _run_hard_part(g_flat_batch: np.ndarray, device,
+                   kind: str = None) -> np.ndarray:
+    """(N, 12, L) unitary g limb batch -> (N,) bool (res == 1)."""
+    n = g_flat_batch.shape[0]
+    if kind is None:
+        kind = _hard_part_kind(n)
+    lay = _FoldLayout(kind, 0, n)
+    gb = np.zeros((lay.nb, 12, fq.NUM_LIMBS), dtype=np.uint64)
+    gb[:n] = g_flat_batch
+    ins = {}
+    lay.scatter(ins, gb, lambda i: f"g.{i}")
+    out = vm.execute(lay.program, ins, batch_shape=(lay.rows,), device=device)
+    ok = np.zeros(n, dtype=bool)
+    for i in range(n):
+        r, ns = lay.split(i)
+        res = [fq.from_mont_limbs(out[f"{ns}res.{j}"][r]) for j in range(12)]
+        ok[i] = res[0] == 1 and all(rc == 0 for rc in res[1:])
+    return ok
+
+
+# ---------------------------------------------------------------------------
+# batched public API
+# ---------------------------------------------------------------------------
+
+
+def _miller_fast_aggregate(
+    pubkey_sets, messages, signatures, device
+) -> Tuple[Optional[dict], "_FoldLayout", np.ndarray]:
+    """PROG A stage of batch_fast_aggregate_verify: host prep + the
+    aggregate-and-Miller program. Returns (out, lay, precheck); ``out`` is
+    None when no item survived host prep."""
+    n = len(pubkey_sets)
+    max_k = max((len(pks) for pks in pubkey_sets), default=1)
+    k = _k_bucket(max(1, max_k))
+    L = fq.NUM_LIMBS
+
+    lay = _FoldLayout("miller_product", k, n)
+    nb = lay.nb
+    # stacked staging arrays; inactive-lane fillers: infinity pubkeys
+    # (0:1:0), generator G2 points
+    precheck = np.zeros(nb, dtype=bool)
+    pk_x = np.zeros((nb, k, L), dtype=np.uint64)
+    pk_y = np.zeros((nb, k, L), dtype=np.uint64)
+    pk_y[:] = _INF_G1[1]
+    pk_z = np.zeros((nb, k, L), dtype=np.uint64)
+    hm = np.zeros((nb, 4, L), dtype=np.uint64)
+    hm[:] = _G2GEN_LIMBS
+    sg = np.zeros((nb, 4, L), dtype=np.uint64)
+    sg[:] = _G2GEN_LIMBS
+
+    for i, (pks, msg, sig) in enumerate(zip(pubkey_sets, messages, signatures)):
+        try:
+            if len(pks) == 0:
+                raise ValueError("empty pubkey set")
+            enc = [_pubkey_limbs(bytes(pk)) for pk in pks]
+            s = _signature_limbs(bytes(sig))
+            h = _message_limbs(bytes(msg))
+        except (ValueError, TypeError):
+            continue  # host prep failed: the item is False
+        m = len(enc)
+        pk_x[i, :m] = [e[0] for e in enc]
+        pk_y[i, :m] = [e[1] for e in enc]
+        pk_z[i, :m] = _ONE_LIMBS
+        hm[i] = h
+        sg[i] = s
+        precheck[i] = True
+
+    if not precheck.any():
+        return None, lay, precheck
+
+    ins = {}
+    lay.scatter(ins, pk_x, lambda j: f"pk{j}.x")
+    lay.scatter(ins, pk_y, lambda j: f"pk{j}.y")
+    lay.scatter(ins, pk_z, lambda j: f"pk{j}.z")
+    lay.scatter(ins, hm, lambda ci: f"h.{_G2_COMPS[ci]}")
+    lay.scatter(ins, sg, lambda ci: f"sig.{_G2_COMPS[ci]}")
+
+    out = vm.execute(lay.program, ins, batch_shape=(lay.rows,), device=device)
+    return out, lay, precheck
+
+
+def batch_fast_aggregate_verify(
+    pubkey_sets: Sequence[Sequence[bytes]],
+    messages: Sequence[bytes],
+    signatures: Sequence[bytes],
+    device=None,
+) -> np.ndarray:
+    """N independent FastAggregateVerify calls in one device pipeline
+    (reference specs/phase0/beacon-chain.md's per-attestation verify)."""
+    dev = resolve_device(device)
+    n = len(pubkey_sets)
+    if len(messages) != n or len(signatures) != n:
+        raise ValueError("pubkey_sets, messages and signatures differ in length")
+    if n == 0:
+        return np.zeros(0, dtype=bool)
+    out, lay, precheck = _miller_fast_aggregate(
+        pubkey_sets, messages, signatures, dev
+    )
+    if out is None:
+        return precheck[:n]
+    g_batch, agg_nonzero = _easy_part_batch(out, lay, precheck, aggz=True)
+    ok = _run_hard_part(g_batch, dev)
+    return (ok & precheck & agg_nonzero)[:n]
+
+
+def _miller_aggregate(
+    pubkey_lists, message_lists, signatures, device
+) -> Tuple[Optional[dict], "_FoldLayout", np.ndarray]:
+    """PROG A stage of batch_aggregate_verify (distinct message per
+    pubkey); same contract as _miller_fast_aggregate."""
+    n = len(pubkey_lists)
+    max_k = max((len(pks) for pks in pubkey_lists), default=1)
+    k = _k_bucket(max(1, max_k))
+    L = fq.NUM_LIMBS
+
+    lay = _FoldLayout("aggregate_verify", k, n)
+    nb = lay.nb
+    precheck = np.zeros(nb, dtype=bool)
+    pk_x = np.zeros((nb, k, L), dtype=np.uint64)
+    pk_y = np.zeros((nb, k, L), dtype=np.uint64)
+    pk_y[:] = _INF_G1[1]
+    pk_z = np.zeros((nb, k, L), dtype=np.uint64)
+    hm = np.zeros((nb, k, 4, L), dtype=np.uint64)
+    hm[:] = _G2GEN_LIMBS
+    sg = np.zeros((nb, 4, L), dtype=np.uint64)
+    sg[:] = _G2GEN_LIMBS
+
+    for i, (pks, msgs, sig) in enumerate(
+        zip(pubkey_lists, message_lists, signatures)
+    ):
+        try:
+            if len(pks) == 0 or len(pks) != len(msgs):
+                raise ValueError("bad pubkey/message lists")
+            enc = [_pubkey_limbs(bytes(pk)) for pk in pks]
+            hs = [_message_limbs(bytes(m)) for m in msgs]
+            s = _signature_limbs(bytes(sig))
+        except (ValueError, TypeError):
+            continue  # host prep failed: the item is False
+        m = len(enc)
+        pk_x[i, :m] = [e[0] for e in enc]
+        pk_y[i, :m] = [e[1] for e in enc]
+        pk_z[i, :m] = _ONE_LIMBS
+        hm[i, :m] = hs
+        sg[i] = s
+        precheck[i] = True
+
+    if not precheck.any():
+        return None, lay, precheck
+
+    ins = {}
+    lay.scatter(ins, pk_x, lambda j: f"pk{j}.x")
+    lay.scatter(ins, pk_y, lambda j: f"pk{j}.y")
+    lay.scatter(ins, pk_z, lambda j: f"pk{j}.z")
+    lay.scatter(ins, hm, lambda j, ci: f"h{j}.{_G2_COMPS[ci]}")
+    lay.scatter(ins, sg, lambda ci: f"sig.{_G2_COMPS[ci]}")
+
+    out = vm.execute(lay.program, ins, batch_shape=(lay.rows,), device=device)
+    return out, lay, precheck
+
+
+def batch_aggregate_verify(
+    pubkey_lists: Sequence[Sequence[bytes]],
+    message_lists: Sequence[Sequence[bytes]],
+    signatures: Sequence[bytes],
+    device=None,
+) -> np.ndarray:
+    """N independent AggregateVerify calls (distinct messages per pubkey).
+    Inactive pair lanes use infinity G1 (their Miller factor lands in a
+    proper subfield, killed by the final exponentiation)."""
+    dev = resolve_device(device)
+    n = len(pubkey_lists)
+    if len(message_lists) != n or len(signatures) != n:
+        raise ValueError("pubkey_lists, message_lists and signatures differ "
+                         "in length")
+    if n == 0:
+        return np.zeros(0, dtype=bool)
+    out, lay, precheck = _miller_aggregate(
+        pubkey_lists, message_lists, signatures, dev
+    )
+    if out is None:
+        return precheck[:n]
+    g_batch, _ = _easy_part_batch(out, lay, precheck, aggz=False)
+    ok = _run_hard_part(g_batch, dev)
+    return (ok & precheck)[:n]
+
+
+# ---------------------------------------------------------------------------
+# single-call API (reference utils/bls.py semantics)
+# ---------------------------------------------------------------------------
+
+
+def verify(PK: bytes, message: bytes, signature: bytes, device=None) -> bool:
+    return bool(batch_fast_aggregate_verify(
+        [[PK]], [message], [signature], device=device)[0])
+
+
+def fast_aggregate_verify(
+    pubkeys: Sequence[bytes], message: bytes, signature: bytes, device=None
+) -> bool:
+    resolve_device(device)
+    if len(pubkeys) == 0:
+        return False
+    return bool(batch_fast_aggregate_verify(
+        [list(pubkeys)], [message], [signature], device=device)[0])
+
+
+def aggregate_verify(
+    pubkeys: Sequence[bytes], messages: Sequence[bytes], signature: bytes,
+    device=None,
+) -> bool:
+    resolve_device(device)
+    if len(pubkeys) == 0 or len(pubkeys) != len(messages):
+        return False
+    return bool(batch_aggregate_verify(
+        [list(pubkeys)], [list(messages)], [signature], device=device)[0])

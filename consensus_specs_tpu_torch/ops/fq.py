@@ -1,0 +1,114 @@
+"""Base-field (Fq) limb constants, host helpers and the plain PyTorch
+Montgomery multiply for BLS12-381 — the port's counterpart of
+consensus_specs_tpu/ops/fq.py.
+
+Representation (unchanged from the JAX package): an Fq element is (..., 15)
+limbs of 28 bits (15 * 28 = 420 bits) in Montgomery form with R = 2^420,
+loosely reduced (any representative below ~2^405, limbs < 2^28 after every
+carry pass).
+
+Limb tensors are ``torch.int64``: torch's unsigned tensors do not support
+add, shift, gather or index_put. int64 is exact here because the overflow
+audit of ``mont_mul_plain`` keeps every column below 2^62.
+
+``mont_mul_plain`` is the plain version of the CUDA Montgomery multiply
+(csrc/mont.cuh); ops/cuda_fq.py dispatches between the two.
+"""
+import numpy as np
+import torch
+
+from ..utils.bls12_381 import P
+
+LIMB_BITS = 28
+NUM_LIMBS = 15
+MASK = (1 << LIMB_BITS) - 1
+R_BITS = LIMB_BITS * NUM_LIMBS  # 420
+R_MONT = 1 << R_BITS
+
+
+def _int_to_limbs_np(x: int) -> np.ndarray:
+    out = np.zeros(NUM_LIMBS, dtype=np.uint64)
+    for i in range(NUM_LIMBS):
+        out[i] = x & MASK
+        x >>= LIMB_BITS
+    assert x == 0
+    return out
+
+
+def limbs_to_int(limbs) -> int:
+    limbs = np.asarray(limbs)
+    x = 0
+    for i in reversed(range(limbs.shape[-1])):
+        x = (x << LIMB_BITS) | int(limbs[..., i])
+    return x
+
+
+P_LIMBS = _int_to_limbs_np(P)
+N0 = (-pow(P, -1, 1 << LIMB_BITS)) % (1 << LIMB_BITS)  # -p^-1 mod 2^28
+R_MOD_P = R_MONT % P
+R_INV = pow(R_MONT, -1, P)
+ONE_MONT = _int_to_limbs_np(R_MOD_P)  # 1 in Montgomery form
+# MP: the smallest multiple of p above 2^402, the additive shift of the
+# borrowless subtract (the VM's LIN unit adds MP + 1 + complement(b))
+MP = ((1 << 402) // P + 1) * P
+MP_LIMBS = _int_to_limbs_np(MP)
+
+
+def to_mont_int(x: int) -> np.ndarray:
+    """Host: encode an integer < p into Montgomery-form limbs."""
+    return _int_to_limbs_np((x * R_MONT) % P)
+
+
+def from_mont_limbs(limbs) -> int:
+    """Host: decode (possibly loose) Montgomery-form limbs to an int < p."""
+    x = limbs_to_int(limbs)
+    return (x * R_INV) % P
+
+
+def limbs_from_numpy(u64_array, device) -> torch.Tensor:
+    """uint64 limb array (any shape, limbs < 2^28) -> int64 tensor on
+    ``device``. Raises on a limb that does not fit the carry invariant."""
+    arr = np.asarray(u64_array)
+    if arr.size and int(arr.max()) >> LIMB_BITS:
+        raise ValueError(f"limbs must be < 2^{LIMB_BITS}")
+    return torch.from_numpy(arr.astype(np.int64)).to(device)
+
+
+def _carry_limbs(t: torch.Tensor, out_limbs: int = NUM_LIMBS) -> torch.Tensor:
+    """Propagate carries to limbs < 2^28; the value must fit out_limbs
+    limbs (a final carry beyond them is dropped)."""
+    n = t.shape[-1]
+    outs = []
+    c = torch.zeros(t.shape[:-1], dtype=torch.int64, device=t.device)
+    for k in range(n):
+        cur = t[..., k] + c
+        outs.append(cur & MASK)
+        c = cur >> LIMB_BITS
+    while len(outs) < out_limbs:
+        outs.append(c & MASK)
+        c = c >> LIMB_BITS
+    return torch.stack(outs[:out_limbs], dim=-1)
+
+
+def mont_mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Montgomery product a*b*2^-420 (mod p) on (..., 15) int64 limbs;
+    loose in (limbs < 2^28), loose out (< a*b/R + p). Limb for limb the
+    JAX package's ``fq.mont_mul_u64``: schoolbook columns, 15 reduction
+    rounds clearing limbs 0..14 low to high, one carry pass.
+
+    Overflow audit (int64 columns): schoolbook columns take <= 15 products
+    of limbs < 2^28 (< 2^60); the reduction adds one m*p_j (< 2^56) per
+    round per column plus single-limb carries, so every column < 2^62."""
+    a, b = torch.broadcast_tensors(a, b)
+    p = torch.as_tensor(P_LIMBS.astype(np.int64), device=a.device)
+    t = torch.zeros(a.shape[:-1] + (2 * NUM_LIMBS,), dtype=torch.int64,
+                    device=a.device)
+    for i in range(NUM_LIMBS):
+        t[..., i : i + NUM_LIMBS] += a[..., i : i + 1] * b
+    for i in range(NUM_LIMBS):
+        ti = t[..., i]
+        m = ((ti & MASK) * N0) & MASK
+        carry = (ti + m * int(P_LIMBS[0])) >> LIMB_BITS
+        t[..., i + 1 : i + NUM_LIMBS] += m[..., None] * p[1:]
+        t[..., i + 1] += carry
+    return _carry_limbs(t[..., NUM_LIMBS : 2 * NUM_LIMBS])

@@ -1,0 +1,101 @@
+"""The port stands alone: it imports neither jax nor any module of the JAX
+package, and its entry points never quietly fall back to the CPU."""
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import json, pkgutil, sys
+import consensus_specs_tpu_torch as port
+mods = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
+for m in mods:
+    __import__(m)
+from consensus_specs_tpu_torch.ops import fq
+a = fq.limbs_from_numpy(fq.ONE_MONT, "cpu")
+out = fq.mont_mul_plain(a, a)
+print(json.dumps({
+    "modules": mods,
+    "one_squared": fq.from_mont_limbs(out.numpy()),
+    "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
+    "reference": sorted(m for m in sys.modules
+                        if m == "consensus_specs_tpu"
+                        or m.startswith("consensus_specs_tpu.")),
+}))
+"""
+
+
+def test_port_imports_no_jax_and_no_reference_module():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    res = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    assert "consensus_specs_tpu_torch.ops.bls_backend" in got["modules"]
+    assert "consensus_specs_tpu_torch.ops.cuda_step" in got["modules"]
+    assert got["one_squared"] == 1
+    assert got["jax"] == []
+    assert got["reference"] == []
+
+
+@pytest.fixture
+def no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_a_gpu(no_gpu):
+    from consensus_specs_tpu_torch.ops import bls_backend, vm
+
+    pk, msg, sig = b"\x00" * 48, b"\x00" * 32, b"\x00" * 96
+    calls = [
+        lambda: bls_backend.verify(pk, msg, sig),
+        lambda: bls_backend.fast_aggregate_verify([pk], msg, sig),
+        lambda: bls_backend.aggregate_verify([pk], [msg], sig),
+        lambda: bls_backend.batch_fast_aggregate_verify([[pk]], [msg], [sig]),
+        lambda: bls_backend.batch_aggregate_verify([[pk]], [[msg]], [sig]),
+        lambda: vm.execute(_tiny_program(), {"a": np.zeros((1, 15), np.uint64)},
+                           batch_shape=(1,)),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def _tiny_program():
+    from consensus_specs_tpu_torch.ops import vm
+
+    p = vm.Prog()
+    a = p.inp("a")
+    p.out(a * a, "y")
+    return p.assemble(w_mul=1, w_lin=1)
+
+
+def test_explicit_cpu_device_still_runs(no_gpu):
+    from consensus_specs_tpu_torch.ops import fq, vm
+
+    one = fq.to_mont_int(3)[None]
+    out = vm.execute(_tiny_program(), {"a": one}, batch_shape=(1,),
+                     device="cpu")
+    assert fq.from_mont_limbs(out["y"][0]) == 9
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    """A tensor neither on the CPU nor on a CUDA card is refused, never run
+    through the plain version."""
+    from consensus_specs_tpu_torch.ops import cuda_fq, cuda_step
+
+    meta = torch.zeros((2, 15), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError):
+        cuda_fq.mont_mul(meta, meta)
+    regs = torch.zeros((1, 4, 15), dtype=torch.int64, device="meta")
+    instr = tuple(torch.zeros((1, 1), dtype=torch.int32, device="meta")
+                  for _ in range(7))
+    with pytest.raises(ValueError):
+        cuda_step.run_steps(regs, instr)
