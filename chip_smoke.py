@@ -4,12 +4,15 @@
     python3 chip_smoke.py
 
 Drives ``consensus_specs_tpu_torch`` (never jax, never the JAX package)
-through four phases, each printing one JSON line:
+through five phases, each printing one JSON line:
 
   1. build   -- compile every CUDA kernel of the port from csrc/ with nvcc
                for sm_90a (one nvcc per source, all started together);
   2. kernels -- hold each kernel against its plain PyTorch version on the
-               card, limb-exact, and time both (CUDA events);
+               card, limb-exact, and time both (CUDA events): mont_mul at
+               65,536 and 65,537 products, and one synthetic step kernel
+               call whose writes alias its reads (then 2,000 such steps in
+               one launch, timed);
   3. program -- one assembled VM program (hard_part_frobenius, fold 1) on
                the CUDA executor against the plain executor, limb-exact;
   4. slice   -- the main path at mainnet size: batch_fast_aggregate_verify
@@ -17,7 +20,14 @@ through four phases, each printing one JSON line:
                (300k validators / 32 slots / 64 committees), 4 of them
                planted invalid; the verdicts must equal the planted ones,
                three items must agree with the pure-int pairing oracle, and
-               the step kernel must have been launched.
+               the step kernel must have been launched once per
+               vm.execute (its launch and step counts are printed);
+  5. kernels -- the slice's two real instruction streams (PROG A
+               miller_product k160 fold 8 on 8 rows, PROG B hard_part
+               fold 32 on 2 rows) on random canonical inputs: the first
+               256 steps limb for limb against the plain version, then
+               each full stream timed in one launch, beside its bound and
+               its latency floor (steps x one L2 round trip).
 
 Then it prints the card's name and power limit, a ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``. Any failure exits
@@ -52,6 +62,14 @@ WIDE_MACS_PER_MONT = 225 + 15 + 225
 # LIN lane: 15 limbs of (complement, add, add carry, mask, shift).
 INT_OPS_PER_LIN = 15 * 5
 LIMB_BYTES = 8  # int64 limbs
+# torch.cuda._sleep spins for SM clocks; 2e9 a second is above the H100's
+# maximum SM clock, so a sleep lasts at least as long as asked
+SLEEP_CYCLES_PER_S = 2e9
+# L2 hit latency of Hopper in SM clocks, about 260 in published pointer-
+# chase microbenchmarks of the H100 (an estimate, not measured here): one
+# dependent VM step cannot take less than one such round trip for its
+# operands, so steps x this is a call's latency floor.
+L2_HIT_CYCLES = 260
 
 
 class SmokeFailure(Exception):
@@ -84,10 +102,17 @@ def _ptxas_summary(log):
 
 
 def _cuda_ms(torch, fn, reps):
-    """Mean device time of fn() over reps launches (CUDA events), after
-    one warm-up call."""
+    """Mean device time of fn() over reps calls (CUDA events), after one
+    warm-up call. The stream first sleeps on the card for twice as long as
+    the host takes to enqueue the calls, so the events time the device's
+    work back to back and not the host's Python between launches."""
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(min(2 * reps * host_s, 2.0) * SLEEP_CYCLES_PER_S))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -113,25 +138,31 @@ def _rand_loose_limbs(rng, shape, bits=401):
 
 
 def phase_mont_mul(torch, dev, rng, imad_rate):
+    """The kernel against the plain version at 65,536 products and at 65,537
+    (a ragged last chunk), limb for limb; times at 65,536."""
     from consensus_specs_tpu_torch.ops import cuda_fq, fq
 
     m = 65536
-    a = torch.from_numpy(_rand_loose_limbs(rng, (m,))).to(dev)
-    b = torch.from_numpy(_rand_loose_limbs(rng, (m,))).to(dev)
-    got = cuda_fq.mont_mul(a, b)
-    want = fq.mont_mul_plain(a, b)
-    torch.cuda.synchronize()
-    err = int((got - want).abs().max().item())
-    _check(err == 0, f"mont_mul kernel differs from plain: max |err| {err}")
-    _check(int(got.max().item()) < (1 << 28), "mont_mul limbs not carried")
+    a = torch.from_numpy(_rand_loose_limbs(rng, (m + 1,))).to(dev)
+    b = torch.from_numpy(_rand_loose_limbs(rng, (m + 1,))).to(dev)
+    err = 0
+    for n in (m, m + 1):
+        got = cuda_fq.mont_mul(a[:n], b[:n])
+        torch.cuda.synchronize()
+        e = int((got - fq.mont_mul_plain(a[:n], b[:n])).abs().max().item())
+        _check(e == 0, f"mont_mul kernel (M={n}) differs from plain: "
+                       f"max |err| {e}")
+        _check(int(got.max().item()) < (1 << 28), "mont_mul limbs not carried")
+        err = max(err, e)
+    a, b = a[:m].contiguous(), b[:m].contiguous()
     ms = _cuda_ms(torch, lambda: cuda_fq.mont_mul(a, b), 200)
     plain_ms = _cuda_ms(torch, lambda: fq.mont_mul_plain(a, b), 10)
     n_bytes = 3 * m * 15 * LIMB_BYTES
     n_ops = m * WIDE_MACS_PER_MONT * IMAD_PER_WIDE_MAC
     return {
-        "name": "mont_mul", "products": m, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms, "bytes": n_bytes, "imad": n_ops,
-        **_bound(n_bytes, n_ops, imad_rate),
+        "name": "mont_mul", "products": m, "ragged_checked": m + 1,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bytes": n_bytes, "imad": n_ops, **_bound(n_bytes, n_ops, imad_rate),
     }
 
 
@@ -177,10 +208,14 @@ def phase_vm_step(torch, dev, rng, imad_rate):
     err = int((got - want).abs().max().item())
     _check(err == 0, f"vm_step kernel differs from plain: max |err| {err}")
 
-    # time: the same step repeated, all launches from one C call
+    # time: the same step repeated, one launch of 2,000 steps
     reps = 2000
     instr_rep = tuple(x.expand(reps, -1).contiguous() for x in instr)
     work = regs0.clone()
+    before = cuda_step.LAUNCHES
+    cuda_step.run_steps(work, instr_rep)
+    _check(cuda_step.LAUNCHES - before == 1,
+           "a run_steps call made other than one launch")
     ms = _cuda_ms(torch, lambda: cuda_step.run_steps(work, instr_rep), 1) / reps
     plain_work = regs0.clone()
     one = tuple(x[0] for x in instr)
@@ -194,11 +229,95 @@ def phase_vm_step(torch, dev, rng, imad_rate):
     n_ops = rows * (w_mul * WIDE_MACS_PER_MONT * IMAD_PER_WIDE_MAC
                     + w_lin * INT_OPS_PER_LIN)
     return {
-        "name": "vm_step", "rows": rows, "w_mul": w_mul, "w_lin": w_lin,
-        "n_regs": n_regs, "aliased_regs": len(aliased), "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms, "bytes": n_bytes, "imad": n_ops,
-        **_bound(n_bytes, n_ops, imad_rate),
+        "name": "vm_step", "stream": "synthetic", "rows": rows,
+        "w_mul": w_mul, "w_lin": w_lin, "n_regs": n_regs,
+        "aliased_regs": len(aliased), "max_abs_err": err,
+        "us_per_step": ms * 1e3, "timed_steps": reps,
+        "plain_ms_per_step": plain_ms, "bytes_per_step": n_bytes,
+        "imad_per_step": n_ops, **_bound(n_bytes, n_ops, imad_rate),
     }
+
+
+# the verify path's two programs, with the kinds and folds that
+# bls_backend._fold_for gives the mainnet slot (64 items, k bucket 160)
+MAIN_STREAMS = (
+    ("PROG A", "miller_product", 160, 8, 8),
+    ("PROG B", "hard_part", 0, 32, 2),
+)
+CHECK_STEPS = 256
+
+
+def _canonical_limbs(rng, shape):
+    """Random canonical residues (< p) as (..., 15) int64 limbs: limbs
+    0..12 uniform, limb 13 below p's, limb 14 zero."""
+    from consensus_specs_tpu_torch.ops import fq
+
+    limbs = rng.integers(0, 1 << 28, size=tuple(shape) + (15,), dtype=np.int64)
+    limbs[..., 13] = rng.integers(0, int(fq.P_LIMBS[13]), size=shape)
+    limbs[..., 14] = 0
+    return limbs
+
+
+def _stream_work(instr, n_regs, rows):
+    """Bytes, operations and real lanes of one run_steps call over the
+    numpy instruction tensors ``instr`` on ``rows`` rows of ``n_regs``
+    registers: the instruction stream once, the register file in and out
+    once, and the real lanes' arithmetic (idle lanes, which read register
+    0 twice, are not counted)."""
+    msa, msb, _, lsa, lsb, _, _ = instr
+    n_bytes = sum(x.nbytes for x in instr) \
+        + 2 * rows * n_regs * 15 * LIMB_BYTES
+    n_mul = int(((msa != 0) | (msb != 0)).sum())
+    n_lin = int(((lsa != 0) | (lsb != 0)).sum())
+    n_ops = rows * (n_mul * WIDE_MACS_PER_MONT * IMAD_PER_WIDE_MAC
+                    + n_lin * INT_OPS_PER_LIN)
+    return n_bytes, n_ops, n_mul, n_lin
+
+
+def phase_streams(torch, dev, rng, imad_rate, l2_ns):
+    """The main path's real instruction streams, one launch each: the first
+    CHECK_STEPS steps against the plain version on the whole register file
+    (limb for limb, both timed), then each full stream timed."""
+    from consensus_specs_tpu_torch.ops import bls_backend, cuda_step, vm
+
+    out = []
+    for label, kind, k, fold, rows in MAIN_STREAMS:
+        prog, got_fold = bls_backend._program(kind, k, fold)
+        instr = prog.device_instr(dev)
+        stacked = _canonical_limbs(rng, (rows, len(prog.input_names)))
+        regs0 = vm._init_regs(prog, stacked.astype(np.uint64), dev)
+        head = tuple(x[:CHECK_STEPS] for x in instr)
+
+        got = cuda_step.run_steps(regs0.clone(), head)
+        want = regs0.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vm._run_steps_plain(want, head)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = int((got - want).abs().max().item())
+        _check(err == 0, f"{label} ({kind}): step kernel differs from plain "
+                         f"over {CHECK_STEPS} steps: max |err| {err}")
+        work = regs0.clone()
+        head_ms = _cuda_ms(torch, lambda: cuda_step.run_steps(work, head), 5)
+        full_ms = _cuda_ms(torch, lambda: cuda_step.run_steps(work, instr), 3)
+        full = _stream_work(prog.instr, prog.n_regs, rows)
+        part = _stream_work(tuple(x[:CHECK_STEPS] for x in prog.instr),
+                            prog.n_regs, rows)
+        out.append({
+            "stream": label, "kind": kind, "k": k, "fold": got_fold,
+            "rows": rows, "steps": prog.n_steps, "n_regs": prog.n_regs,
+            "check_steps": CHECK_STEPS, "max_abs_err": err,
+            "head_ms": head_ms, "head_plain_ms": plain_ms,
+            "head_bytes": part[0], "head_imad": part[1],
+            **{f"head_{key}": v
+               for key, v in _bound(part[0], part[1], imad_rate).items()},
+            "ms": full_ms, "us_per_step": full_ms * 1e3 / prog.n_steps,
+            "bytes": full[0], "imad": full[1], "mul_lanes": full[2],
+            "lin_lanes": full[3], **_bound(full[0], full[1], imad_rate),
+            "latency_floor_ms": prog.n_steps * l2_ns * 1e-6,
+        })
+    return out
 
 
 def _bound(n_bytes, n_ops, imad_rate):
@@ -391,13 +510,18 @@ def phase_slice(torch, card):
     slot = (pubkey_sets, messages, signatures)
 
     cuda_step.LAUNCHES = 0
+    cuda_step.STEPS = 0
     cuda_fq.LAUNCHES = 0
     got, cold = _verify_timed(torch, slot)
-    launches = {"vm_step": cuda_step.LAUNCHES, "mont_mul": cuda_fq.LAUNCHES}
+    launches = {"vm_step": cuda_step.LAUNCHES, "mont_mul": cuda_fq.LAUNCHES,
+                "vm_step_steps": cuda_step.STEPS}
     _check(list(got) == list(expected),
            f"verdicts {np.flatnonzero(~got).tolist()} false, planted "
            f"{sorted(planted.values())}")
     _check(launches["vm_step"] > 0, "the step kernel was never launched")
+    _check(launches["vm_step"] == cold["vm_executions"],
+           f"{launches['vm_step']} step-kernel launches for "
+           f"{cold['vm_executions']} vm.execute calls (expected one each)")
 
     # warm: programs assembled, host caches filled
     warm_runs = []
@@ -427,6 +551,7 @@ def phase_slice(torch, card):
         "warm_wall_s_all": [r["wall_s"] for r in warm_runs],
         "verifications_per_s_warm": n / warm["wall_s"],
         "step_kernel_launches": launches["vm_step"],
+        "step_kernel_steps": launches["vm_step_steps"],
         "mont_mul_kernel_launches": launches["mont_mul"], **card,
     }, launches
 
@@ -451,7 +576,7 @@ def main():
         print(f"chip_smoke: imported {port.__file__}, not this checkout's "
               "package", file=sys.stderr)
         return 2
-    from consensus_specs_tpu_torch.ops import cuda_build
+    from consensus_specs_tpu_torch.ops import bls_backend, cuda_build, cuda_step
 
     dev = torch.device("cuda")
     name, power = (s.strip() for s in _nvidia_smi("name,power.limit").split(","))
@@ -460,6 +585,7 @@ def main():
     sm_clock_mhz = float(_nvidia_smi("clocks.max.sm").split()[0])
     imad_rate = props.multi_processor_count * IMAD_PER_SM_CLOCK \
         * sm_clock_mhz * 1e6
+    l2_ns = L2_HIT_CYCLES / sm_clock_mhz * 1e3
     rng = np.random.default_rng(SEED)
 
     try:
@@ -469,29 +595,49 @@ def main():
         _emit({"phase": "build", "kernels": list(cuda_build.KERNELS),
                "compiled": sorted(reports), "build_s": build_s,
                "ptxas": {k: _ptxas_summary(log) for k, log in reports.items()},
+               "vm_step_block_threads": cuda_step.block_threads(
+                   bls_backend.W_MUL, bls_backend.W_LIN, 1, 1),
                "sms": props.multi_processor_count,
                "sm_clock_max_mhz": sm_clock_mhz, **card})
 
         k_mont = phase_mont_mul(torch, dev, rng, imad_rate)
         k_step = phase_vm_step(torch, dev, rng, imad_rate)
-        _emit({"phase": "kernels", "results": [k_mont, k_step], **card})
+        _emit({"phase": "kernels", "results": [k_mont, k_step],
+               "elapsed_s": time.perf_counter() - t0, **card})
 
-        _emit({**phase_program(torch, dev, rng), **card})
+        _emit({**phase_program(torch, dev, rng),
+               "elapsed_s": time.perf_counter() - t0, **card})
 
         slice_line, launches = phase_slice(torch, card)
-        _emit(slice_line)
+        _emit({**slice_line, "elapsed_s": time.perf_counter() - t0})
+
+        # after the slice, whose cold call assembles the same programs
+        streams = phase_streams(torch, dev, rng, imad_rate, l2_ns)
+        _emit({"phase": "kernels", "results": streams, "l2_hit_ns": l2_ns,
+               "elapsed_s": time.perf_counter() - t0, **card})
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+
+    # vm_step's line: the checked heads of both main-path streams
+    head_bytes = sum(r["head_bytes"] for r in streams)
+    head_imad = sum(r["head_imad"] for r in streams)
+    step_bound = _bound(head_bytes, head_imad, imad_rate)
 
     kernels = [
         {"name": "vm_step", "route": "cuda",
          "source": "consensus_specs_tpu_torch/csrc/vm_step.cu",
          "replaces": "consensus_specs_tpu/ops/pallas_step.py:53",
-         "launches": launches["vm_step"], "max_abs_err": k_step["max_abs_err"],
-         "ms": k_step["ms"], "plain_ms": k_step["plain_ms"],
-         "bound_ms": k_step["bound_ms"], "bound_by": k_step["bound_by"],
-         "library_ms": None},
+         "launches": launches["vm_step"], "steps": launches["vm_step_steps"],
+         "work": f"first {CHECK_STEPS} steps of "
+                 + " and ".join(f"{r['stream']} ({r['rows']} rows)"
+                                for r in streams),
+         "max_abs_err": max([k_step["max_abs_err"]]
+                            + [r["max_abs_err"] for r in streams]),
+         "ms": sum(r["head_ms"] for r in streams),
+         "plain_ms": sum(r["head_plain_ms"] for r in streams),
+         "bound_ms": step_bound["bound_ms"],
+         "bound_by": step_bound["bound_by"], "library_ms": None},
         {"name": "mont_mul", "route": "cuda",
          "source": "consensus_specs_tpu_torch/csrc/mont_mul.cu",
          "replaces": "consensus_specs_tpu/ops/pallas_fq.py:129",

@@ -1,6 +1,8 @@
 // BLS12-381 base-field arithmetic shared by the port's two CUDA kernels
-// (mont_mul.cu, vm_step.cu): the Montgomery multiply of the VM's MUL unit
-// and the add / borrowless-subtract of its LIN unit.
+// (mont_mul.cu, vm_step.cu): the Montgomery multiply, one thread a product
+// (mont_mul.cu) and split over FQ_SPLIT threads (the step kernel's MUL
+// unit), the add / borrowless-subtract of the VM's LIN unit, and the
+// cp.async helpers.
 //
 // Representation: 15 limbs of 28 bits, R = 2^420, loose residues (limbs
 // < 2^28) — the layout of the JAX package's ops/fq.py. The Pallas kernels
@@ -72,6 +74,139 @@ __device__ __forceinline__ void fq_mont_mul(const unsigned int* a,
     out[k] = (unsigned int)(cur & FQ_MASK);
     c = cur >> FQ_LIMB_BITS;
   }
+}
+
+// ---------------------------------------------------------------------------
+// The split Montgomery product: FQ_SPLIT neighbouring threads of one warp
+// share a product, thread q holding limbs q*FQ_SLOTS .. q*FQ_SLOTS + 3 of a,
+// b and p (slot 15 is zero padding). It is the operand-scanning form of the
+// same REDC: round i adds a_i * b (a_i shuffled from its owner), takes
+// m_i from the low 28 bits of column 0 on thread 0 and shuffles it to the
+// group, adds m_i * p, and shifts the accumulator down one limb: thread q
+// receives the low 28 bits of thread q+1's lowest slot (a 32-bit shuffle)
+// and every thread adds the rest of its own lowest slot, shifted, into its
+// new lowest slot (on thread 0 that is column 0's REDC carry). Moving
+// c * 2^28 from a column to the next leaves the integer and every column's
+// low 28 bits as they were, so m_i and the result are fq_mont_mul's: after
+// 15 rounds the group's slots hold the integer of its columns 15 .. 29,
+// carried to the same limbs by a local carry pass plus FQ_SPLIT - 1
+// shuffled carry rounds.
+//
+// Why 4 threads: each thread does 8 multiply-adds a round against 3
+// shuffles, a thread's 4 limbs are one 16-byte load, and 96 MUL lanes fill
+// 12 warps (384 threads) beside the 192 LIN threads: 576 threads a block,
+// inside 1024 with 64 registers a thread. In the step kernel on an H100,
+// on the verify path's streams, 4 threads measured faster than 1, 2 and 8:
+// with 8 the shuffles match the multiply-adds one for one, with 1 or 2 the
+// 3 or 6 warps of products leave the SM's partitions idle.
+//
+// Overflow audit: every slot is one column of t (< 2^62, as above).
+//
+// ops/cuda_step.mont_mul_split_emulated is this schedule in numpy, held to
+// the plain version and the JAX package on the CPU.
+#define FQ_SPLIT 4  // the schedule holds for 1, 2, 4 or 8
+#define FQ_SLOTS (16 / FQ_SPLIT)  // FQ_SPLIT * FQ_SLOTS = 16 >= FQ_LIMBS
+#define FQ_FULL_WARP 0xffffffffu
+
+// this thread's slice of p, read once per kernel (the index differs across
+// the warp, which the constant cache serializes)
+__device__ __forceinline__ void fq_split_p(int q, unsigned int* p) {
+#pragma unroll
+  for (int r = 0; r < FQ_SLOTS; ++r) {
+    const int k = q * FQ_SLOTS + r;
+    p[r] = k < FQ_LIMBS ? FQ_P[k] : 0u;
+  }
+}
+
+// a * b * 2^-420 (mod p) over the group of FQ_SPLIT threads; every thread
+// of the warp must call it (the shuffles name the whole warp)
+__device__ __forceinline__ void fq_mont_mul_split(const unsigned int* a,
+                                                  const unsigned int* b,
+                                                  const unsigned int* p,
+                                                  int q, unsigned int* out) {
+  unsigned long long acc[FQ_SLOTS];
+#pragma unroll
+  for (int r = 0; r < FQ_SLOTS; ++r) acc[r] = 0ull;
+#pragma unroll
+  for (int i = 0; i < FQ_LIMBS; ++i) {
+    const unsigned int ai =
+        FQ_SPLIT == 1 ? a[i]
+                      : __shfl_sync(FQ_FULL_WARP, a[i % FQ_SLOTS],
+                                    i / FQ_SLOTS, FQ_SPLIT);
+#pragma unroll
+    for (int r = 0; r < FQ_SLOTS; ++r) acc[r] += (unsigned long long)ai * b[r];
+    unsigned int m = ((unsigned int)acc[0] * FQ_N0) & FQ_MASK;
+    if (FQ_SPLIT > 1) m = __shfl_sync(FQ_FULL_WARP, m, 0, FQ_SPLIT);
+#pragma unroll
+    for (int r = 0; r < FQ_SLOTS; ++r) acc[r] += (unsigned long long)m * p[r];
+    // each thread's slot 0 hands its low 28 bits to the thread below (the
+    // same column there) and carries the rest into its own next column; on
+    // thread 0, column 0 is now a multiple of 2^28 and this is the REDC
+    // carry
+    const unsigned long long hi = acc[0] >> FQ_LIMB_BITS;
+    unsigned int next =
+        FQ_SPLIT == 1 ? 0u
+                      : __shfl_down_sync(FQ_FULL_WARP,
+                                         (unsigned int)acc[0] & FQ_MASK, 1,
+                                         FQ_SPLIT);
+    if (q == FQ_SPLIT - 1) next = 0u;
+#pragma unroll
+    for (int r = 0; r < FQ_SLOTS - 1; ++r) acc[r] = acc[r + 1];
+    acc[FQ_SLOTS - 1] = next;
+    acc[0] += hi;
+  }
+  unsigned long long c = 0ull;
+#pragma unroll
+  for (int r = 0; r < FQ_SLOTS; ++r) {
+    const unsigned long long cur = acc[r] + c;
+    out[r] = (unsigned int)(cur & FQ_MASK);
+    c = cur >> FQ_LIMB_BITS;
+  }
+  // round s settles thread s's limbs; the top thread's carry is dropped
+#pragma unroll
+  for (int s = 1; s < FQ_SPLIT; ++s) {
+    unsigned long long cin = __shfl_up_sync(FQ_FULL_WARP, c, 1, FQ_SPLIT);
+    if (q == 0) cin = 0ull;
+#pragma unroll
+    for (int r = 0; r < FQ_SLOTS; ++r) {
+      cin += out[r];
+      out[r] = (unsigned int)(cin & FQ_MASK);
+      cin >>= FQ_LIMB_BITS;
+    }
+    c = cin;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// cp.async: copies into shared memory that run beside the thread's work;
+// cp_async_wait_all() then a barrier makes them visible to the block.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned int s = (unsigned int)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned int s = (unsigned int)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+// 16 bytes, through L2 only (streamed data)
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned int s = (unsigned int)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most `n` committed groups are still in flight
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
 }
 
 // LIN unit: a + (sub ? (MP + 1) + (MASK - b) : b), carried, the overflow

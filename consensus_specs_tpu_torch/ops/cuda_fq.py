@@ -29,6 +29,12 @@ def _kernel():
     return _FN
 
 
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x contiguous and starting on 16 bytes (the kernel's bulk copies)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a * b * 2^-420 (mod p), loose in and out, broadcasting the batch."""
     global LAUNCHES
@@ -41,10 +47,11 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.shape[-1] != fq.NUM_LIMBS or b.shape[-1] != fq.NUM_LIMBS:
         raise ValueError(f"mont_mul: last dim must be {fq.NUM_LIMBS}")
     a, b = torch.broadcast_tensors(a, b)
-    a = a.contiguous()
-    b = b.contiguous()
+    a, b = _aligned(a), _aligned(b)
     out = torch.empty_like(a)
     m = a.numel() // fq.NUM_LIMBS
+    if m == 0:
+        return out
     stream = torch.cuda.current_stream(a.device).cuda_stream
     rc = _kernel()(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, stream)
     if rc != 0:

@@ -1,21 +1,39 @@
-"""The fused VM-step kernel (csrc/vm_step.cu) and its dispatch — the port's
+"""The VM step kernel (csrc/vm_step.cu) and its dispatch — the port's
 counterpart of consensus_specs_tpu/ops/pallas_step.py.
 
 ``run_steps(regs, instr)`` runs every step of an instruction stream on the
 (rows, n_regs, 15) int64 register file, in place. On a CUDA tensor it makes
-one C call that launches the step kernel once per step on the current
-stream (or raises); on a CPU tensor it runs the plain PyTorch steps,
-``vm._run_steps_plain``. The two agree limb for limb.
+one launch of the persistent step kernel on the current stream (one block
+per row loops over all steps), or raises; on a CPU tensor it runs the plain
+PyTorch steps, ``vm._run_steps_plain``. The two agree limb for limb.
+
+``mont_mul_split_emulated`` is the kernel's split Montgomery product
+(csrc/mont.cuh ``fq_mont_mul_split``) thread by thread in numpy, and
+``run_steps_emulated`` the kernel's data flow through its stamp table, so
+that both are tested on the CPU; nothing on the main path calls them.
 """
 import ctypes
 
+import numpy as np
 import torch
 
 from . import cuda_build, fq
 
-# step-kernel launches made by run_steps, one per VM step (a plain count;
-# tests and the chip smoke reset it to 0 and read it back)
+# kernel launches made by run_steps, one per call on a CUDA tensor that has
+# steps and rows; and the VM steps those launches ran (plain counts: tests
+# and the chip smoke reset them to 0 and read them back)
 LAUNCHES = 0
+STEPS = 0
+
+MAX_THREADS = 1024
+MAX_SMEM = 232448  # bytes of shared memory a block may use on Hopper
+STAGES = 4  # instruction rows in flight (VM_STAGES)
+SLOT_BITS = 11  # result slots in a stamp (VM_SLOT_BITS)
+REG = 16  # uint32 limbs of a register in the compact row (VM_REG)
+SLOT = 20  # shared-memory words of a LIN lane's result (VM_SLOT)
+MAX_STEPS = 1 << (31 - SLOT_BITS)
+# threads a Montgomery product is split over (FQ_SPLIT in csrc/mont.cuh)
+SPLIT = 4
 
 _FN = None
 
@@ -26,10 +44,36 @@ def _kernel():
         fn = cuda_build.load("vm_step").vm_run_steps
         fn.restype = ctypes.c_int
         p = ctypes.c_void_p
-        fn.argtypes = [p, ctypes.c_int, ctypes.c_int, p, p, p, p, p, p, p,
+        fn.argtypes = [p, p, ctypes.c_int, ctypes.c_int, p, p, p, p, p, p, p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
         _FN = fn
     return _FN
+
+
+def smem_bytes(w_mul: int, w_lin: int, n_regs: int) -> int:
+    """Shared memory of the kernel's block: STAGES instruction rows, the
+    LIN lanes' results (SLOT words a lane) and destinations, then one int32
+    stamp per register. ``vm_smem_bytes`` in csrc/vm_step.cu."""
+    words = 3 * w_mul + 3 * w_lin + w_lin // 4
+    return (-(-STAGES * 4 * words // 16) * 16 + 4 * (SLOT + 1) * w_lin
+            + 4 * n_regs)
+
+
+def block_threads(w_mul: int, w_lin: int, n_regs: int, n_steps: int) -> int:
+    """Threads of the kernel's block for a call (the MUL lanes' SPLIT
+    threads each, rounded up to whole warps, then one thread per LIN lane),
+    or 0 where the launch cannot take it: over MAX_THREADS or MAX_SMEM,
+    w_lin not a multiple of 4 (the subtract mask is staged in 4-byte
+    words), or MAX_STEPS steps or more (the stamps' step field).
+    ``vm_block_threads`` in csrc/vm_step.cu."""
+    if w_mul < 0 or w_lin < 0 or w_lin % 4 or n_regs < 1:
+        return 0
+    if not 0 <= n_steps < MAX_STEPS:
+        return 0
+    threads = -(-w_mul * SPLIT // 32) * 32 + w_lin
+    if threads == 0 or threads > MAX_THREADS:
+        return 0
+    return threads if smem_bytes(w_mul, w_lin, n_regs) <= MAX_SMEM else 0
 
 
 def _check_instr(regs: torch.Tensor, instr) -> None:
@@ -47,15 +91,23 @@ def _check_instr(regs: torch.Tensor, instr) -> None:
         want = torch.uint8 if x is lsub else torch.int32
         if x.dtype != want:
             raise TypeError(f"instr dtype {x.dtype}, expected {want}")
-    if w_mul + w_lin > 1024:
-        raise ValueError("w_mul + w_lin exceeds one block of 1024 threads")
+    n_regs = regs.shape[1]
+    if block_threads(w_mul, w_lin, n_regs, n_steps) == 0:
+        raise ValueError(
+            f"w_mul={w_mul}, w_lin={w_lin}, n_regs={n_regs}, "
+            f"n_steps={n_steps} do not fit one block: {SPLIT} threads a MUL "
+            f"lane in whole warps plus one a LIN lane must stay <= "
+            f"{MAX_THREADS}, the block's shared memory <= {MAX_SMEM} bytes, "
+            f"w_lin a multiple of 4 and n_steps < {MAX_STEPS}")
+    if lsub.data_ptr() % 4:
+        raise ValueError("lsub must start on a 4-byte boundary")
 
 
 def run_steps(regs: torch.Tensor, instr) -> torch.Tensor:
     """Run every step of ``instr`` — seven (n_steps, width) tensors, int32
     register indices and a uint8 subtract mask, as ``Program.device_instr``
     gives them — on ``regs`` (rows, n_regs, 15) int64, in place."""
-    global LAUNCHES
+    global LAUNCHES, STEPS
     if regs.device.type == "cpu":
         from . import vm
 
@@ -71,11 +123,109 @@ def run_steps(regs: torch.Tensor, instr) -> torch.Tensor:
     rows, n_regs, _ = regs.shape
     if n_steps == 0 or rows == 0:
         return regs
+    # the kernel's compact copy of the register file, 16 uint32 a register
+    compact = torch.empty((rows, n_regs, REG), dtype=torch.int32,
+                          device=regs.device)
     stream = torch.cuda.current_stream(regs.device).cuda_stream
-    rc = _kernel()(regs.data_ptr(), rows, n_regs,
+    rc = _kernel()(regs.data_ptr(), compact.data_ptr(), rows, n_regs,
                    *(x.data_ptr() for x in instr),
                    w_mul, w_lin, n_steps, stream)
     if rc != 0:
         raise RuntimeError(f"vm_step kernel launch failed: cudaError {rc}")
-    LAUNCHES += n_steps
+    LAUNCHES += 1
+    STEPS += n_steps
     return regs
+
+
+def run_steps_emulated(regs: torch.Tensor, instr) -> torch.Tensor:
+    """The step kernel's data flow, on CPU tensors, with the plain
+    arithmetic: each step loads every operand, computes every lane and
+    stamps each destination with (step, slot) by a maximum, then stores
+    only the results whose slot holds their destination's stamp. Updates
+    ``regs`` in place; it must agree with ``vm._run_steps_plain``."""
+    from . import vm
+
+    msa, msb, msd, lsa, lsb, lsub, lsd = (x.numpy().astype(np.int64)
+                                          for x in instr)
+    n_steps, w_mul = msa.shape
+    n_res = w_mul + lsa.shape[1]
+    stamps = np.full(regs.shape[-2], -1, dtype=np.int64)
+    for s in range(n_steps):
+        res = torch.cat([
+            fq.mont_mul_plain(regs[..., msa[s], :], regs[..., msb[s], :]),
+            vm._lin_plain(regs[..., lsa[s], :], regs[..., lsb[s], :],
+                          torch.from_numpy(lsub[s]))], dim=-2)
+        dests = np.concatenate([msd[s], lsd[s]])
+        mine = (s << SLOT_BITS) | np.arange(n_res)
+        np.maximum.at(stamps, dests, mine)
+        own = stamps[dests] == mine
+        regs[..., dests[own], :] = res[..., own, :]
+    return regs
+
+
+def mont_mul_split_emulated(a, b, split: int = SPLIT) -> np.ndarray:
+    """The split Montgomery product of csrc/mont.cuh, thread by thread:
+    a, b (..., 15) limbs < 2^28 (any integer array) -> (..., 15) uint64.
+
+    Thread q of a group of ``split`` (FQ_SPLIT; 1, 2, 4 or 8) holds limbs
+    q*slots .. q*slots + slots - 1 of a, b and p, slots = 16 / split (limb
+    15 is zero); ``acc[..., q, r]`` is its accumulator slot r. Each shuffle
+    of the kernel is an index into the group's slots here. Raises if an
+    accumulator would leave 64 bits (the kernel's overflow audit)."""
+    if split not in (1, 2, 4, 8):
+        raise ValueError(f"split {split}: FQ_SPLIT is 1, 2, 4 or 8")
+    slots = 16 // split
+    a = np.asarray(a, dtype=np.uint64)
+    b = np.asarray(b, dtype=np.uint64)
+    a, b = np.broadcast_arrays(a, b)
+    batch = a.shape[:-1]
+    n = split * slots
+
+    def slices(x):
+        pad = np.zeros(batch + (n,), dtype=np.uint64)
+        pad[..., : fq.NUM_LIMBS] = x
+        return pad.reshape(batch + (split, slots))
+
+    xa, xb = slices(a), slices(b)
+    p = slices(fq.P_LIMBS.astype(np.uint64))
+    mask, bits = np.uint64(fq.MASK), np.uint64(fq.LIMB_BITS)
+    top = (1 << 64) - 1
+    acc = np.zeros(batch + (split, slots), dtype=np.uint64)
+
+    def add(x, y):
+        s = np.asarray(np.asarray(x, dtype=object) + np.asarray(y, dtype=object))
+        if s.size and int(s.max()) > top:
+            raise OverflowError("accumulator past 64 bits")
+        return s.astype(np.uint64)
+
+    for i in range(fq.NUM_LIMBS):
+        # __shfl_sync(a[i % slots], i / slots): a_i to every thread
+        ai = xa[..., i // slots, i % slots][..., None, None]
+        acc = add(acc, ai * xb)
+        # m from thread 0's column 0, shuffled to the group
+        m = ((acc[..., 0, 0] & mask) * np.uint64(fq.N0)) & mask
+        acc = add(acc, m[..., None, None] * p)
+        # every thread: slot 0's bits above 28 go into its next slot, and
+        # __shfl_down_sync(slot 0 & MASK, 1) hands the low 28 bits below
+        hi = acc[..., :, 0] >> bits
+        nxt = np.zeros(batch + (split,), dtype=np.uint64)
+        nxt[..., :-1] = acc[..., 1:, 0] & mask
+        acc = np.concatenate([acc[..., 1:], nxt[..., None]], axis=-1)
+        acc[..., :, 0] = add(acc[..., :, 0], hi)
+    # local carry pass, then split - 1 rounds of shuffled carries
+    out = np.zeros_like(acc)
+    c = np.zeros(batch + (split,), dtype=np.uint64)
+    for r in range(slots):
+        cur = add(acc[..., r], c)
+        out[..., r] = cur & mask
+        c = cur >> bits
+    for _ in range(1, split):
+        # __shfl_up_sync(c, 1): thread q takes thread q-1's carry
+        cin = np.zeros_like(c)
+        cin[..., 1:] = c[..., :-1]
+        for r in range(slots):
+            cin = add(cin, out[..., r])
+            out[..., r] = cin & mask
+            cin = cin >> bits
+        c = cin  # the top thread's carry is dropped
+    return out.reshape(batch + (n,))[..., : fq.NUM_LIMBS]

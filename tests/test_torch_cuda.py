@@ -29,7 +29,31 @@ def _loose(rng, shape, bits=401):
     return limbs
 
 
-@pytest.mark.parametrize("m", [1, 255, 257, 4099])
+def _to_dev(instr, dev):
+    return tuple(
+        torch.from_numpy(np.ascontiguousarray(
+            x.astype(np.uint8 if x.dtype == bool else np.int32))).to(dev)
+        for x in instr)
+
+
+def _stream(rng, n_steps, w_mul, w_lin, n_regs):
+    """A random instruction stream whose reads alias the same step's writes
+    and the previous step's: distinct destinations within a step."""
+    rows = []
+    prev = rng.choice(n_regs, w_mul + w_lin, replace=False)
+    for _ in range(n_steps):
+        dests = rng.choice(n_regs, w_mul + w_lin, replace=False)
+        reads = rng.integers(0, n_regs, size=(4, max(w_mul, w_lin)))
+        reads[:, :4] = dests[:4]  # read registers this step writes
+        reads[:, 4:8] = prev[:4]  # and ones the previous step wrote
+        rows.append([reads[0, :w_mul], reads[1, :w_mul], dests[:w_mul],
+                     reads[2, :w_lin], reads[3, :w_lin],
+                     rng.random(w_lin) < 0.5, dests[w_mul:]])
+        prev = dests
+    return tuple(np.stack([r[i] for r in rows]) for i in range(7))
+
+
+@pytest.mark.parametrize("m", [1, 255, 257, 4099, 65537])
 def test_mont_mul_kernel_matches_plain(dev, m):
     from consensus_specs_tpu_torch.ops import cuda_fq, fq
 
@@ -40,6 +64,18 @@ def test_mont_mul_kernel_matches_plain(dev, m):
     got = cuda_fq.mont_mul(a, b)
     assert cuda_fq.LAUNCHES == before + 1
     assert torch.equal(got, fq.mont_mul_plain(a, b))
+
+
+def test_mont_mul_kernel_unaligned_operands(dev):
+    """A view that starts 120 bytes into its storage is copied to 16-byte
+    alignment before the bulk copies."""
+    from consensus_specs_tpu_torch.ops import cuda_fq, fq
+
+    rng = np.random.default_rng(7)
+    a = torch.from_numpy(_loose(rng, (130,))).to(dev)[1:]
+    b = torch.from_numpy(_loose(rng, (130,))).to(dev)[1:]
+    assert a.data_ptr() % 16 != 0
+    assert torch.equal(cuda_fq.mont_mul(a, b), fq.mont_mul_plain(a, b))
 
 
 def test_step_kernel_matches_plain_with_aliasing(dev):
@@ -54,15 +90,65 @@ def test_step_kernel_matches_plain_with_aliasing(dev):
     instr = [reads[0, :w_mul], reads[1, :w_mul], dests[:w_mul],
              reads[2, :w_lin], reads[3, :w_lin],
              rng.random(w_lin) < 0.5, dests[w_mul:]]
-    instr = tuple(
-        torch.from_numpy(np.ascontiguousarray(
-            x[None].astype(np.uint8 if x.dtype == bool else np.int32))).to(dev)
-        for x in instr)
+    instr = _to_dev([x[None] for x in instr], dev)
     before = cuda_step.LAUNCHES
     got = cuda_step.run_steps(regs.clone(), instr)
+    # one launch per run_steps call (here a call of one step)
     assert cuda_step.LAUNCHES == before + 1
     want = vm._vm_step_plain(regs.clone(), tuple(x[0] for x in instr))
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("rows", [1, 3])
+def test_step_kernel_multi_step_stream(dev, rows):
+    """64 steps in one launch, reads aliasing writes within and across
+    steps, against the plain steps on the whole register file."""
+    from consensus_specs_tpu_torch.ops import cuda_step, vm
+
+    rng = np.random.default_rng(10 + rows)
+    n_regs = 700
+    regs = torch.from_numpy(_loose(rng, (rows, n_regs))).to(dev)
+    instr = _to_dev(_stream(rng, 64, 96, 192, n_regs), dev)
+    launches, steps = cuda_step.LAUNCHES, cuda_step.STEPS
+    got = cuda_step.run_steps(regs.clone(), instr)
+    assert cuda_step.LAUNCHES == launches + 1
+    assert cuda_step.STEPS == steps + 64
+    want = vm._run_steps_plain(regs.clone(), instr)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n_steps", [0, 1])
+def test_step_kernel_short_streams(dev, n_steps):
+    from consensus_specs_tpu_torch.ops import cuda_step, vm
+
+    rng = np.random.default_rng(20 + n_steps)
+    regs = torch.from_numpy(_loose(rng, (3, 300))).to(dev)
+    instr = _to_dev(_stream(rng, max(n_steps, 1), 8, 16, 300), dev)
+    instr = tuple(x[:n_steps] for x in instr)
+    launches, steps = cuda_step.LAUNCHES, cuda_step.STEPS
+    got = cuda_step.run_steps(regs.clone(), instr)
+    assert cuda_step.LAUNCHES == launches + min(n_steps, 1)
+    assert cuda_step.STEPS == steps + n_steps
+    assert torch.equal(got, vm._run_steps_plain(regs.clone(), instr))
+
+
+def test_step_kernel_refuses_widths_it_cannot_take(dev):
+    from consensus_specs_tpu_torch.ops import cuda_step
+
+    rng = np.random.default_rng(4)
+    # w_lin not a multiple of 4; 800 MUL threads + 256 LIN threads > 1024
+    for w_mul, w_lin in ((96, 6), (200, 256)):
+        instr = _to_dev(_stream(rng, 2, w_mul, w_lin, 64 + w_mul + w_lin),
+                        dev)
+        regs = torch.zeros((1, 64 + w_mul + w_lin, 15), dtype=torch.int64,
+                           device=dev)
+        with pytest.raises(ValueError):
+            cuda_step.run_steps(regs, instr)
+    # one stamp a register in shared memory: 60,000 registers do not fit
+    instr = _to_dev(_stream(rng, 2, 96, 192, 400), dev)
+    regs = torch.zeros((1, 60000, 15), dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError):
+        cuda_step.run_steps(regs, instr)
 
 
 def test_program_executors_agree(dev):
@@ -80,3 +166,21 @@ def test_program_executors_agree(dev):
     got = vm.execute(prog, ins, batch_shape=(2,), device=dev)
     want = vm.execute(prog, ins, batch_shape=(2,), device="cpu")
     assert np.array_equal(got["y"], want["y"])
+
+
+def test_real_program_executors_agree(dev):
+    """An assembled program of the verify path's builders, on 3 rows of
+    random canonical inputs, on the card and on the CPU."""
+    from consensus_specs_tpu_torch.ops import bls_backend, cuda_step, fq, vm
+
+    prog, _ = bls_backend._program("hard_part_frobenius", 0, 1)
+    rng = np.random.default_rng(5)
+    ins = {name: np.stack([fq.to_mont_int(int(rng.integers(1, 1 << 62)))
+                           for _ in range(3)])
+           for name in prog.input_names}
+    launches = cuda_step.LAUNCHES
+    got = vm.execute(prog, ins, batch_shape=(3,), device=dev)
+    assert cuda_step.LAUNCHES == launches + 1
+    want = vm.execute(prog, ins, batch_shape=(3,), device="cpu")
+    for name in prog.output_names:
+        assert np.array_equal(got[name], want[name]), name
