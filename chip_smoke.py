@@ -11,8 +11,9 @@ through five phases, each printing one JSON line:
   2. kernels -- hold each kernel against its plain PyTorch version on the
                card, limb-exact, and time both (CUDA events): mont_mul at
                65,536 and 65,537 products, and one synthetic step kernel
-               call whose writes alias its reads (then 2,000 such steps in
-               one launch, timed);
+               call whose writes alias its reads and in which pairs of
+               lanes write one register (then 2,000 such steps in one
+               launch, timed);
   3. program -- one assembled VM program (hard_part_frobenius, fold 1) on
                the CUDA executor against the plain executor, limb-exact;
   4. slice   -- the main path at mainnet size: batch_fast_aggregate_verify
@@ -168,7 +169,10 @@ def phase_mont_mul(torch, dev, rng, imad_rate):
 
 def _synthetic_step(rng, rows, w_mul, w_lin, n_regs):
     """One full-width VM step whose writes alias some of its reads: random
-    loose registers, distinct destinations, sub lanes' b below 2^381."""
+    loose registers, sub lanes' b below 2^381. Most destinations are
+    distinct; three pairs of lanes write one register (a MUL and a LIN
+    lane: the LIN result stays; two MUL lanes and two LIN lanes: the later
+    lane's result stays)."""
     regs = _rand_loose_limbs(rng, (rows, n_regs))
     msa = rng.integers(0, n_regs, w_mul, dtype=np.int32)
     msb = rng.integers(0, n_regs, w_mul, dtype=np.int32)
@@ -177,6 +181,9 @@ def _synthetic_step(rng, rows, w_mul, w_lin, n_regs):
     lsub = rng.random(w_lin) < 0.5
     dests = rng.choice(n_regs, w_mul + w_lin, replace=False).astype(np.int32)
     msd, lsd = dests[:w_mul], dests[w_mul:]
+    lsd[40] = msd[3]  # different warps of the block
+    msd[w_mul - 1] = msd[5]
+    lsd[w_lin - 1] = lsd[50]
     # read-before-write: lanes read registers this step also writes
     msa[:8] = lsd[:8]
     msb[8:16] = msd[:8]
@@ -203,7 +210,9 @@ def phase_vm_step(torch, dev, rng, imad_rate):
     instr = tuple(to_dev(x) for x in instr_np)
     regs0 = torch.from_numpy(regs_np).to(dev)
     got = cuda_step.run_steps(regs0.clone(), instr)
-    want = vm._vm_step_plain(regs0.clone(), tuple(x[0] for x in instr))
+    # the plain step, the later of two MUL or two LIN lanes keeping a
+    # register they share (a scatter with a repeated index keeps either)
+    want = cuda_step.run_steps_plain_in_lane_order(regs0, instr)
     torch.cuda.synchronize()
     err = int((got - want).abs().max().item())
     _check(err == 0, f"vm_step kernel differs from plain: max |err| {err}")
@@ -223,7 +232,7 @@ def phase_vm_step(torch, dev, rng, imad_rate):
 
     n_read = len(set(np.concatenate(
         [instr_np[i] for i in (0, 1, 3, 4)]).tolist()))
-    n_write = w_mul + w_lin
+    n_write = len(set(instr_np[2].tolist() + instr_np[6].tolist()))
     instr_bytes = sum(x.nbytes for x in instr_np)
     n_bytes = rows * (n_read + n_write) * 15 * LIMB_BYTES + instr_bytes
     n_ops = rows * (w_mul * WIDE_MACS_PER_MONT * IMAD_PER_WIDE_MAC
@@ -231,7 +240,8 @@ def phase_vm_step(torch, dev, rng, imad_rate):
     return {
         "name": "vm_step", "stream": "synthetic", "rows": rows,
         "w_mul": w_mul, "w_lin": w_lin, "n_regs": n_regs,
-        "aliased_regs": len(aliased), "max_abs_err": err,
+        "aliased_regs": len(aliased), "shared_dests": w_mul + w_lin - n_write,
+        "max_abs_err": err,
         "us_per_step": ms * 1e3, "timed_steps": reps,
         "plain_ms_per_step": plain_ms, "bytes_per_step": n_bytes,
         "imad_per_step": n_ops, **_bound(n_bytes, n_ops, imad_rate),

@@ -1,8 +1,8 @@
 // BLS12-381 base-field arithmetic shared by the port's two CUDA kernels
 // (mont_mul.cu, vm_step.cu): the Montgomery multiply, one thread a product
-// (mont_mul.cu) and split over FQ_SPLIT threads (the step kernel's MUL
-// unit), the add / borrowless-subtract of the VM's LIN unit, and the
-// cp.async helpers.
+// (mont_mul.cu) and split over 4 threads (the step kernel's MUL unit),
+// the add / borrowless-subtract of the VM's LIN unit, and the cp.async
+// helpers.
 //
 // Representation: 15 limbs of 28 bits, R = 2^420, loose residues (limbs
 // < 2^28) — the layout of the JAX package's ops/fq.py. The Pallas kernels
@@ -77,8 +77,8 @@ __device__ __forceinline__ void fq_mont_mul(const unsigned int* a,
 }
 
 // ---------------------------------------------------------------------------
-// The split Montgomery product: FQ_SPLIT neighbouring threads of one warp
-// share a product, thread q holding limbs q*FQ_SLOTS .. q*FQ_SLOTS + 3 of a,
+// The split Montgomery product: FQ_SPLIT = 4 neighbouring threads of one
+// warp share a product, thread q holding limbs 4q .. 4q + 3 of a,
 // b and p (slot 15 is zero padding). It is the operand-scanning form of the
 // same REDC: round i adds a_i * b (a_i shuffled from its owner), takes
 // m_i from the low 28 bits of column 0 on thread 0 and shuffles it to the
@@ -89,23 +89,23 @@ __device__ __forceinline__ void fq_mont_mul(const unsigned int* a,
 // c * 2^28 from a column to the next leaves the integer and every column's
 // low 28 bits as they were, so m_i and the result are fq_mont_mul's: after
 // 15 rounds the group's slots hold the integer of its columns 15 .. 29,
-// carried to the same limbs by a local carry pass plus FQ_SPLIT - 1
-// shuffled carry rounds.
+// carried to the same limbs by a local carry pass plus 3 shuffled carry
+// rounds.
 //
 // Why 4 threads: each thread does 8 multiply-adds a round against 3
 // shuffles, a thread's 4 limbs are one 16-byte load, and 96 MUL lanes fill
 // 12 warps (384 threads) beside the 192 LIN threads: 576 threads a block,
 // inside 1024 with 64 registers a thread. In the step kernel on an H100,
-// on the verify path's streams, 4 threads measured faster than 1, 2 and 8:
-// with 8 the shuffles match the multiply-adds one for one, with 1 or 2 the
-// 3 or 6 warps of products leave the SM's partitions idle.
+// on the verify path's streams, 4 threads measured faster than 2 and 8
+// (PERF.md): with 8 the shuffles match the multiply-adds one for one, with
+// 2 the 6 warps of products leave the SM's partitions idle.
 //
 // Overflow audit: every slot is one column of t (< 2^62, as above).
 //
 // ops/cuda_step.mont_mul_split_emulated is this schedule in numpy, held to
 // the plain version and the JAX package on the CPU.
-#define FQ_SPLIT 4  // the schedule holds for 1, 2, 4 or 8
-#define FQ_SLOTS (16 / FQ_SPLIT)  // FQ_SPLIT * FQ_SLOTS = 16 >= FQ_LIMBS
+#define FQ_SPLIT 4  // threads a product
+#define FQ_SLOTS 4  // limbs a thread: FQ_SPLIT * FQ_SLOTS = 16 >= FQ_LIMBS
 #define FQ_FULL_WARP 0xffffffffu
 
 // this thread's slice of p, read once per kernel (the index differs across
@@ -130,13 +130,11 @@ __device__ __forceinline__ void fq_mont_mul_split(const unsigned int* a,
 #pragma unroll
   for (int i = 0; i < FQ_LIMBS; ++i) {
     const unsigned int ai =
-        FQ_SPLIT == 1 ? a[i]
-                      : __shfl_sync(FQ_FULL_WARP, a[i % FQ_SLOTS],
-                                    i / FQ_SLOTS, FQ_SPLIT);
+        __shfl_sync(FQ_FULL_WARP, a[i % FQ_SLOTS], i / FQ_SLOTS, FQ_SPLIT);
 #pragma unroll
     for (int r = 0; r < FQ_SLOTS; ++r) acc[r] += (unsigned long long)ai * b[r];
-    unsigned int m = ((unsigned int)acc[0] * FQ_N0) & FQ_MASK;
-    if (FQ_SPLIT > 1) m = __shfl_sync(FQ_FULL_WARP, m, 0, FQ_SPLIT);
+    const unsigned int m = __shfl_sync(
+        FQ_FULL_WARP, ((unsigned int)acc[0] * FQ_N0) & FQ_MASK, 0, FQ_SPLIT);
 #pragma unroll
     for (int r = 0; r < FQ_SLOTS; ++r) acc[r] += (unsigned long long)m * p[r];
     // each thread's slot 0 hands its low 28 bits to the thread below (the
@@ -144,11 +142,8 @@ __device__ __forceinline__ void fq_mont_mul_split(const unsigned int* a,
     // thread 0, column 0 is now a multiple of 2^28 and this is the REDC
     // carry
     const unsigned long long hi = acc[0] >> FQ_LIMB_BITS;
-    unsigned int next =
-        FQ_SPLIT == 1 ? 0u
-                      : __shfl_down_sync(FQ_FULL_WARP,
-                                         (unsigned int)acc[0] & FQ_MASK, 1,
-                                         FQ_SPLIT);
+    unsigned int next = __shfl_down_sync(
+        FQ_FULL_WARP, (unsigned int)acc[0] & FQ_MASK, 1, FQ_SPLIT);
     if (q == FQ_SPLIT - 1) next = 0u;
 #pragma unroll
     for (int r = 0; r < FQ_SLOTS - 1; ++r) acc[r] = acc[r + 1];

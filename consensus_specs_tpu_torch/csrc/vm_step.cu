@@ -88,14 +88,11 @@ __host__ __device__ __forceinline__ int vm_mul_threads(int w_mul) {
 // written in PTX (vm_store16): from plain uint4 stores ptxas made four
 // 4-byte stores of some pieces, which cost ~0.4 us a step on the H100.
 #define VM_REG 16  // uint32 limbs of a register in the compact row
-static_assert(FQ_SPLIT == 4 && FQ_SLOTS == 4,
-              "a MUL thread moves its 4 limbs of a register as 16 bytes");
 
 // Phase timing, for tools/torch_vm_step_phases.py only: built with
 // -DVM_PROFILE, thread 0 of block 0 adds the SM clocks each phase of each
 // step took (load and compute, store; both end at a barrier) into
-// vm_profile[1..2]. -DVM_PROFILE_SKIP_PRODUCT also replaces the product
-// by a stand-in (wrong results) to show what the rest of the step costs.
+// vm_profile[1..2].
 #ifdef VM_PROFILE
 __device__ unsigned long long vm_profile[3];
 #define VM_STAMP(i)                            \
@@ -230,11 +227,7 @@ __global__ void __launch_bounds__(VM_MAX_THREADS)
       unsigned int x[FQ_SLOTS], y[FQ_SLOTS];
       vm_unpack(a[q], x);
       vm_unpack(b[q], y);
-#ifdef VM_PROFILE_SKIP_PRODUCT
-      for (int j = 0; j < FQ_SLOTS; ++j) r[j] = x[j] ^ y[j];
-#else
       fq_mont_mul_split(x, y, p, q, r);
-#endif
       if (q == FQ_SPLIT - 1) r[FQ_SLOTS - 1] = 0u;  // limb 15
       dst = (int)cur[2 * w_mul + l];
       stamp = (s << VM_SLOT_BITS) | l;
@@ -303,10 +296,11 @@ __global__ void __launch_bounds__(VM_MAX_THREADS)
   }
 }
 
-// The block width run_steps launches for these widths (0 = a call the
+// The block width vm_run_steps launches for these widths (0 = a call the
 // kernel cannot take: over 1024 threads or the shared memory a block may
 // use, w_lin not a multiple of 4, or too many steps for the stamps).
-static int vm_block_threads(int w_mul, int w_lin, int n_regs, int n_steps) {
+extern "C" int vm_block_threads(int w_mul, int w_lin, int n_regs,
+                                int n_steps) {
   if (w_mul < 0 || w_lin < 0 || w_lin % 4 != 0 || n_regs < 1) return 0;
   if (n_steps < 0 || n_steps >= VM_MAX_STEPS) return 0;
   const int threads = vm_mul_threads(w_mul) + w_lin;
@@ -314,11 +308,17 @@ static int vm_block_threads(int w_mul, int w_lin, int n_regs, int n_steps) {
   return vm_smem_bytes(w_mul, w_lin, n_regs) > VM_MAX_SMEM ? 0 : threads;
 }
 
+// uint32 words of the scratch vm_run_steps takes: the compact copy of
+// `rows` rows of `n_regs` registers
+extern "C" long long vm_scratch_words(int rows, int n_regs) {
+  return (long long)rows * n_regs * VM_REG;
+}
+
 // Runs steps [0, n_steps) of an instruction stream whose per-step rows
 // are w_mul (msa, msb, msd) and w_lin (lsa, lsb, lsub, lsd) wide, in one
 // launch of one block per row on `stream`. `compact` is scratch of
-// rows * n_regs * 16 uint32, 16-byte aligned. Returns cudaGetLastError()
-// of the launch (0 = accepted).
+// vm_scratch_words(rows, n_regs) uint32, 16-byte aligned. Returns
+// cudaGetLastError() of the launch (0 = accepted).
 extern "C" int vm_run_steps(long long* regs, unsigned int* compact, int rows,
                             int n_regs, const int* msa, const int* msb,
                             const int* msd,

@@ -11,7 +11,7 @@ import hashlib
 import os
 import shutil
 import subprocess
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -47,19 +47,17 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:12]}.so")
 
 
-def build(names: Sequence[str] = KERNELS) -> Dict[str, str]:
-    """Compile every missing library, one ``nvcc`` per source, all started
-    together. Returns {name: ptxas report} for what was compiled; raises
-    with the compiler's output if any build fails."""
+def compile_sources(jobs: Dict[str, Tuple[str, str, Sequence[str]]]
+                    ) -> Dict[str, str]:
+    """Compile ``{name: (source, library, extra nvcc flags)}``, one ``nvcc``
+    per source, all started together; each library appears whole or not
+    at all. Returns {name: ptxas report}; raises with the compiler's output
+    if any build fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
-    for name in names:
-        out = library_path(name)
-        if os.path.exists(out):
-            continue
+    for name, (src, out, flags) in jobs.items():
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-               os.path.join(CSRC_DIR, f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, *flags, "-o", tmp, src]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True), tmp, out)
@@ -74,6 +72,14 @@ def build(names: Sequence[str] = KERNELS) -> Dict[str, str]:
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return reports
+
+
+def build(names: Sequence[str] = KERNELS) -> Dict[str, str]:
+    """Compile every missing kernel library (``compile_sources``). Returns
+    {name: ptxas report} for what was compiled."""
+    return compile_sources({
+        name: (os.path.join(CSRC_DIR, f"{name}.cu"), library_path(name), ())
+        for name in names if not os.path.exists(library_path(name))})
 
 
 def load(name: str) -> ctypes.CDLL:

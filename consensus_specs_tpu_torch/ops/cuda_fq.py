@@ -15,18 +15,24 @@ from . import cuda_build, fq
 # reset it to 0 and read it back)
 LAUNCHES = 0
 
-_FN = None
+_LIB = None
 
 
-def _kernel():
-    global _FN
-    if _FN is None:
-        fn = cuda_build.load("mont_mul").mont_mul_launch
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_void_p]
-        _FN = fn
-    return _FN
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Type ``mont_mul_launch`` of a build of csrc/mont_mul.cu: (a, b, out,
+    products, stream) -> cudaError. Returns ``lib``."""
+    lib.mont_mul_launch.restype = ctypes.c_int
+    lib.mont_mul_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                    ctypes.c_void_p, ctypes.c_longlong,
+                                    ctypes.c_void_p]
+    return lib
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        _LIB = bind(cuda_build.load("mont_mul"))
+    return _LIB
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
@@ -53,7 +59,8 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if m == 0:
         return out
     stream = torch.cuda.current_stream(a.device).cuda_stream
-    rc = _kernel()(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, stream)
+    rc = _lib().mont_mul_launch(a.data_ptr(), b.data_ptr(), out.data_ptr(), m,
+                                stream)
     if rc != 0:
         raise RuntimeError(f"mont_mul kernel launch failed: cudaError {rc}")
     LAUNCHES += 1

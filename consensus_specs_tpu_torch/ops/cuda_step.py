@@ -10,7 +10,10 @@ PyTorch steps, ``vm._run_steps_plain``. The two agree limb for limb.
 ``mont_mul_split_emulated`` is the kernel's split Montgomery product
 (csrc/mont.cuh ``fq_mont_mul_split``) thread by thread in numpy, and
 ``run_steps_emulated`` the kernel's data flow through its stamp table, so
-that both are tested on the CPU; nothing on the main path calls them.
+that both are tested on the CPU. ``run_steps_plain_in_lane_order`` is the
+plain steps with the kernel's rule for two lanes of a unit that write one
+register, the reference where a test stream has such lanes. Nothing on
+the main path calls them.
 """
 import ctypes
 
@@ -25,55 +28,34 @@ from . import cuda_build, fq
 LAUNCHES = 0
 STEPS = 0
 
-MAX_THREADS = 1024
-MAX_SMEM = 232448  # bytes of shared memory a block may use on Hopper
-STAGES = 4  # instruction rows in flight (VM_STAGES)
-SLOT_BITS = 11  # result slots in a stamp (VM_SLOT_BITS)
-REG = 16  # uint32 limbs of a register in the compact row (VM_REG)
-SLOT = 20  # shared-memory words of a LIN lane's result (VM_SLOT)
-MAX_STEPS = 1 << (31 - SLOT_BITS)
-# threads a Montgomery product is split over (FQ_SPLIT in csrc/mont.cuh)
-SPLIT = 4
-
-_FN = None
+_LIB = None
 
 
-def _kernel():
-    global _FN
-    if _FN is None:
-        fn = cuda_build.load("vm_step").vm_run_steps
-        fn.restype = ctypes.c_int
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, ctypes.c_int, ctypes.c_int, p, p, p, p, p, p, p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
-        _FN = fn
-    return _FN
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Type the C interface of a build of csrc/vm_step.cu: ``vm_run_steps``,
+    ``vm_block_threads`` and ``vm_scratch_words``. Returns ``lib``."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.vm_run_steps.restype = i
+    lib.vm_run_steps.argtypes = [p, p, i, i, p, p, p, p, p, p, p, i, i, i, p]
+    lib.vm_block_threads.restype = i
+    lib.vm_block_threads.argtypes = [i, i, i, i]
+    lib.vm_scratch_words.restype = ctypes.c_longlong
+    lib.vm_scratch_words.argtypes = [i, i]
+    return lib
 
 
-def smem_bytes(w_mul: int, w_lin: int, n_regs: int) -> int:
-    """Shared memory of the kernel's block: STAGES instruction rows, the
-    LIN lanes' results (SLOT words a lane) and destinations, then one int32
-    stamp per register. ``vm_smem_bytes`` in csrc/vm_step.cu."""
-    words = 3 * w_mul + 3 * w_lin + w_lin // 4
-    return (-(-STAGES * 4 * words // 16) * 16 + 4 * (SLOT + 1) * w_lin
-            + 4 * n_regs)
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        _LIB = bind(cuda_build.load("vm_step"))
+    return _LIB
 
 
 def block_threads(w_mul: int, w_lin: int, n_regs: int, n_steps: int) -> int:
-    """Threads of the kernel's block for a call (the MUL lanes' SPLIT
-    threads each, rounded up to whole warps, then one thread per LIN lane),
-    or 0 where the launch cannot take it: over MAX_THREADS or MAX_SMEM,
-    w_lin not a multiple of 4 (the subtract mask is staged in 4-byte
-    words), or MAX_STEPS steps or more (the stamps' step field).
-    ``vm_block_threads`` in csrc/vm_step.cu."""
-    if w_mul < 0 or w_lin < 0 or w_lin % 4 or n_regs < 1:
-        return 0
-    if not 0 <= n_steps < MAX_STEPS:
-        return 0
-    threads = -(-w_mul * SPLIT // 32) * 32 + w_lin
-    if threads == 0 or threads > MAX_THREADS:
-        return 0
-    return threads if smem_bytes(w_mul, w_lin, n_regs) <= MAX_SMEM else 0
+    """Threads of the kernel's block for a call, or 0 where the launch
+    cannot take it (``vm_block_threads`` in csrc/vm_step.cu; builds the
+    kernel on first use)."""
+    return _lib().vm_block_threads(w_mul, w_lin, n_regs, n_steps)
 
 
 def _check_instr(regs: torch.Tensor, instr) -> None:
@@ -95,12 +77,30 @@ def _check_instr(regs: torch.Tensor, instr) -> None:
     if block_threads(w_mul, w_lin, n_regs, n_steps) == 0:
         raise ValueError(
             f"w_mul={w_mul}, w_lin={w_lin}, n_regs={n_regs}, "
-            f"n_steps={n_steps} do not fit one block: {SPLIT} threads a MUL "
-            f"lane in whole warps plus one a LIN lane must stay <= "
-            f"{MAX_THREADS}, the block's shared memory <= {MAX_SMEM} bytes, "
-            f"w_lin a multiple of 4 and n_steps < {MAX_STEPS}")
+            f"n_steps={n_steps} do not fit one block of the step kernel: "
+            "4 threads a MUL lane in whole warps plus one a LIN lane must "
+            "stay <= 1024, the stamps and instruction rows inside the "
+            "block's shared memory, w_lin a multiple of 4 and the step "
+            "count inside the stamps (csrc/vm_step.cu vm_block_threads)")
     if lsub.data_ptr() % 4:
         raise ValueError("lsub must start on a 4-byte boundary")
+
+
+def launch(lib: ctypes.CDLL, regs: torch.Tensor, instr) -> None:
+    """One launch of ``lib``'s step kernel (a ``bind``-typed build of
+    csrc/vm_step.cu) over every step of ``instr`` on the CUDA register
+    file ``regs``, on the current stream, with its scratch; raises if the
+    launch is refused. Counts nothing: ``run_steps`` is the wrapper."""
+    n_steps, w_mul = instr[0].shape
+    rows, n_regs, _ = regs.shape
+    compact = torch.empty(lib.vm_scratch_words(rows, n_regs),
+                          dtype=torch.int32, device=regs.device)
+    stream = torch.cuda.current_stream(regs.device).cuda_stream
+    rc = lib.vm_run_steps(regs.data_ptr(), compact.data_ptr(), rows, n_regs,
+                          *(x.data_ptr() for x in instr),
+                          w_mul, instr[3].shape[1], n_steps, stream)
+    if rc != 0:
+        raise RuntimeError(f"vm_step kernel launch failed: cudaError {rc}")
 
 
 def run_steps(regs: torch.Tensor, instr) -> torch.Tensor:
@@ -118,22 +118,11 @@ def run_steps(regs: torch.Tensor, instr) -> torch.Tensor:
             or regs.shape[-1] != fq.NUM_LIMBS or not regs.is_contiguous():
         raise ValueError("regs must be a contiguous (rows, n_regs, 15) int64")
     _check_instr(regs, instr)
-    n_steps, w_mul = instr[0].shape
-    w_lin = instr[3].shape[1]
-    rows, n_regs, _ = regs.shape
-    if n_steps == 0 or rows == 0:
+    if instr[0].shape[0] == 0 or regs.shape[0] == 0:
         return regs
-    # the kernel's compact copy of the register file, 16 uint32 a register
-    compact = torch.empty((rows, n_regs, REG), dtype=torch.int32,
-                          device=regs.device)
-    stream = torch.cuda.current_stream(regs.device).cuda_stream
-    rc = _kernel()(regs.data_ptr(), compact.data_ptr(), rows, n_regs,
-                   *(x.data_ptr() for x in instr),
-                   w_mul, w_lin, n_steps, stream)
-    if rc != 0:
-        raise RuntimeError(f"vm_step kernel launch failed: cudaError {rc}")
+    launch(_lib(), regs, instr)
     LAUNCHES += 1
-    STEPS += n_steps
+    STEPS += instr[0].shape[0]
     return regs
 
 
@@ -141,8 +130,11 @@ def run_steps_emulated(regs: torch.Tensor, instr) -> torch.Tensor:
     """The step kernel's data flow, on CPU tensors, with the plain
     arithmetic: each step loads every operand, computes every lane and
     stamps each destination with (step, slot) by a maximum, then stores
-    only the results whose slot holds their destination's stamp. Updates
-    ``regs`` in place; it must agree with ``vm._run_steps_plain``."""
+    only the results whose slot holds their destination's stamp (so of two
+    lanes that write one register, the later slot's result stays). Updates
+    ``regs`` in place; it must agree with ``run_steps_plain_in_lane_order``
+    (and so with ``vm._run_steps_plain`` where no unit repeats a
+    destination in a step)."""
     from . import vm
 
     msa, msb, msd, lsa, lsb, lsub, lsd = (x.numpy().astype(np.int64)
@@ -156,33 +148,58 @@ def run_steps_emulated(regs: torch.Tensor, instr) -> torch.Tensor:
             vm._lin_plain(regs[..., lsa[s], :], regs[..., lsb[s], :],
                           torch.from_numpy(lsub[s]))], dim=-2)
         dests = np.concatenate([msd[s], lsd[s]])
-        mine = (s << SLOT_BITS) | np.arange(n_res)
+        mine = s * n_res + np.arange(n_res)  # ordered as (step, slot)
         np.maximum.at(stamps, dests, mine)
         own = stamps[dests] == mine
         regs[..., dests[own], :] = res[..., own, :]
     return regs
 
 
-def mont_mul_split_emulated(a, b, split: int = SPLIT) -> np.ndarray:
+def run_steps_plain_in_lane_order(regs: torch.Tensor, instr) -> torch.Tensor:
+    """``vm._run_steps_plain`` for streams in which two lanes of one unit
+    (MUL or LIN) write one register in a step: the later lane's result
+    stays, as in the step kernel. (A scatter with a repeated index keeps
+    either result; the assembler never emits one.) Every lane but the last
+    of a repeated destination writes a spare register past the file's end
+    instead. Returns a new register file on ``regs``' device."""
+    from . import vm
+
+    n_regs = regs.shape[-2]
+    dests, spares = [], 0
+    for d in (instr[2], instr[6]):
+        d = d.cpu().numpy().copy()
+        for s in range(d.shape[0]):
+            # the last lane of each destination keeps it
+            _, last = np.unique(d[s, ::-1], return_index=True)
+            lose = np.ones(d.shape[1], dtype=bool)
+            lose[d.shape[1] - 1 - last] = False
+            d[s, lose] = n_regs + np.arange(int(lose.sum()))
+            spares = max(spares, int(lose.sum()))
+        dests.append(torch.from_numpy(d).to(regs.device))
+    wide = torch.cat([regs, regs.new_zeros(regs.shape[:-2] + (spares, 15))],
+                     dim=-2)
+    msa, msb, _, lsa, lsb, lsub, _ = instr
+    vm._run_steps_plain(wide, (msa, msb, dests[0], lsa, lsb, lsub, dests[1]))
+    return wide[..., :n_regs, :].contiguous()
+
+
+def mont_mul_split_emulated(a, b) -> np.ndarray:
     """The split Montgomery product of csrc/mont.cuh, thread by thread:
     a, b (..., 15) limbs < 2^28 (any integer array) -> (..., 15) uint64.
 
-    Thread q of a group of ``split`` (FQ_SPLIT; 1, 2, 4 or 8) holds limbs
-    q*slots .. q*slots + slots - 1 of a, b and p, slots = 16 / split (limb
-    15 is zero); ``acc[..., q, r]`` is its accumulator slot r. Each shuffle
-    of the kernel is an index into the group's slots here. Raises if an
-    accumulator would leave 64 bits (the kernel's overflow audit)."""
-    if split not in (1, 2, 4, 8):
-        raise ValueError(f"split {split}: FQ_SPLIT is 1, 2, 4 or 8")
-    slots = 16 // split
+    Thread q of a group of 4 (FQ_SPLIT) holds limbs 4q .. 4q + 3 of a, b
+    and p (limb 15 is zero); ``acc[..., q, r]`` is its accumulator slot r.
+    Each shuffle of the kernel is an index into the group's slots here.
+    Raises if an accumulator would leave 64 bits (the kernel's overflow
+    audit)."""
+    split = slots = 4
     a = np.asarray(a, dtype=np.uint64)
     b = np.asarray(b, dtype=np.uint64)
     a, b = np.broadcast_arrays(a, b)
     batch = a.shape[:-1]
-    n = split * slots
 
     def slices(x):
-        pad = np.zeros(batch + (n,), dtype=np.uint64)
+        pad = np.zeros(batch + (split * slots,), dtype=np.uint64)
         pad[..., : fq.NUM_LIMBS] = x
         return pad.reshape(batch + (split, slots))
 
@@ -199,7 +216,7 @@ def mont_mul_split_emulated(a, b, split: int = SPLIT) -> np.ndarray:
         return s.astype(np.uint64)
 
     for i in range(fq.NUM_LIMBS):
-        # __shfl_sync(a[i % slots], i / slots): a_i to every thread
+        # __shfl_sync(a[i % 4], i / 4): a_i to every thread
         ai = xa[..., i // slots, i % slots][..., None, None]
         acc = add(acc, ai * xb)
         # m from thread 0's column 0, shuffled to the group
@@ -212,7 +229,7 @@ def mont_mul_split_emulated(a, b, split: int = SPLIT) -> np.ndarray:
         nxt[..., :-1] = acc[..., 1:, 0] & mask
         acc = np.concatenate([acc[..., 1:], nxt[..., None]], axis=-1)
         acc[..., :, 0] = add(acc[..., :, 0], hi)
-    # local carry pass, then split - 1 rounds of shuffled carries
+    # local carry pass, then 3 rounds of shuffled carries
     out = np.zeros_like(acc)
     c = np.zeros(batch + (split,), dtype=np.uint64)
     for r in range(slots):
@@ -228,4 +245,4 @@ def mont_mul_split_emulated(a, b, split: int = SPLIT) -> np.ndarray:
             out[..., r] = cin & mask
             cin = cin >> bits
         c = cin  # the top thread's carry is dropped
-    return out.reshape(batch + (n,))[..., : fq.NUM_LIMBS]
+    return out.reshape(batch + (split * slots,))[..., : fq.NUM_LIMBS]

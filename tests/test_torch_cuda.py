@@ -38,11 +38,19 @@ def _to_dev(instr, dev):
 
 def _stream(rng, n_steps, w_mul, w_lin, n_regs):
     """A random instruction stream whose reads alias the same step's writes
-    and the previous step's: distinct destinations within a step."""
+    and the previous step's. Every few steps two lanes write one register:
+    a MUL and a LIN lane (the LIN result stays), two MUL lanes or two LIN
+    lanes (the later lane's result stays)."""
     rows = []
     prev = rng.choice(n_regs, w_mul + w_lin, replace=False)
-    for _ in range(n_steps):
+    for s in range(n_steps):
         dests = rng.choice(n_regs, w_mul + w_lin, replace=False)
+        if s % 3 == 1:
+            dests[w_mul + 5] = dests[1]
+        if s % 4 == 2:
+            dests[w_mul - 1] = dests[2]
+        if s % 5 == 3:
+            dests[-1] = dests[w_mul]
         reads = rng.integers(0, n_regs, size=(4, max(w_mul, w_lin)))
         reads[:, :4] = dests[:4]  # read registers this step writes
         reads[:, 4:8] = prev[:4]  # and ones the previous step wrote
@@ -102,8 +110,9 @@ def test_step_kernel_matches_plain_with_aliasing(dev):
 @pytest.mark.parametrize("rows", [1, 3])
 def test_step_kernel_multi_step_stream(dev, rows):
     """64 steps in one launch, reads aliasing writes within and across
-    steps, against the plain steps on the whole register file."""
-    from consensus_specs_tpu_torch.ops import cuda_step, vm
+    steps and lanes sharing destinations, against the plain steps on the
+    whole register file."""
+    from consensus_specs_tpu_torch.ops import cuda_step
 
     rng = np.random.default_rng(10 + rows)
     n_regs = 700
@@ -113,13 +122,13 @@ def test_step_kernel_multi_step_stream(dev, rows):
     got = cuda_step.run_steps(regs.clone(), instr)
     assert cuda_step.LAUNCHES == launches + 1
     assert cuda_step.STEPS == steps + 64
-    want = vm._run_steps_plain(regs.clone(), instr)
-    assert torch.equal(got, want)
+    assert torch.equal(got, cuda_step.run_steps_plain_in_lane_order(regs,
+                                                                   instr))
 
 
 @pytest.mark.parametrize("n_steps", [0, 1])
 def test_step_kernel_short_streams(dev, n_steps):
-    from consensus_specs_tpu_torch.ops import cuda_step, vm
+    from consensus_specs_tpu_torch.ops import cuda_step
 
     rng = np.random.default_rng(20 + n_steps)
     regs = torch.from_numpy(_loose(rng, (3, 300))).to(dev)
@@ -129,7 +138,8 @@ def test_step_kernel_short_streams(dev, n_steps):
     got = cuda_step.run_steps(regs.clone(), instr)
     assert cuda_step.LAUNCHES == launches + min(n_steps, 1)
     assert cuda_step.STEPS == steps + n_steps
-    assert torch.equal(got, vm._run_steps_plain(regs.clone(), instr))
+    assert torch.equal(got, cuda_step.run_steps_plain_in_lane_order(regs,
+                                                                   instr))
 
 
 def test_step_kernel_refuses_widths_it_cannot_take(dev):
@@ -149,6 +159,23 @@ def test_step_kernel_refuses_widths_it_cannot_take(dev):
     regs = torch.zeros((1, 60000, 15), dtype=torch.int64, device=dev)
     with pytest.raises(ValueError):
         cuda_step.run_steps(regs, instr)
+
+
+@pytest.mark.parametrize("w_mul,w_lin,n_regs,n_steps,threads", [
+    (96, 192, 6613, 2816, 576),    # PROG A of the verify path
+    (96, 192, 7189, 9728, 576),    # PROG B
+    (4, 4, 80, 40, 36),            # MUL warp padded to 32 threads
+    (96, 6, 500, 10, 0),           # w_lin not a multiple of 4
+    (200, 256, 500, 10, 0),        # 800 + 256 threads > 1024
+    (96, 192, 60000, 10, 0),       # stamps past the shared memory
+    (96, 192, 500, 1 << 20, 0),    # steps past the stamps' step field
+    (0, 0, 10, 10, 0),             # nothing to launch
+])
+def test_step_kernel_block_threads(dev, w_mul, w_lin, n_regs, n_steps,
+                                   threads):
+    from consensus_specs_tpu_torch.ops import cuda_step
+
+    assert cuda_step.block_threads(w_mul, w_lin, n_regs, n_steps) == threads
 
 
 def test_program_executors_agree(dev):

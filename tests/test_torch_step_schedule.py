@@ -1,5 +1,5 @@
-"""The step kernel's split Montgomery product and launch geometry, on the
-CPU (the kernel itself runs only on a card).
+"""The step kernel's split Montgomery product and data flow, on the CPU
+(the kernel itself runs only on a card).
 
 ``cuda_step.mont_mul_split_emulated`` replays, thread by thread, the
 schedule of csrc/mont.cuh ``fq_mont_mul_split``: which thread holds which
@@ -10,13 +10,11 @@ limbs of ``fq.mont_mul_plain`` and of the JAX package's
 loose-bound extremes too. ``cuda_step.run_steps_emulated`` replays the
 kernel's data flow (every load before any store, a result stored only
 where its slot holds the destination's stamp) with the plain arithmetic;
-it must give the plain steps' register file. The Python
-mirrors of the kernel's launch geometry must match the constants in the
-CUDA sources.
+it must give the plain steps' register file, also where two lanes of a
+step write one register (``cuda_step.run_steps_plain_in_lane_order``: the
+later lane keeps it, as in the kernel).
 """
-import os
 import random
-import re
 
 import numpy as np
 
@@ -30,7 +28,7 @@ import torch  # noqa: E402
 from consensus_specs_tpu.ops import fq as jfq  # noqa: E402
 from consensus_specs_tpu.utils.bls12_381 import P  # noqa: E402
 from consensus_specs_tpu_torch.ops import (  # noqa: E402
-    cuda_build, cuda_step, fq, vm, vmlib)
+    cuda_step, fq, vm, vmlib)
 
 _MAXV = np.full(fq.NUM_LIMBS, fq.MASK, dtype=np.uint64)  # 2^420 - 1
 _PM1 = fq._int_to_limbs_np(P - 1)
@@ -50,6 +48,20 @@ def _inputs(kind, seed):
     elif kind == "loose401":  # loose residues, the VM's usual operands
         a, b = (np.stack([fq._int_to_limbs_np(rng.randrange(1 << 401))
                           for _ in range(24)]) for _ in range(2))
+    elif kind == "near_p_multiples":  # k * p +- a little, below 2^420
+        a, b = (np.stack([fq._int_to_limbs_np(
+            rng.randrange(1, (1 << 420) // P) * P
+            + rng.choice((-1, 1)) * rng.randrange(1 << 20))
+            for _ in range(24)]) for _ in range(2))
+    elif kind == "mask_or_zero":  # every limb 0 or 2^28 - 1
+        a, b = (np.array([[rng.choice((0, fq.MASK)) for _ in range(15)]
+                          for _ in range(24)], dtype=np.uint64)
+                for _ in range(2))
+    elif kind == "one_limb":  # one nonzero limb, so one thread's slice
+        a, b = (np.zeros((15, 15), dtype=np.uint64) for _ in range(2))
+        for i in range(15):
+            a[i, i] = rng.randrange(1, 1 << 28)
+            b[i, 14 - i] = rng.randrange(1, 1 << 28)
     else:  # any 15 limbs below 2^28: values up to 2^420
         a, b = (np.array([[rng.randrange(1 << 28) for _ in range(15)]
                           for _ in range(24)], dtype=np.uint64)
@@ -57,23 +69,16 @@ def _inputs(kind, seed):
     return a.astype(np.uint64), b.astype(np.uint64)
 
 
-@pytest.mark.parametrize("kind", ["edges", "loose401", "full_limbs"])
-@pytest.mark.parametrize("split", [1, 2, 4, 8])
-def test_split_product_matches_plain_and_jax(kind, split):
-    a, b = _inputs(kind, 17 * split + len(kind))
-    got = cuda_step.mont_mul_split_emulated(a, b, split)
+@pytest.mark.parametrize("kind", ["edges", "loose401", "near_p_multiples",
+                                  "mask_or_zero", "one_limb", "full_limbs"])
+def test_split_product_matches_plain_and_jax(kind):
+    a, b = _inputs(kind, 17 + len(kind))
+    got = cuda_step.mont_mul_split_emulated(a, b)
     plain = fq.mont_mul_plain(torch.from_numpy(a.astype(np.int64)),
                               torch.from_numpy(b.astype(np.int64)))
     assert np.array_equal(got, plain.numpy().astype(np.uint64))
     assert np.array_equal(got, np.asarray(jfq.mont_mul_u64(a, b)))
     assert got.max() < (1 << fq.LIMB_BITS)
-
-
-def test_split_product_is_the_kernels_default_schedule():
-    a, b = _inputs("full_limbs", 3)
-    assert cuda_step.SPLIT == 4
-    assert np.array_equal(cuda_step.mont_mul_split_emulated(a, b),
-                          cuda_step.mont_mul_split_emulated(a, b, 4))
 
 
 def test_split_product_broadcasts_and_takes_one_element():
@@ -85,20 +90,32 @@ def test_split_product_broadcasts_and_takes_one_element():
     assert np.array_equal(row[3], cuda_step.mont_mul_split_emulated(a[3], b[0]))
 
 
-def test_split_product_refuses_other_splits():
-    with pytest.raises(ValueError):
-        cuda_step.mont_mul_split_emulated(_MAXV, _MAXV, 3)
+def test_split_product_guards_its_64_bit_accumulators():
+    """Limbs of 2^31 break the overflow audit (15 products of 2^62 in one
+    column): the emulation refuses rather than wrap."""
+    wide = np.full(fq.NUM_LIMBS, 1 << 31, dtype=np.uint64)
+    with pytest.raises(OverflowError):
+        cuda_step.mont_mul_split_emulated(wide, wide)
 
 
-def _aliasing_stream(rng, n_steps, w_mul, w_lin, n_regs):
+# two lanes of a step that write one register, as positions in the step's
+# destinations (MUL lanes first) for a MUL width: the later lane's result
+# must stay
+SHARED_DESTS = {"mul_lin": lambda w_mul: (0, w_mul),
+                "mul_mul": lambda w_mul: (1, w_mul - 1),
+                "lin_lin": lambda w_mul: (w_mul, -1)}
+
+
+def _aliasing_stream(rng, n_steps, w_mul, w_lin, n_regs, shared):
     """Instruction rows whose reads alias the previous step's writes and
-    the same step's, and whose MUL and LIN lanes now and then write one
-    register (the LIN lane's result must win)."""
+    the same step's, and in which, every other step, the two lanes that
+    ``SHARED_DESTS[shared]`` names write one register."""
+    first, later = SHARED_DESTS[shared](w_mul)
     rows, prev = [], rng.choice(n_regs, w_mul + w_lin, replace=False)
     for s in range(n_steps):
         dests = rng.choice(n_regs, w_mul + w_lin, replace=False)
-        if s % 3 == 1:
-            dests[w_mul] = dests[0]
+        if s % 2 == 1:
+            dests[later] = dests[first]
         reads = rng.integers(0, n_regs, size=(4, max(w_mul, w_lin)))
         reads[:, :3] = dests[:3]
         reads[:, 3:6] = prev[w_mul - 1:w_mul + 2]
@@ -120,19 +137,45 @@ def _loose_regs(rng, rows, n_regs):
     return torch.from_numpy(limbs)
 
 
+@pytest.mark.parametrize("shared", sorted(SHARED_DESTS))
 @pytest.mark.parametrize("rows,n_steps,w_mul,w_lin", [
-    (1, 1, 4, 8), (2, 24, 8, 16), (3, 40, 6, 12)])
-def test_emulated_data_flow_matches_plain_steps(rows, n_steps, w_mul, w_lin):
+    (1, 2, 4, 8), (2, 24, 8, 16), (3, 40, 6, 12)])
+def test_emulated_data_flow_matches_plain_steps(rows, n_steps, w_mul, w_lin,
+                                                shared):
     """The kernel's data flow (every load before any store, stores only
     where the slot holds the destination's stamp) gives the plain steps'
-    register file exactly."""
-    rng = np.random.default_rng(100 * rows + n_steps)
+    register file exactly, two lanes of one unit that write one register
+    leaving the later lane's result."""
+    rng = np.random.default_rng(100 * rows + n_steps + len(shared))
     n_regs = 3 * (w_mul + w_lin)
-    instr = _aliasing_stream(rng, n_steps, w_mul, w_lin, n_regs)
+    instr = _aliasing_stream(rng, n_steps, w_mul, w_lin, n_regs, shared)
     regs = _loose_regs(rng, rows, n_regs)
-    want = vm._run_steps_plain(regs.clone(), instr)
+    want = cuda_step.run_steps_plain_in_lane_order(regs, instr)
     got = cuda_step.run_steps_emulated(regs.clone(), instr)
     assert torch.equal(got, want)
+    if shared == "mul_lin":  # two scatters, MUL then LIN: defined as is
+        assert torch.equal(want, vm._run_steps_plain(regs.clone(), instr))
+
+
+def test_plain_in_lane_order_keeps_the_later_lane():
+    """Two MUL lanes and two LIN lanes of one step share a destination:
+    the later lane's result stays, and no register past the file's end
+    is left behind."""
+    rng = np.random.default_rng(31)
+    w_mul, w_lin, n_regs = 4, 8, 40
+    instr = _aliasing_stream(rng, 2, w_mul, w_lin, n_regs, "mul_mul")
+    msd, lsd = instr[2][1], instr[6][1]
+    lsd[3] = lsd[1]
+    regs = _loose_regs(rng, 2, n_regs)
+    got = cuda_step.run_steps_plain_in_lane_order(regs, instr)
+    assert got.shape == regs.shape
+    after0 = vm._run_steps_plain(regs.clone(), tuple(x[:1] for x in instr))
+    msa, msb, lsa, lsb, lsub = (instr[i][1].long() for i in (0, 1, 3, 4, 5))
+    mul = fq.mont_mul_plain(after0[:, msa[w_mul - 1]], after0[:, msb[w_mul - 1]])
+    lin = vm._lin_plain(after0[:, lsa[3]], after0[:, lsb[3]], lsub[3])
+    if int(msd[w_mul - 1]) not in lsd.tolist():
+        assert torch.equal(got[:, int(msd[w_mul - 1])], mul)
+    assert torch.equal(got[:, int(lsd[3])], lin)
 
 
 def test_emulated_data_flow_on_an_assembled_program():
@@ -147,45 +190,3 @@ def test_emulated_data_flow_on_an_assembled_program():
     head = tuple(x[:128] for x in prog.device_instr("cpu"))
     want = vm._run_steps_plain(regs.clone(), head)
     assert torch.equal(cuda_step.run_steps_emulated(regs.clone(), head), want)
-
-
-def _defines(fname):
-    with open(os.path.join(cuda_build.CSRC_DIR, fname)) as fh:
-        text = fh.read()
-    return {m.group(1): m.group(2) for m in
-            re.finditer(r"^#define (\w+) \(?([0-9x]+)", text, re.M)}
-
-
-def test_python_mirrors_match_the_cuda_constants():
-    mont, step = _defines("mont.cuh"), _defines("vm_step.cu")
-    assert int(mont["FQ_SPLIT"]) == cuda_step.SPLIT
-    assert int(step["VM_MAX_THREADS"]) == cuda_step.MAX_THREADS
-    assert int(step["VM_MAX_SMEM"]) == cuda_step.MAX_SMEM
-    assert int(step["VM_STAGES"]) == cuda_step.STAGES
-    assert int(step["VM_SLOT_BITS"]) == cuda_step.SLOT_BITS
-    assert int(step["VM_REG"]) == cuda_step.REG
-    assert int(step["VM_SLOT"]) == cuda_step.SLOT
-
-
-@pytest.mark.parametrize("w_mul,w_lin,n_regs,n_steps,threads", [
-    (96, 192, 6613, 2816, 576),    # PROG A of the verify path
-    (96, 192, 7189, 9728, 576),    # PROG B
-    (4, 4, 80, 40, 36),            # MUL warp padded to 32 threads
-    (96, 6, 500, 10, 0),           # w_lin not a multiple of 4
-    (200, 256, 500, 10, 0),        # 800 + 256 threads > 1024
-    (96, 192, 60000, 10, 0),       # stamps past the shared memory
-    (96, 192, 500, 1 << 20, 0),    # steps past the stamps' step field
-    (0, 0, 10, 10, 0),             # nothing to launch
-])
-def test_block_threads(w_mul, w_lin, n_regs, n_steps, threads):
-    assert cuda_step.block_threads(w_mul, w_lin, n_regs, n_steps) == threads
-
-
-def test_shared_memory_of_the_verify_path():
-    """30,720 bytes of instruction rows and LIN results, plus 4 a
-    register: both streams fit the 232,448 bytes a block may have, with
-    room for ~50,000 registers."""
-    fixed = cuda_step.smem_bytes(96, 192, 0)
-    assert fixed == 30720
-    assert cuda_step.smem_bytes(96, 192, 7189) == fixed + 4 * 7189
-    assert (cuda_step.MAX_SMEM - fixed) // 4 > 50000

@@ -3,22 +3,20 @@
 
     python3 tools/torch_vm_step_phases.py
 
-Builds two profiling copies of consensus_specs_tpu_torch/csrc/vm_step.cu
-(with -DVM_PROFILE, and with -DVM_PROFILE -DVM_PROFILE_SKIP_PRODUCT, which
-replaces the Montgomery product by a stand-in and so gives wrong results),
-runs the verify path's two instruction streams (chip_smoke.MAIN_STREAMS:
-PROG A miller_product k160 fold 8 on 8 rows, PROG B hard_part fold 32 on 2
-rows) once each on random canonical inputs, and prints one JSON line per
-build and stream: the call's time (CUDA events), and the SM clocks a step
-spent in each phase (PHASES: the loads and the compute, then the stores
-and the wait for the next instruction row, each ending at a barrier) as
-thread 0 of block 0 saw them. The profiling build's timings include
-the clock reads; the plain kernel's own times are chip_smoke.py's.
+Builds a profiling copy of consensus_specs_tpu_torch/csrc/vm_step.cu (with
+-DVM_PROFILE), runs the verify path's two instruction streams
+(chip_smoke.MAIN_STREAMS: PROG A miller_product k160 fold 8 on 8 rows,
+PROG B hard_part fold 32 on 2 rows) once each on random canonical inputs,
+and prints one JSON line per stream: the call's time (CUDA events), and
+the SM clocks a step spent in each phase (PHASES: the loads and the
+compute, then the stores and the wait for the next instruction row, each
+ending at a barrier) as thread 0 of block 0 saw them. The profiling
+build's timings include the clock reads; the kernel's own times are
+chip_smoke.py's.
 """
 import ctypes
 import json
 import os
-import subprocess
 import sys
 
 import numpy as np
@@ -26,31 +24,6 @@ import numpy as np
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the phases of a step that vm_step.cu's VM_PROFILE build times, in order
 PHASES = ("load_and_compute", "store")
-BUILDS = {
-    "profile": ("-DVM_PROFILE",),
-    "profile_skip_product": ("-DVM_PROFILE", "-DVM_PROFILE_SKIP_PRODUCT"),
-}
-
-
-def _build(cuda_build):
-    """Compile both profiling copies, one nvcc each, started together."""
-    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
-    src = os.path.join(cuda_build.CSRC_DIR, "vm_step.cu")
-    procs = {}
-    for name, defines in BUILDS.items():
-        out = os.path.join(cuda_build.BUILD_DIR, f"libvm_step_{name}.so")
-        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, *defines, "-o",
-               out, src]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       out)
-    libs = {}
-    for name, (proc, out) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        libs[name] = ctypes.CDLL(out)
-    return libs
 
 
 def main():
@@ -61,61 +34,46 @@ def main():
         return 2
     sys.path.insert(0, HERE)
     import chip_smoke as cs
-    from consensus_specs_tpu_torch.ops import bls_backend, cuda_build, vm
+    from consensus_specs_tpu_torch.ops import (bls_backend, cuda_build,
+                                              cuda_step, vm)
 
     dev = torch.device("cuda")
     print(cs._nvidia_smi("name,power.limit"), flush=True)
-    libs = _build(cuda_build)
+    out = os.path.join(cuda_build.BUILD_DIR, "libvm_step_profile.so")
+    cuda_build.compile_sources({"profile": (
+        os.path.join(cuda_build.CSRC_DIR, "vm_step.cu"), out,
+        ("-DVM_PROFILE",))})
+    lib = cuda_step.bind(ctypes.CDLL(out))
+    read = lib.vm_profile_read
+    read.restype = ctypes.c_int
+    read.argtypes = [ctypes.c_void_p]
+    clocks = (ctypes.c_ulonglong * (len(PHASES) + 1))()
     rng = np.random.default_rng(cs.SEED)
-    p = ctypes.c_void_p
     for label, kind, k, fold, rows in cs.MAIN_STREAMS:
         prog, _ = bls_backend._program(kind, k, fold)
         instr = prog.device_instr(dev)
         stacked = cs._canonical_limbs(rng, (rows, len(prog.input_names)))
-        regs0 = vm._init_regs(prog, stacked.astype(np.uint64), dev)
-        compact = torch.empty((rows, prog.n_regs, 16), dtype=torch.int32,
-                              device=dev)
-        for name, lib in libs.items():
-            run = lib.vm_run_steps
-            run.restype = ctypes.c_int
-            run.argtypes = [p, p, ctypes.c_int, ctypes.c_int, p, p, p, p, p,
-                            p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
-            read = lib.vm_profile_read
-            read.restype = ctypes.c_int
-            read.argtypes = [p]
-            clocks = (ctypes.c_ulonglong * (len(PHASES) + 1))()
-            work = regs0.clone()
-            stream = torch.cuda.current_stream(dev).cuda_stream
-
-            def call():
-                rc = run(work.data_ptr(), compact.data_ptr(), rows,
-                         prog.n_regs, *(x.data_ptr() for x in instr),
-                         instr[0].shape[1], instr[3].shape[1], prog.n_steps,
-                         stream)
-                if rc != 0:
-                    raise RuntimeError(f"launch failed: cudaError {rc}")
-
-            call()  # warm-up
-            torch.cuda.synchronize()
-            read(clocks)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            call()
-            end.record()
-            end.synchronize()
-            rc = read(clocks)
-            if rc != 0:
-                raise RuntimeError(f"profile read failed: cudaError {rc}")
-            per_step = [clocks[i + 1] / prog.n_steps
-                        for i in range(len(PHASES))]
-            ms = start.elapsed_time(end)
-            print(json.dumps({
-                "build": name, "stream": label, "kind": kind, "rows": rows,
-                "steps": prog.n_steps, "ms": ms,
-                "us_per_step": ms * 1e3 / prog.n_steps,
-                "clocks_per_step": {**dict(zip(PHASES, per_step)),
-                                    "sum": sum(per_step)}}), flush=True)
+        work = vm._init_regs(prog, stacked.astype(np.uint64), dev)
+        cuda_step.launch(lib, work, instr)  # warm-up
+        torch.cuda.synchronize()
+        read(clocks)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        cuda_step.launch(lib, work, instr)
+        end.record()
+        end.synchronize()
+        rc = read(clocks)
+        if rc != 0:
+            raise RuntimeError(f"profile read failed: cudaError {rc}")
+        per_step = [clocks[i + 1] / prog.n_steps for i in range(len(PHASES))]
+        ms = start.elapsed_time(end)
+        print(json.dumps({
+            "stream": label, "kind": kind, "rows": rows,
+            "steps": prog.n_steps, "ms": ms,
+            "us_per_step": ms * 1e3 / prog.n_steps,
+            "clocks_per_step": {**dict(zip(PHASES, per_step)),
+                                "sum": sum(per_step)}}), flush=True)
     return 0
 
 
