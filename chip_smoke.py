@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Drives ``consensus_specs_tpu_torch`` (never jax, never the JAX package)
-through five phases, each printing one JSON line:
+through six phases, each printing one JSON line:
 
   1. build   -- compile every CUDA kernel of the port from csrc/ with nvcc
                for sm_90a (one nvcc per source, all started together);
@@ -28,7 +28,19 @@ through five phases, each printing one JSON line:
                fold 32 on 2 rows) on random canonical inputs: the first
                256 steps limb for limb against the plain version, then
                each full stream timed in one launch, beside its bound and
-               its latency floor (steps x one L2 round trip).
+               its latency floor (steps x one L2 round trip);
+  6. rlc     -- batch_verify_rlc at the same mainnet size: the all-valid
+               slot (cold, then warm best of 3: every verdict True, one
+               combine, one final exponentiation, no bisection, one
+               step-kernel launch per vm.execute), the per-item path on it
+               warm in the same call, the planted slot
+               (verdicts equal to the planted ones and to phase 4's), and
+               the tower combine (every Fq12 product a Montgomery-kernel
+               launch) equal to the VM combine on the same inputs; then the
+               first 256 steps of the real rlc_combine call, fed PROG A's
+               loose outputs, limb for limb against the plain version, and
+               the Montgomery kernel against its plain version at the tower
+               combine's shapes.
 
 Then it prints the card's name and power limit, a ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``. Any failure exits
@@ -38,6 +50,7 @@ package beside this script, it exits non-zero and prints no result.
 import contextlib
 import json
 import os
+import random
 import re
 import subprocess
 import sys
@@ -382,9 +395,10 @@ KEY_POOL = 512
 
 
 def make_slot(seed=SEED, n_committees=N_COMMITTEES, committee=COMMITTEE,
-              pool=KEY_POOL):
+              pool=KEY_POOL, plant=True):
     """One slot's attestation aggregates: (pubkey_sets, messages,
-    signatures, expected verdicts, planted {reason: index}, pool info).
+    signatures, expected verdicts, planted {reason: index}); with
+    ``plant=False`` the same slot with nothing planted (all valid).
 
     Members come from a pool of distinct keys with small secret keys
     (index + 1) << 16 | salt, so SkToPk is a short double-and-add; each
@@ -408,6 +422,8 @@ def make_slot(seed=SEED, n_committees=N_COMMITTEES, committee=COMMITTEE,
     pubkey_sets = [[pks[int(i)] for i in m] for m in members]
     signatures = [sign(m, msg) for m, msg in zip(members, messages)]
     expected = np.ones(n_committees, dtype=bool)
+    if not plant:
+        return pubkey_sets, messages, signatures, expected, {}
     planted = {"wrong_message": 5, "other_committee_signature": 17,
                "missing_member": 33, "malformed_signature": 50}
     i = planted["wrong_message"]
@@ -563,10 +579,267 @@ def phase_slice(torch, card):
         "step_kernel_launches": launches["vm_step"],
         "step_kernel_steps": launches["vm_step_steps"],
         "mont_mul_kernel_launches": launches["mont_mul"], **card,
-    }, launches
+    }, launches, (slot, got, expected)
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the RLC path at mainnet size
+# ---------------------------------------------------------------------------
+
+
+class _TimedLaunches:
+    """Stands in for a kernel library: calls of its launch function
+    ``name`` are bracketed by CUDA events, collected in ``sink`` as (start,
+    end) pairs and summed once the run has synchronized (a wait per call
+    would pace the launches). The events bracket the kernel alone, not the
+    wrapper's copies and allocations around it."""
+
+    def __init__(self, torch, lib, name, sink):
+        self._torch, self._lib, self._name, self._sink = torch, lib, name, sink
+
+    def __getattr__(self, attr):
+        fn = getattr(self._lib, attr)
+        if attr != self._name:
+            return fn
+
+        def timed(*args):
+            start = self._torch.cuda.Event(enable_timing=True)
+            end = self._torch.cuda.Event(enable_timing=True)
+            start.record()
+            rc = fn(*args)
+            end.record()
+            self._sink.append((start, end))
+            return rc
+        return timed
+
+
+def _rlc_timed(torch, items):
+    """One batch_verify_rlc call on the card with a fixed
+    random.Random(SEED) (the same scalars, so the same trajectory, on
+    every run), its wall split as in _verify_timed (the easy part here is
+    every _easy_part_flat: one per combined check and per singleton), its
+    kernel counts from 0 and its RLC_STATS deltas."""
+    from consensus_specs_tpu_torch.ops import (bls_backend, cuda_fq,
+                                               cuda_step, vm)
+
+    asm, execs, easy, steps, monts = [], [], [], [], []
+    before = dict(bls_backend.RLC_STATS)
+    cuda_step.LAUNCHES = cuda_step.STEPS = cuda_fq.LAUNCHES = 0
+    with _patched(bls_backend, "_program", _host_timer(asm)), \
+            _patched(vm, "execute", _host_timer(execs)), \
+            _patched(bls_backend, "_easy_part_flat", _host_timer(easy)), \
+            _patched(cuda_step, "run_steps", _device_timer(torch, steps)), \
+            _patched(cuda_fq, "_lib", lambda lib: lambda: _TimedLaunches(
+                torch, lib(), "mont_mul_launch", monts)):
+        t0 = time.perf_counter()
+        got = bls_backend.batch_verify_rlc(items, rng=random.Random(SEED))
+        wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches, n_steps, monts_n = (cuda_step.LAUNCHES, cuda_step.STEPS,
+                                  cuda_fq.LAUNCHES)
+    split = {"wall_s": wall, "assemble_s": sum(asm),
+             "vm_execute_s": sum(execs), "vm_executions": len(execs),
+             "step_kernel_ms": sum(steps), "easy_part_s": sum(easy),
+             "easy_parts": len(easy),
+             "mont_mul_kernel_ms": sum(s.elapsed_time(e) for s, e in monts),
+             "step_kernel_launches": launches,
+             "step_kernel_steps": n_steps,
+             "mont_mul_kernel_launches": monts_n,
+             "rlc_stats": {k: bls_backend.RLC_STATS[k] - before[k]
+                           for k in before}}
+    split["other_host_s"] = wall - split["assemble_s"] \
+        - split["vm_execute_s"] - split["easy_part_s"]
+    _check(launches == len(execs),
+           f"{launches} step-kernel launches for {len(execs)} "
+           "vm.execute calls (expected one each)")
+    return got, split
+
+
+def _rlc_warm(torch, items, want, label):
+    runs = []
+    for _ in range(3):
+        got, run = _rlc_timed(torch, items)
+        _check(list(got) == list(want), f"{label}: warm RLC verdicts differ")
+        runs.append(run)
+    return min(runs, key=lambda r: r["wall_s"]), [r["wall_s"] for r in runs]
+
+
+def _per_item_warm(torch, slot):
+    """The per-item path on the all-valid slot, warm, best of 3: the RLC
+    all-valid slot's like-for-like comparison in the same call."""
+    runs = []
+    for _ in range(3):
+        got, run = _verify_timed(torch, slot)
+        _check(bool(got.all()), "per-item all-valid verdicts not all True")
+        runs.append(run)
+    return min(runs, key=lambda r: r["wall_s"]), [r["wall_s"] for r in runs]
+
+
+_F_INPUT = re.compile(r"(^|\.)f\d+\.\d+$")
+
+
+def _loose_head_check(torch, dev, rng, fs, bits, imad_rate):
+    """The real rlc_combine call's register file (PROG A's f rows as the
+    combine gets them, the scalar bits) through the first CHECK_STEPS
+    steps: the step kernel against the plain version on the whole file,
+    limb for limb, timed. Then the same with every f input replaced by a
+    random loose value below 2^382 (the program's declared input bound;
+    most are >= p), limb for limb."""
+    from consensus_specs_tpu_torch.ops import bls_backend, cuda_step, fq, vm
+    from consensus_specs_tpu_torch.utils.bls12_381 import P
+
+    lay, ins, n_chunks = bls_backend._rlc_combine_inputs(fs, bits)
+    loose_ins = {
+        name: (_rand_loose_limbs(rng, v.shape[:-1], bits=382).astype(np.uint64)
+               if _F_INPUT.search(name) else v)
+        for name, v in ins.items()}
+    prog = lay.program
+    instr = prog.device_instr(dev)
+    head = tuple(x[:CHECK_STEPS] for x in instr)
+    errs, at_or_above_p = {}, {}
+    for label, named in (("real", ins), ("loose", loose_ins)):
+        regs0 = vm._init_regs(prog, prog.stack_inputs(named, (lay.rows,)),
+                              dev)
+        got = cuda_step.run_steps(regs0.clone(), head)
+        want = regs0.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vm._run_steps_plain(want, head)
+        torch.cuda.synchronize()
+        if label == "real":
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            work = regs0.clone()
+        errs[label] = int((got - want).abs().max().item())
+        _check(errs[label] == 0,
+               f"rlc_combine ({label} inputs): step kernel differs from "
+               f"plain over {CHECK_STEPS} steps: max |err| {errs[label]}")
+        at_or_above_p[label] = int(sum(
+            fq.limbs_to_int(v[r]) >= P for name, v in named.items()
+            if _F_INPUT.search(name) for r in range(lay.rows)))
+    head_ms = _cuda_ms(torch, lambda: cuda_step.run_steps(work, head), 5)
+    part = _stream_work(tuple(x[:CHECK_STEPS] for x in prog.instr),
+                        prog.n_regs, lay.rows)
+    return {"stream": "rlc_combine", "kind": "rlc_combine",
+            "k": bls_backend._rlc_chunk(fs.shape[0]), "fold": lay.fold,
+            "rows": lay.rows, "chunks": n_chunks, "steps": prog.n_steps,
+            "n_regs": prog.n_regs, "check_steps": CHECK_STEPS,
+            "f_inputs_at_or_above_p": at_or_above_p,
+            "max_abs_err_by_inputs": errs, "max_abs_err": max(errs.values()),
+            "head_ms": head_ms, "head_plain_ms": plain_ms,
+            "head_bytes": part[0], "head_imad": part[1],
+            **{f"head_{key}": v
+               for key, v in _bound(part[0], part[1], imad_rate).items()}}
+
+
+def _mont_mul_at(torch, dev, rng, imad_rate, batch):
+    """Kernel 2 against its plain version at one of the tower combine's
+    shapes (``batch`` + (15,) limbs: loose, below 2^382), limb for limb,
+    both timed."""
+    from consensus_specs_tpu_torch.ops import cuda_fq, fq
+
+    a = torch.from_numpy(_rand_loose_limbs(rng, batch, bits=382)).to(dev)
+    b = torch.from_numpy(_rand_loose_limbs(rng, batch, bits=382)).to(dev)
+    got = cuda_fq.mont_mul(a, b)
+    err = int((got - fq.mont_mul_plain(a, b)).abs().max().item())
+    _check(err == 0, f"mont_mul kernel at {batch} differs from plain: "
+                     f"max |err| {err}")
+    m = int(np.prod(batch))
+    n_bytes = 3 * m * 15 * LIMB_BYTES
+    n_ops = m * WIDE_MACS_PER_MONT * IMAD_PER_WIDE_MAC
+    return {"shape": list(batch), "products": m, "max_abs_err": err,
+            "ms": _cuda_ms(torch, lambda: cuda_fq.mont_mul(a, b), 200),
+            "plain_ms": _cuda_ms(torch, lambda: fq.mont_mul_plain(a, b), 10),
+            "bytes": n_bytes, "imad": n_ops,
+            **_bound(n_bytes, n_ops, imad_rate)}
+
+
+def phase_rlc(torch, dev, rng, imad_rate, card, slice_run, slice_warm_s):
+    from consensus_specs_tpu_torch.ops import bls_backend
+
+    t0 = time.perf_counter()
+    pubkey_sets, messages, signatures, valid, _ = make_slot(plant=False)
+    setup_s = time.perf_counter() - t0
+    items = [("fast_aggregate", p, m, s)
+             for p, m, s in zip(pubkey_sets, messages, signatures)]
+    n = len(items)
+
+    # all-valid slot: cold (rlc_combine assembled), then warm
+    got, cold = _rlc_timed(torch, items)
+    _check(bool(got.all()), f"all-valid slot: RLC verdicts "
+                            f"{np.flatnonzero(~got).tolist()} false")
+    warm, warm_walls = _rlc_warm(torch, items, valid, "all-valid slot")
+    for label, run in (("cold", cold), ("warm", warm)):
+        st = run["rlc_stats"]
+        _check((st["combines"], st["final_exps"], st["bisections"]) == (1, 1, 0),
+               f"all-valid slot ({label}): {st}, expected 1 combine, 1 final "
+               "exp, 0 bisections")
+    per_item, per_item_walls = _per_item_warm(
+        torch, (pubkey_sets, messages, signatures))
+    valid_line = {"cold": cold, "warm_best_of_3": warm,
+                  "warm_wall_s_all": warm_walls,
+                  "verifications_per_s_warm": n / warm["wall_s"],
+                  "per_item_warm_best_of_3": per_item,
+                  "per_item_warm_wall_s_all": per_item_walls,
+                  "speedup_over_per_item": per_item["wall_s"] / warm["wall_s"]}
+
+    # the planted slot of phase 4: first call assembles the bisection's
+    # smaller chunk programs
+    (p_sets, p_msgs, p_sigs), slice_got, expected = slice_run
+    p_items = [("fast_aggregate", p, m, s)
+               for p, m, s in zip(p_sets, p_msgs, p_sigs)]
+    got, p_cold = _rlc_timed(torch, p_items)
+    _check(list(got) == list(expected) == list(slice_got),
+           f"planted slot: RLC verdicts {np.flatnonzero(~got).tolist()} "
+           f"false, per-item {np.flatnonzero(~slice_got).tolist()}")
+    p_warm, p_walls = _rlc_warm(torch, p_items, expected, "planted slot")
+    _check(p_warm["rlc_stats"] == p_cold["rlc_stats"],
+           "planted slot: the bisection's trajectory differs between runs")
+    planted_line = {"cold": p_cold, "warm_best_of_3": p_warm,
+                    "warm_wall_s_all": p_walls,
+                    "verifications_per_s_warm": n / p_warm["wall_s"]}
+
+    # tower combine on the all-valid slot, warm once; its (fs, bits) then
+    # go through the VM combine and the loose-input head check
+    seen = []
+
+    def capture(fn):
+        def wrapped(fs, bits, device):
+            out = fn(fs, bits, device)
+            seen.append((fs.copy(), bits.copy(), out))
+            return out
+        return wrapped
+
+    os.environ["CONSENSUS_SPECS_TPU_RLC_BACKEND"] = "jax"
+    try:
+        with _patched(bls_backend, "_rlc_combine_tower", capture):
+            got, tower = _rlc_timed(torch, items)
+    finally:
+        os.environ.pop("CONSENSUS_SPECS_TPU_RLC_BACKEND", None)
+    _check(bool(got.all()), "tower combine: verdicts not all True")
+    _check(tower["mont_mul_kernel_launches"] > 0,
+           "tower combine: the Montgomery kernel was never launched")
+    _check(len(seen) == 1, f"tower combine ran {len(seen)} times, expected 1")
+    fs, bits, tower_coeffs = seen[0]
+    vm_coeffs = bls_backend._rlc_combine_vm(fs, bits, dev)
+    _check(tower_coeffs == vm_coeffs,
+           "tower combine differs from the VM combine on the same inputs")
+    tower["equals_vm_combine"] = True
+
+    head = _loose_head_check(torch, dev, rng, fs, bits, imad_rate)
+    # kernel 2 at the tower combine's shapes: the 144 products of each
+    # Fq12 product, and the compress of each reduction batch
+    mont = [_mont_mul_at(torch, dev, rng, imad_rate, (n, 12, 12)),
+            _mont_mul_at(torch, dev, rng, imad_rate, (n, 6))]
+
+    return {
+        "phase": "rlc", "entry": "batch_verify_rlc", "committees": n,
+        "committee_size": COMMITTEE,
+        "k_bucket": bls_backend._k_bucket(COMMITTEE),
+        "rlc_chunk": bls_backend._rlc_chunk(n), "setup_s": setup_s,
+        "all_valid": valid_line,
+        "planted": planted_line, "tower": tower,
+        "per_item_planted_warm_wall_s": slice_warm_s, **card,
+    }, head, mont, {"rlc": warm, "tower": tower}
 
 
 def main():
@@ -618,27 +891,48 @@ def main():
         _emit({**phase_program(torch, dev, rng),
                "elapsed_s": time.perf_counter() - t0, **card})
 
-        slice_line, launches = phase_slice(torch, card)
+        slice_line, launches, slice_run = phase_slice(torch, card)
         _emit({**slice_line, "elapsed_s": time.perf_counter() - t0})
 
         # after the slice, whose cold call assembles the same programs
         streams = phase_streams(torch, dev, rng, imad_rate, l2_ns)
         _emit({"phase": "kernels", "results": streams, "l2_hit_ns": l2_ns,
                "elapsed_s": time.perf_counter() - t0, **card})
+
+        rlc_line, rlc_head, rlc_mont, rlc_runs = phase_rlc(
+            torch, dev, rng, imad_rate, card, slice_run,
+            slice_line["warm_best_of_3"]["wall_s"])
+        _emit({**rlc_line, "elapsed_s": time.perf_counter() - t0})
+        streams.append(rlc_head)
+        _emit({"phase": "kernels", "results": [rlc_head] + rlc_mont,
+               "elapsed_s": time.perf_counter() - t0, **card})
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
-    # vm_step's line: the checked heads of both main-path streams
+    # each path's launches, counted from 0 just before it ran: the per-item
+    # slice (cold), the RLC slot (warm best of 3), the tower combine
+    paths = {"slice": {"vm_step": launches["vm_step"],
+                       "vm_step_steps": launches["vm_step_steps"],
+                       "mont_mul": launches["mont_mul"]}}
+    for path, run in rlc_runs.items():
+        paths[path] = {"vm_step": run["step_kernel_launches"],
+                       "vm_step_steps": run["step_kernel_steps"],
+                       "mont_mul": run["mont_mul_kernel_launches"]}
+    total = {k: sum(p[k] for p in paths.values()) for k in paths["slice"]}
+    # vm_step's line: the checked heads of the three real streams
     head_bytes = sum(r["head_bytes"] for r in streams)
     head_imad = sum(r["head_imad"] for r in streams)
     step_bound = _bound(head_bytes, head_imad, imad_rate)
+    # mont_mul's line: the tower combine's 144-product shape
+    mont = rlc_mont[0]
 
     kernels = [
         {"name": "vm_step", "route": "cuda",
          "source": "consensus_specs_tpu_torch/csrc/vm_step.cu",
          "replaces": "consensus_specs_tpu/ops/pallas_step.py:53",
-         "launches": launches["vm_step"], "steps": launches["vm_step_steps"],
+         "launches": total["vm_step"], "steps": total["vm_step_steps"],
+         "launches_by_path": {k: p["vm_step"] for k, p in paths.items()},
          "work": f"first {CHECK_STEPS} steps of "
                  + " and ".join(f"{r['stream']} ({r['rows']} rows)"
                                 for r in streams),
@@ -651,9 +945,13 @@ def main():
         {"name": "mont_mul", "route": "cuda",
          "source": "consensus_specs_tpu_torch/csrc/mont_mul.cu",
          "replaces": "consensus_specs_tpu/ops/pallas_fq.py:129",
-         "launches": launches["mont_mul"], "max_abs_err": k_mont["max_abs_err"],
-         "ms": k_mont["ms"], "plain_ms": k_mont["plain_ms"],
-         "bound_ms": k_mont["bound_ms"], "bound_by": k_mont["bound_by"],
+         "launches": total["mont_mul"],
+         "launches_by_path": {k: p["mont_mul"] for k, p in paths.items()},
+         "work": f"{mont['products']} products {mont['shape']}",
+         "max_abs_err": max([k_mont["max_abs_err"]]
+                            + [r["max_abs_err"] for r in rlc_mont]),
+         "ms": mont["ms"], "plain_ms": mont["plain_ms"],
+         "bound_ms": mont["bound_ms"], "bound_by": mont["bound_by"],
          "library_ms": None},
     ]
     print(f"{name}, {power}", flush=True)

@@ -13,6 +13,11 @@ Pipeline (the same as the JAX package's, with the same programs):
   PROG B (device) hard part -> res (vmlib hard_part_frobenius / hard_part).
   HOST  res == 1, AND precheck AND agg != infinity.
 
+``batch_verify_rlc`` shares PROG A and then decides the whole batch with
+ONE combined check: the ``rlc_combine`` program (or the tower combine,
+ops/pairing.rlc_combine) folds prod f_i^{r_i}, and one easy part + one
+hard part judge it; a failed check bisects.
+
 Every device stage is one ``vm.execute``, which on the card runs each VM
 step through the fused CUDA step kernel. A verification whose host prep
 fails (bad encoding, subgroup failure, infinity pubkey) is False without
@@ -25,9 +30,12 @@ import functools
 import hashlib
 import os
 import pickle
+import threading
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..device import resolve_device
 from ..utils import bls12_381 as O
@@ -364,17 +372,34 @@ def _easy_part_batch(out, lay, precheck, aggz: bool):
     return g_batch, agg_nonzero
 
 
+# hard-part program variants: all three share the g.*/res.* I/O contract,
+# so routing is purely a program-kind choice
+_HARD_PART_KINDS = {
+    "bit_serial": "hard_part",
+    "windowed": "hard_part_windowed",
+    "frobenius": "hard_part_frobenius",
+}
+
+
 def _hard_part_kind(n_items: int) -> str:
-    """Which hard-part program serves an n_items batch: the Frobenius
-    width-for-depth variant for small batches (shorter critical path),
-    the bit-serial chain (fewer multiplies) once the lanes saturate."""
+    """Which hard-part program serves an n_items batch.
+    CONSENSUS_SPECS_TPU_HARD_PART pins a variant (bit_serial | windowed |
+    frobenius); 'auto' (default) takes the Frobenius width-for-depth
+    variant (shorter critical path) up to 16 rows and the bit-serial chain
+    (fewer multiplies) once the lanes saturate."""
+    v = os.environ.get("CONSENSUS_SPECS_TPU_HARD_PART", "auto")
+    if v in _HARD_PART_KINDS:
+        return _HARD_PART_KINDS[v]
     return "hard_part_frobenius" if n_items <= 16 else "hard_part"
 
 
 def _run_hard_part(g_flat_batch: np.ndarray, device,
                    kind: str = None) -> np.ndarray:
-    """(N, 12, L) unitary g limb batch -> (N,) bool (res == 1)."""
+    """(N, 12, L) unitary g limb batch -> (N,) bool (res == 1). Counts N
+    rows against RLC_STATS['final_exps']. ``kind`` overrides the variant
+    route (_hard_part_kind)."""
     n = g_flat_batch.shape[0]
+    RLC_STATS["final_exps"] += n
     if kind is None:
         kind = _hard_part_kind(n)
     lay = _FoldLayout(kind, 0, n)
@@ -391,9 +416,104 @@ def _run_hard_part(g_flat_batch: np.ndarray, device,
     return ok
 
 
+class _FinalExpBatcher:
+    """Coalesces CONCURRENT device-routed hard-part rows into one VM
+    execution: when several RLC checks are in flight at once, their single
+    rows run as one multi-row program.
+
+    Protocol: the first arriving thread becomes the window leader, sleeps
+    CONSENSUS_SPECS_TPU_FINAL_EXP_WINDOW_MS (default 2 ms), then executes
+    every row that joined (on its own current stream) and resolves the
+    followers with plain bools. Rows cross threads as numpy arrays, never
+    as CUDA tensors. Windows are keyed by the resolved ``torch.device``,
+    so rows bound for different devices never share an execution."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._pending = {}  # device -> [[g_row, result | Exception, Event]]
+        self._leaders = set()  # devices with an active window leader
+
+    def run(self, g_row: np.ndarray, device) -> bool:
+        window = float(os.environ.get(
+            "CONSENSUS_SPECS_TPU_FINAL_EXP_WINDOW_MS", "2")) / 1e3
+        entry = [g_row, None, threading.Event()]
+        with self._lock:
+            self._pending.setdefault(device, []).append(entry)
+            lead = device not in self._leaders
+            if lead:
+                self._leaders.add(device)
+        if not lead:
+            entry[2].wait()
+            if isinstance(entry[1], BaseException):
+                raise entry[1]
+            return entry[1]
+        # the leader owes every follower a resolution no matter what: an
+        # interrupt mid-sleep or mid-execute must fail the joined entries
+        # (and release the leader slot), never leave them blocked
+        batch = None
+        try:
+            if window > 0:
+                time.sleep(window)
+            with self._lock:
+                batch = self._pending.pop(device, [])
+                self._leaders.discard(device)  # later arrivals re-elect
+                n = len(batch)
+                # the ledger shares this lock: concurrent windows (one per
+                # device) must not lose read-modify-write increments
+                RLC_STATS["final_exp_windows"] += 1
+                RLC_STATS["final_exp_window_rows"] += n
+            rows = np.stack([e[0] for e in batch])
+            ok = _run_hard_part(rows, device, kind=_hard_part_kind(n))
+        except BaseException as e:
+            if batch is None:  # died before collecting: take over now
+                with self._lock:
+                    batch = self._pending.pop(device, [])
+                    self._leaders.discard(device)
+            # followers re-raise the original Exception; a BaseException
+            # (KeyboardInterrupt/SystemExit) stays with the leader and the
+            # followers get a RuntimeError instead
+            err = e if isinstance(e, Exception) else RuntimeError(
+                f"final-exp window leader died: {e!r}")
+            for other in batch:
+                if other is not entry:
+                    other[1] = err
+                    other[2].set()
+            raise
+        mine = None
+        for other, r in zip(batch, ok):
+            if other is entry:
+                mine = bool(r)
+            else:
+                other[1] = bool(r)
+                other[2].set()
+        return mine
+
+
+_FINAL_EXP_BATCHER = _FinalExpBatcher()
+
+
 # ---------------------------------------------------------------------------
 # batched public API
 # ---------------------------------------------------------------------------
+
+# RLC-plane counters: combine programs run, failed combined checks that
+# forced a bisection split, hard-part evaluations paid (device rows,
+# padding included, + host-oracle hard parts), candidates that reached
+# the combine, and the final-exp batcher's windows and the rows they
+# coalesced
+RLC_STATS = {
+    "combines": 0,
+    "bisections": 0,
+    "final_exps": 0,
+    "items": 0,
+    "final_exp_windows": 0,
+    "final_exp_window_rows": 0,
+}
+
+
+def reset_rlc_stats() -> None:
+    for k in RLC_STATS:
+        RLC_STATS[k] = 0
 
 
 def _miller_fast_aggregate(
@@ -555,6 +675,250 @@ def batch_aggregate_verify(
     g_batch, _ = _easy_part_batch(out, lay, precheck, aggz=False)
     ok = _run_hard_part(g_batch, dev)
     return (ok & precheck)[:n]
+
+
+# ---------------------------------------------------------------------------
+# RLC batch verification: one final exponentiation per micro-batch
+# ---------------------------------------------------------------------------
+
+
+def _rlc_backend() -> str:
+    """Combine-stage backend (CONSENSUS_SPECS_TPU_RLC_BACKEND): 'vm' (the
+    rlc_combine program on the step kernel, default) or 'jax' (the tower
+    combine, ops/pairing.rlc_combine, on the Montgomery kernel; the name
+    is the JAX package's)."""
+    v = os.environ.get("CONSENSUS_SPECS_TPU_RLC_BACKEND", "vm")
+    return v if v == "jax" else "vm"
+
+
+def _rlc_chunk_max() -> int:
+    """f's combined per VM program instance (CONSENSUS_SPECS_TPU_RLC_CHUNK,
+    default 16: saturates the mul lanes). Bigger batches run more chunk
+    rows and host-multiply the chunk products."""
+    return max(1, int(os.environ.get("CONSENSUS_SPECS_TPU_RLC_CHUNK", "16")))
+
+
+def _rlc_final_mode(device) -> str:
+    """Where the ONE combined hard part runs (CONSENSUS_SPECS_TPU_RLC_FINAL):
+    'device' (a hard-part VM row through _FinalExpBatcher) or 'host' (the
+    exact-int oracle). 'auto' (default) picks host when the call's device
+    is the CPU, where the plain steps lose to the ~20 ms oracle, and
+    device on the card. Both are exact."""
+    v = os.environ.get("CONSENSUS_SPECS_TPU_RLC_FINAL", "auto")
+    if v in ("host", "device"):
+        return v
+    return "host" if torch.device(device).type == "cpu" else "device"
+
+
+def _rlc_scalars(m: int, rng=None) -> np.ndarray:
+    """(m, RLC_BITS) uint8 msb-first bit matrix of m fresh NONZERO random
+    scalars: from ``rng.getrandbits`` when injected (deterministic tests),
+    else os.urandom."""
+    nbits = vmlib.RLC_BITS
+    bits = np.zeros((m, nbits), dtype=np.uint8)
+    for i in range(m):
+        r = 0
+        while r == 0:
+            if rng is not None:
+                r = rng.getrandbits(nbits)
+            else:
+                r = int.from_bytes(os.urandom(nbits // 8), "big")
+        for t in range(nbits):
+            bits[i, t] = (r >> (nbits - 1 - t)) & 1
+    return bits
+
+
+def _oracle_unitary_pow_abs(g, bits):
+    acc = g
+    for b in bits[1:]:
+        acc = acc * acc
+        if b:
+            acc = acc * g
+    return acc
+
+
+def hard_part_res_oracle(g) -> "O.Fq12":
+    """Exact-int hard part RESULT on a unitary oracle Fq12: the host twin
+    of PROG B, the decomposition of vmlib.build_hard_part (inverse ==
+    conjugate in the cyclotomic subgroup)."""
+    px = lambda t: _oracle_unitary_pow_abs(t, vmlib.ABS_X_BITS).conjugate()
+    px1 = lambda t: _oracle_unitary_pow_abs(
+        t, vmlib.ABS_X_PLUS_1_BITS).conjugate()
+    t0 = px1(px1(g))
+    t1 = px(t0) * t0.frobenius()
+    t2 = px(px(t1))
+    t2 = t2 * t1.frobenius().frobenius()
+    t2 = t2 * t1.conjugate()
+    return t2 * (g * g * g)
+
+
+def _hard_part_is_one_oracle(g_coeffs: List[int]) -> bool:
+    """res == 1 verdict over hard_part_res_oracle."""
+    RLC_STATS["final_exps"] += 1
+    g = _flat_ints_to_oracle(g_coeffs)
+    return _oracle_to_flat_ints(hard_part_res_oracle(g)) == [1] + [0] * 11
+
+
+def _final_exp_is_one(f_coeffs: List[int], device) -> bool:
+    """ONE full final exponentiation on exact coefficients: the host easy
+    part, then the hard part per _rlc_final_mode(device). Device routes go
+    through the final-exp batcher."""
+    g = _easy_part_flat(f_coeffs)
+    if g is None:
+        return False  # degenerate f: no valid item produces it
+    if _rlc_final_mode(device) == "host":
+        return _hard_part_is_one_oracle(g)
+    gm = np.stack([fq.to_mont_int(c) for c in g])
+    return bool(_FINAL_EXP_BATCHER.run(gm, device))
+
+
+def _rlc_chunk(m: int) -> int:
+    """f's per rlc_combine program instance for an m-candidate combine."""
+    return min(_pow2(m), _rlc_chunk_max())
+
+
+def _rlc_combine_inputs(fs: np.ndarray, bits: np.ndarray):
+    """The rlc_combine layout and named inputs for an (m, 12, L) f batch
+    and its (m, RLC_BITS) bits: (lay, ins, n_chunks). Inactive lanes get
+    f = 1 and all-zero bits (1^0 = 1)."""
+    m = fs.shape[0]
+    chunk = _rlc_chunk(m)
+    n_chunks = -(-m // chunk)
+    lay = _FoldLayout("rlc_combine", chunk, n_chunks)
+    L = fq.NUM_LIMBS
+    fb = np.zeros((lay.nb, chunk, 12, L), dtype=np.uint64)
+    fb[:, :, 0] = _ONE_LIMBS
+    rb = np.zeros((lay.nb, chunk, vmlib.RLC_BITS, L), dtype=np.uint64)
+    fb.reshape(lay.nb * chunk, 12, L)[:m] = fs
+    rb.reshape(lay.nb * chunk, vmlib.RLC_BITS, L)[:m] = np.where(
+        bits[..., None].astype(bool), _ONE_LIMBS, np.uint64(0))
+    ins = {}
+    lay.scatter(ins, fb, lambda i, j: f"f{i}.{j}")
+    lay.scatter(ins, rb, lambda i, t: f"r{i}.{t}")
+    return lay, ins, n_chunks
+
+
+def _rlc_combine_vm(fs: np.ndarray, bits: np.ndarray, device) -> List[int]:
+    """Combine through the rlc_combine program (one vm.execute: kernel 1
+    on the card), then one host oracle Fq12 product per extra chunk.
+    Returns the exact flat coefficients of prod f_i^{r_i}."""
+    lay, ins, n_chunks = _rlc_combine_inputs(fs, bits)
+    out = vm.execute(lay.program, ins, batch_shape=(lay.rows,), device=device)
+    total = None
+    for c in range(n_chunks):
+        r, ns = lay.split(c)
+        x = _flat_ints_to_oracle(
+            [fq.from_mont_limbs(out[f"{ns}c.{j}"][r]) for j in range(12)])
+        total = x if total is None else total * x
+    return _oracle_to_flat_ints(total)
+
+
+def _rlc_combine_tower(fs: np.ndarray, bits: np.ndarray, device) -> List[int]:
+    """Combine through the tower arithmetic (ops/pairing.rlc_combine) on
+    ``device``: every Fq12 product is a kernel 2 launch on the card. The
+    counterpart of the JAX package's _rlc_combine_jax."""
+    from . import pairing
+
+    c = pairing.rlc_combine(
+        fq.limbs_from_numpy(fs, device),
+        torch.from_numpy(bits.astype(bool)).to(device))
+    c = c.cpu().numpy().astype(np.uint64)
+    return [fq.from_mont_limbs(c[j]) for j in range(12)]
+
+
+def batch_verify_rlc(items, device=None, rng=None) -> np.ndarray:
+    """N independent verifications decided by random linear combination:
+    check prod_i f_i^{r_i} == 1 (after the final exponentiation) for fresh
+    random nonzero 128-bit scalars r_i, so the batch pays ONE easy part
+    and ONE hard part instead of N of each.
+
+    ``items``: sequence of (kind, pubkeys, messages, signature) with kind
+    'fast_aggregate' (one message) or 'aggregate' (per-key messages).
+    Items are grouped by (kind, K bucket) for PROG A, and the Miller
+    outputs feed the combine as raw loose limbs.
+
+    Soundness (Schwartz-Zippel): a batch holding any invalid item passes
+    with probability <= 2^-128 over the fresh per-combine scalars (from
+    os.urandom; ``rng``, anything with getrandbits, overrides them for
+    deterministic tests). An all-valid batch always passes. A failed
+    combined check bisects: each half is re-combined with fresh scalars,
+    down to exact per-item finalization of singletons. One candidate
+    takes the plain per-item finalization with no combine."""
+    dev = resolve_device(device)
+    items = list(items)
+    n = len(items)
+    if n == 0:
+        return np.zeros(0, dtype=bool)
+    verdict = np.zeros(n, dtype=bool)
+
+    groups: Dict[Tuple[str, int], List[int]] = {}
+    for i, (kind, pks, _msgs, _sig) in enumerate(items):
+        if kind not in ("fast_aggregate", "aggregate"):
+            raise ValueError(f"unknown check kind {kind!r}")
+        groups.setdefault((kind, _k_bucket(max(1, len(pks)))), []).append(i)
+
+    # PROG A per (kind, bucket) group; the surviving candidates' Miller
+    # outputs as raw limb rows (host precheck and infinite-aggregate
+    # failures are False without any finalization work)
+    cand_idx: List[int] = []
+    fs_rows: List[np.ndarray] = []
+    for (kind, _bucket), idxs in groups.items():
+        sub = [items[i] for i in idxs]
+        miller = (_miller_fast_aggregate if kind == "fast_aggregate"
+                  else _miller_aggregate)
+        out, lay, precheck = miller([it[1] for it in sub],
+                                    [it[2] for it in sub],
+                                    [it[3] for it in sub], dev)
+        if out is None:
+            continue
+        for pos, i in enumerate(idxs):
+            if not precheck[pos]:
+                continue
+            r, ns = lay.split(pos)
+            if kind == "fast_aggregate" and (
+                    fq.from_mont_limbs(out[f"{ns}aggz"][r]) == 0):
+                continue  # aggregate pubkey is infinity: False, no crypto
+            fs_rows.append(np.stack([out[f"{ns}f.{j}"][r] for j in range(12)]))
+            cand_idx.append(i)
+
+    m = len(cand_idx)
+    RLC_STATS["items"] += m
+    if m == 0:
+        return verdict
+    fs = np.stack(fs_rows)  # (m, 12, L), loose limbs straight from PROG A
+
+    def finalize_item(j: int) -> bool:
+        coeffs = [fq.from_mont_limbs(fs[j, c]) for c in range(12)]
+        return _final_exp_is_one(coeffs, dev)
+
+    def combine_check(sel: List[int]) -> bool:
+        RLC_STATS["combines"] += 1
+        bits = _rlc_scalars(len(sel), rng)
+        sub = fs[np.asarray(sel)]
+        if _rlc_backend() == "jax":
+            coeffs = _rlc_combine_tower(sub, bits, dev)
+        else:
+            coeffs = _rlc_combine_vm(sub, bits, dev)
+        return _final_exp_is_one(coeffs, dev)
+
+    def resolve(sel: List[int]) -> None:
+        if len(sel) == 1:
+            verdict[cand_idx[sel[0]]] = finalize_item(sel[0])
+            return
+        if combine_check(sel):
+            for j in sel:
+                verdict[cand_idx[j]] = True
+            return
+        RLC_STATS["bisections"] += 1
+        mid = len(sel) // 2
+        resolve(sel[:mid])
+        resolve(sel[mid:])
+
+    if m == 1:
+        verdict[cand_idx[0]] = finalize_item(0)  # plain-path degeneration
+    else:
+        resolve(list(range(m)))
+    return verdict
 
 
 # ---------------------------------------------------------------------------

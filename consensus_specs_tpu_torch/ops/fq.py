@@ -12,8 +12,14 @@ add, shift, gather or index_put. int64 is exact here because the overflow
 audit of ``mont_mul_plain`` keeps every column below 2^62.
 
 ``mont_mul_plain`` is the plain version of the CUDA Montgomery multiply
-(csrc/mont.cuh); ops/cuda_fq.py dispatches between the two.
+(csrc/mont.cuh). ``mont_mul`` goes through ops/cuda_fq.py: on a CUDA
+tensor it launches the kernel, on a CPU tensor it runs the plain version.
+The loose-limb API the Fq12 towers need (``add``, ``compress``, ``sub``)
+is the JAX package's, limb for limb; every Montgomery product in it goes
+through ``mont_mul``.
 """
+import functools
+
 import numpy as np
 import torch
 
@@ -112,3 +118,41 @@ def mont_mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         t[..., i + 1 : i + NUM_LIMBS] += m[..., None] * p[1:]
         t[..., i + 1] += carry
     return _carry_limbs(t[..., NUM_LIMBS : 2 * NUM_LIMBS])
+
+
+def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Montgomery product a*b*R^-1 (mod p); loose in, loose out: the CUDA
+    kernel on CUDA tensors, the plain version on CPU tensors (the choice
+    is ops/cuda_fq.mont_mul's)."""
+    from . import cuda_fq  # cuda_fq imports this module
+
+    return cuda_fq.mont_mul(a, b)
+
+
+_LIMB_CONSTS = {"one": ONE_MONT, "mp": MP_LIMBS}
+
+
+@functools.lru_cache(maxsize=None)
+def _const(name: str, device: torch.device) -> torch.Tensor:
+    """A (15,) int64 limb constant, uploaded once per device."""
+    return torch.from_numpy(_LIMB_CONSTS[name].astype(np.int64)).to(device)
+
+
+def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _carry_limbs(a + b)
+
+
+def compress(a: torch.Tensor) -> torch.Tensor:
+    """Value-preserving magnitude reduction: one Montgomery multiply by the
+    representation of 1 contracts any loose value to < 2^382."""
+    return mont_mul(a, _const("one", a.device))
+
+
+def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a - b (mod p), borrowless: a + MP + comp(b) + 1 == a + MP - b +
+    2^420, with b compressed first so MP > b; the 2^420 overflow limb is
+    dropped."""
+    b = compress(b)
+    t = a + _const("mp", a.device) + (MASK - b)
+    t[..., 0] += 1
+    return _carry_limbs(t, out_limbs=NUM_LIMBS + 1)[..., :NUM_LIMBS]

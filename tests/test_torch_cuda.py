@@ -211,3 +211,32 @@ def test_real_program_executors_agree(dev):
     want = vm.execute(prog, ins, batch_shape=(3,), device="cpu")
     for name in prog.output_names:
         assert np.array_equal(got[name], want[name]), name
+
+
+def test_fq_mont_mul_launches_kernel_on_cuda_tensors(dev):
+    """fq.mont_mul on a CUDA tensor is one launch of kernel 2."""
+    from consensus_specs_tpu_torch.ops import cuda_fq, fq
+
+    rng = np.random.default_rng(12)
+    a = torch.from_numpy(_loose(rng, (33,))).to(dev)
+    b = torch.from_numpy(_loose(rng, (33,))).to(dev)
+    before = cuda_fq.LAUNCHES
+    got = fq.mont_mul(a, b)
+    assert cuda_fq.LAUNCHES == before + 1
+    assert torch.equal(got, fq.mont_mul_plain(a, b))
+
+
+def test_tower_combine_on_the_card_matches_cpu(dev):
+    """The tower combine (every Fq12 product a kernel 2 launch) on the card
+    against the same function on the CPU, raw limbs equal."""
+    from consensus_specs_tpu_torch.ops import cuda_fq, pairing
+
+    rng = np.random.default_rng(13)
+    fs = _loose(rng, (3, 12), bits=382)
+    bits = rng.random((3, 128)) < 0.5
+    before = cuda_fq.LAUNCHES
+    got = pairing.rlc_combine(torch.from_numpy(fs).to(dev),
+                              torch.from_numpy(bits).to(dev))
+    assert cuda_fq.LAUNCHES > before
+    want = pairing.rlc_combine(torch.from_numpy(fs), torch.from_numpy(bits))
+    assert torch.equal(got.cpu(), want)
