@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Drives ``consensus_specs_tpu_torch`` (never jax, never the JAX package)
-through six phases, each printing one JSON line:
+through seven phases, each printing one JSON line:
 
   1. build   -- compile every CUDA kernel of the port from csrc/ with nvcc
                for sm_90a (one nvcc per source, all started together);
@@ -40,7 +40,26 @@ through six phases, each printing one JSON line:
                first 256 steps of the real rlc_combine call, fed PROG A's
                loose outputs, limb for limb against the plain version, and
                the Montgomery kernel against its plain version at the tower
-               combine's shapes.
+               combine's shapes;
+  7. codec   -- the batched input codec (ops/codec.py) at a slot's prep
+               sizes (512 pubkeys, 64 signatures, 64 messages = 128 SSWU
+               draws, with invalid encodings, points outside the subgroup
+               and infinity): each field function on the card against the
+               plain CPU path limb for limb, the batch codecs on the card
+               against the raw-int host path item for item; the first 256
+               steps of g1_subgroup, g2_subgroup and h2g_finish against
+               the plain version, each whole stream timed; the Montgomery
+               kernel at 512, 128 and 64 products; each exponentiation
+               chain step by step against its CUDA-graph replay; then a
+               fresh slot (new messages and signatures from phase 4's key
+               pool, pubkeys cached) through batch_fast_aggregate_verify
+               and batch_verify_rlc, each with the codec prep (and once
+               with its chains step by step) and with per-item prep
+               (CONSENSUS_SPECS_TPU_BATCH_CODEC=0), verdicts
+               equal to the planted ones, walls split into codec prep
+               (decode, subgroup checks, hash), assembly, vm.execute and
+               easy part; the pool's 512 pubkeys prepared cold both ways,
+               and one fresh item both ways.
 
 Then it prints the card's name and power limit, a ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``. Any failure exits
@@ -297,14 +316,14 @@ def _stream_work(instr, n_regs, rows):
     return n_bytes, n_ops, n_mul, n_lin
 
 
-def phase_streams(torch, dev, rng, imad_rate, l2_ns):
+def phase_streams(torch, dev, rng, imad_rate, l2_ns, streams=MAIN_STREAMS):
     """The main path's real instruction streams, one launch each: the first
     CHECK_STEPS steps against the plain version on the whole register file
     (limb for limb, both timed), then each full stream timed."""
     from consensus_specs_tpu_torch.ops import bls_backend, cuda_step, vm
 
     out = []
-    for label, kind, k, fold, rows in MAIN_STREAMS:
+    for label, kind, k, fold, rows in streams:
         prog, got_fold = bls_backend._program(kind, k, fold)
         instr = prog.device_instr(dev)
         stacked = _canonical_limbs(rng, (rows, len(prog.input_names)))
@@ -394,23 +413,36 @@ COMMITTEE = 146  # 300,000 validators / 32 slots / 64 committees
 KEY_POOL = 512
 
 
-def make_slot(seed=SEED, n_committees=N_COMMITTEES, committee=COMMITTEE,
-              pool=KEY_POOL, plant=True):
-    """One slot's attestation aggregates: (pubkey_sets, messages,
-    signatures, expected verdicts, planted {reason: index}); with
-    ``plant=False`` the same slot with nothing planted (all valid).
-
-    Members come from a pool of distinct keys with small secret keys
-    (index + 1) << 16 | salt, so SkToPk is a short double-and-add; each
-    aggregate is one signature by the committee's summed secret key (an
-    aggregate of same-message signatures equals it)."""
-    from consensus_specs_tpu_torch.ops.bls_backend import DST
+def key_pool(seed=SEED, pool=KEY_POOL):
+    """(rng, secret keys, compressed pubkeys) of a pool of distinct keys
+    with small secret keys (index + 1) << 16 | salt, so SkToPk is a short
+    double-and-add; ``rng`` is left where the slot's draws continue."""
     from consensus_specs_tpu_torch.utils import bls12_381 as O
 
     rng = np.random.default_rng(seed)
     salt = int(rng.integers(0, 1 << 16))
     sks = [((i + 1) << 16) | salt for i in range(pool)]
     pks = [O.g1_to_bytes(O.ec_mul(O.G1_GEN, sk)) for sk in sks]
+    return rng, sks, pks
+
+
+def make_slot(seed=SEED, n_committees=N_COMMITTEES, committee=COMMITTEE,
+              pool=KEY_POOL, plant=True, message_seed=None):
+    """One slot's attestation aggregates: (pubkey_sets, messages,
+    signatures, expected verdicts, planted {reason: index}); with
+    ``plant=False`` the same slot with nothing planted (all valid); with
+    ``message_seed`` a slot over the same key pool with its own members,
+    messages and signatures (a later slot of the same validators).
+
+    Members come from ``key_pool``; each aggregate is one signature by the
+    committee's summed secret key (an aggregate of same-message signatures
+    equals it)."""
+    from consensus_specs_tpu_torch.ops.bls_backend import DST
+    from consensus_specs_tpu_torch.utils import bls12_381 as O
+
+    rng, sks, pks = key_pool(seed, pool)
+    if message_seed is not None:
+        rng = np.random.default_rng(message_seed)
     members = [rng.choice(pool, committee, replace=False)
                for _ in range(n_committees)]
     messages = [rng.bytes(32) for _ in range(n_committees)]
@@ -603,6 +635,8 @@ class _TimedLaunches:
             return fn
 
         def timed(*args):
+            if self._torch.cuda.is_current_stream_capturing():
+                return fn(*args)  # recorded into a CUDA graph, not run
             start = self._torch.cuda.Event(enable_timing=True)
             end = self._torch.cuda.Event(enable_timing=True)
             start.record()
@@ -842,6 +876,482 @@ def phase_rlc(torch, dev, rng, imad_rate, card, slice_run, slice_warm_s):
     }, head, mont, {"rlc": warm, "tower": tower}
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the batched input codec and fresh slots
+# ---------------------------------------------------------------------------
+
+# the codec's programs with the folds and rows that bls_backend._fold_for
+# gives a slot's prep: 512 pubkeys (fold 4), 64 signatures (fold 8), 64
+# messages (fold 4)
+CODEC_STREAMS = (
+    ("g1_subgroup", "g1_subgroup", 0, 4, 128),
+    ("g2_subgroup", "g2_subgroup", 0, 8, 8),
+    ("h2g_finish", "h2g_finish", 0, 4, 16),
+)
+FRESH_SEED = SEED + 1
+
+
+def _norm(v):
+    """A codec result on one footing: ValueErrors by message, limb
+    payloads by bytes."""
+    if isinstance(v, ValueError):
+        return ("err", str(v))
+    if isinstance(v, tuple):
+        return ("ok", tuple(np.asarray(x).tobytes() for x in v))
+    return ("ok", np.asarray(v).tobytes())
+
+
+def _off_subgroup(group):
+    """A point on the curve (G1) or the twist (G2) outside the order-r
+    subgroup, compressed."""
+    from consensus_specs_tpu_torch.utils import bls12_381 as O
+
+    x0 = 5
+    while True:
+        if group == 1:
+            y = O.fq_sqrt((x0 ** 3 + 4) % O.P)
+            aff = None if y is None else (O.Fq(x0), O.Fq(y))
+            inside = O.is_in_g1_subgroup
+        else:
+            x = O.Fq2(x0, 1)
+            y = (x * x * x + O.B_G2).sqrt()
+            aff = None if y is None else (x, y)
+            inside = O.is_in_g2_subgroup
+        if aff is not None and not inside(O.ec_from_affine(aff)):
+            return (O.g1_to_bytes if group == 1 else O.g2_to_bytes)(aff)
+        x0 += 1
+
+
+def _codec_inputs(pool_pks, fresh_sigs):
+    """The slot's prep sizes with every kind of input the codec rejects:
+    512 pubkeys (506 of the pool, a point outside G1, infinity, a
+    corrupted infinity, x >= p, x off the curve, a short blob) and 64
+    signatures (60 of the fresh slot, a point outside G2, infinity, x >=
+    p, x off the curve)."""
+    n_pk = len(pool_pks)
+    inf1 = bytes([0xC0]) + b"\x00" * 47
+    pks = list(pool_pks[: n_pk - 6]) + [
+        _off_subgroup(1), inf1, inf1[:1] + b"\x01" + inf1[2:],
+        bytes([0x9F]) + b"\xff" * 47, bytes([0x80]) + b"\x00" * 46 + b"\x05",
+        pool_pks[0][:47]]
+    inf2 = bytes([0xC0]) + b"\x00" * 95
+    sigs = list(fresh_sigs[:-4]) + [
+        _off_subgroup(2), inf2, bytes([0x9F]) + b"\xff" * 95,
+        bytes([0x80]) + b"\x00" * 94 + b"\x07"]
+    return pks, sigs
+
+
+def _field_inputs(pks, sigs, msgs):
+    """The tensors the codec's field functions get for these inputs, as
+    numpy limbs: the padded x of the live G1 and G2 encodings, the padded
+    SSWU draws of the messages."""
+    from consensus_specs_tpu_torch.ops import bls_backend, codec
+
+    _, _, raw, _ = codec._parse_g1(pks)
+    x1 = codec.bytes_be_to_limbs(
+        np.frombuffer(b"".join(raw), dtype=np.uint8).reshape(-1, 48))
+    x1 = np.where(codec._limbs_lt_const(x1, codec._P_LIMBS)[:, None], x1, 0)
+    _, _, raw1, raw0, _ = codec._parse_g2(sigs)
+    a1, a0 = (codec.bytes_be_to_limbs(
+        np.frombuffer(b"".join(r), dtype=np.uint8).reshape(-1, 48))
+        for r in (raw1, raw0))
+    ok = codec._limbs_lt_const(a0, codec._P_LIMBS) & codec._limbs_lt_const(
+        a1, codec._P_LIMBS)
+    x2 = np.where(ok[:, None, None], np.stack([a0, a1], axis=1), 0)
+    us = codec.hash_to_field_fq2_batch(msgs, 2, bls_backend.DST)
+    u = np.concatenate([us[:, 0], us[:, 1]], axis=0)
+    return (codec._pad_batch(x1), codec._pad_batch(x2), codec._pad_batch(u))
+
+
+def _same_tensors(torch, got, want):
+    if isinstance(got, tuple):
+        return all(_same_tensors(torch, g, w) for g, w in zip(got, want))
+    return torch.equal(got.cpu(), want)
+
+
+def _codec_field_checks(torch, dev, rng, pks, sigs, msgs):
+    """Each field function of the codec on the card against the plain
+    tensor path on the CPU, limb for limb (ok flags equal), at the slot's
+    prep sizes; launches of kernel 2 and both times per function."""
+    from consensus_specs_tpu_torch.ops import codec, cuda_fq, fq
+
+    cpu = torch.device("cpu")
+    x1, x2, u = _field_inputs(pks, sigs, msgs)
+    inv_in = _canonical_limbs(rng, (x1.shape[0],)).astype(np.uint64)
+    inv_in[::97] = 0  # zero lanes: inv(0) == 0
+    proj = _rand_loose_limbs(rng, (len(msgs), 3, 2), bits=382).astype(
+        np.uint64)
+    proj[3, 2] = 0  # Z == 0
+    cases = [
+        ("_g1_decode", codec._g1_decode, (x1,)),
+        ("_g2_decode", codec._g2_decode, (x2,)),
+        ("_sswu_map", codec._sswu_map, (u,)),
+        ("_fq_batch_inverse", codec._fq_batch_inverse, (inv_in,)),
+        ("_proj_to_affine", codec._proj_to_affine,
+         (proj[:, 0], proj[:, 1], proj[:, 2])),
+    ]
+    out = {}
+    for name, fn, arrays in cases:
+        on_card = [fq.limbs_from_numpy(a, dev) for a in arrays]
+        on_cpu = [fq.limbs_from_numpy(a, cpu) for a in arrays]
+        torch.cuda.synchronize()
+        launches = cuda_fq.LAUNCHES
+        t0 = time.perf_counter()
+        got = fn(*on_card)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = cuda_fq.LAUNCHES - launches
+        t0 = time.perf_counter()
+        want = fn(*on_cpu)
+        cpu_s = time.perf_counter() - t0
+        _check(_same_tensors(torch, got, want),
+               f"codec {name} on the card differs from the plain CPU path")
+        out[name] = {"rows": int(arrays[0].shape[0]), "exact": True,
+                     "mont_mul_launches": launches, "card_s": card_s,
+                     "plain_cpu_s": cpu_s}
+    return out
+
+
+def _chain_checks(torch, dev, rng, imad_rate):
+    """fq.pow_fixed's two routes on the card at the codec's chain shapes:
+    step by step (one wrapper call and launch a product) and one replay of
+    the chain's CUDA graph, limb for limb equal; the host time of each
+    (synchronized), the replay's device time (CUDA events) and the
+    chain's bound."""
+    from consensus_specs_tpu_torch.ops import codec, cuda_fq, fq
+
+    out = []
+    for rows, label, bits in ((512, "sqrt", codec._SQRT_BITS),
+                              (128, "sqrt", codec._SQRT_BITS),
+                              (64, "sqrt", codec._SQRT_BITS),
+                              (None, "inv", fq._P_MINUS_2_BITS)):
+        shape = (rows,) if rows else ()
+        a = torch.from_numpy(_canonical_limbs(rng, shape)).to(dev)
+        fq.pow_fixed(a, bits)  # the key's first call captures the graph
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps = fq.pow_fixed_steps(a, bits)
+        torch.cuda.synchronize()
+        steps_s = time.perf_counter() - t0
+        launches = cuda_fq.LAUNCHES
+        t0 = time.perf_counter()
+        graph = fq.pow_fixed(a, bits)
+        torch.cuda.synchronize()
+        graph_s = time.perf_counter() - t0
+        launches = cuda_fq.LAUNCHES - launches
+        _check(torch.equal(steps, graph),
+               f"pow_fixed ({label}, {rows} rows): graph replay differs from "
+               "the step-by-step chain")
+        _check(launches == 2 * (len(bits) - 1),
+               f"pow_fixed replay counted {launches} launches")
+        m = rows or 1
+        n_ops = launches * m * WIDE_MACS_PER_MONT * IMAD_PER_WIDE_MAC
+        out.append({
+            "chain": label, "rows": m, "products": launches,
+            "exact": True, "steps_host_s": steps_s, "graph_host_s": graph_s,
+            "graph_device_ms": _cuda_ms(torch, lambda: fq.pow_fixed(a, bits),
+                                        5),
+            **_bound(2 * m * 15 * LIMB_BYTES, n_ops, imad_rate)})
+    return out
+
+
+def _codec_public_checks(torch, dev, pks, sigs, msgs):
+    """The backend-facing batch codecs on the card (tensor path: kernel 2
+    and the subgroup / hash-finish programs on kernel 1) against the
+    raw-int host path, item for item (ValueError for ValueError), timed."""
+    from consensus_specs_tpu_torch.ops import bls_backend, codec
+
+    cases = [
+        ("pubkey_limbs_batch", codec.pubkey_limbs_batch, pks),
+        ("signature_limbs_batch", codec.signature_limbs_batch, sigs),
+        ("message_limbs_batch",
+         lambda xs, device: codec.message_limbs_batch(
+             xs, bls_backend.DST, device), msgs),
+    ]
+    out = {}
+    for name, fn, items in cases:
+        t0 = time.perf_counter()
+        got = [_norm(v) for v in fn(items, device=dev)]
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = [_norm(v) for v in fn(items, device="cpu")]
+        host_s = time.perf_counter() - t0
+        bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        _check(not bad, f"codec {name}: items {bad[:8]} differ between the "
+                        "card and the host path")
+        errors = sorted({w[1] for w in want if w[0] == "err"})
+        out[name] = {"items": len(items), "equal_to_host_path": True,
+                     "rejections": errors, "card_s": card_s,
+                     "host_path_s": host_s}
+    _check(any("subgroup" in e for e in out["pubkey_limbs_batch"]["rejections"])
+           and any("subgroup" in e
+                   for e in out["signature_limbs_batch"]["rejections"]),
+           "codec checks: a non-subgroup point was not rejected")
+    return out
+
+
+def _evict(slot):
+    """Drop a slot's messages and signatures from the limb caches, so its
+    next run prepares them anew (a fresh slot: pubkeys stay cached)."""
+    from consensus_specs_tpu_torch.ops import bls_backend
+
+    _, messages, signatures = slot
+    for m in messages:
+        bls_backend._MSG_CACHE.pop(bytes(m), None)
+    for s in signatures:
+        bls_backend._SIG_CACHE.pop(bytes(s), None)
+
+
+def _fresh_timed(torch, entry, slot):
+    """One call of ``entry`` on the slot, evicted first, with its wall split
+    into codec prep (and within it decode, subgroup checks, hash-to-G2,
+    the codec's vm.execute calls and its kernel launches), per-item prep,
+    program assembly, the other vm.execute calls, the host easy part and
+    the rest; kernel counts from 0 just before the call."""
+    from consensus_specs_tpu_torch.ops import (bls_backend, codec, cuda_fq,
+                                               cuda_step, vm)
+
+    _evict(slot)
+    sinks = {k: [] for k in ("prep", "decode", "subgroup", "hash", "per_item",
+                             "assemble", "execute", "execute_prep", "easy",
+                             "steps")}
+    prep_launches = {"vm_step": 0, "mont_mul": 0}
+    in_prep = []
+
+    def prep_wrap(fn):
+        def wrapped(*args, **kwargs):
+            step0, mont0 = cuda_step.LAUNCHES, cuda_fq.LAUNCHES
+            in_prep.append(True)
+            try:
+                return _host_timer(sinks["prep"])(fn)(*args, **kwargs)
+            finally:
+                in_prep.pop()
+                prep_launches["vm_step"] += cuda_step.LAUNCHES - step0
+                prep_launches["mont_mul"] += cuda_fq.LAUNCHES - mont0
+        return wrapped
+
+    def exec_wrap(fn):
+        def wrapped(*args, **kwargs):
+            sink = sinks["execute_prep" if in_prep else "execute"]
+            return _host_timer(sink)(fn)(*args, **kwargs)
+        return wrapped
+
+    patches = [
+        (bls_backend, "prewarm_host_caches", prep_wrap),
+        (codec, "decompress_g1_batch", _host_timer(sinks["decode"])),
+        (codec, "decompress_g2_batch", _host_timer(sinks["decode"])),
+        (codec, "g1_subgroup_check_batch", _host_timer(sinks["subgroup"])),
+        (codec, "g2_subgroup_check_batch", _host_timer(sinks["subgroup"])),
+        (codec, "hash_to_g2_batch", _host_timer(sinks["hash"])),
+        (bls_backend, "_pubkey_limbs_compute", _host_timer(sinks["per_item"])),
+        (bls_backend, "_signature_limbs_compute",
+         _host_timer(sinks["per_item"])),
+        (bls_backend, "_message_limbs_compute",
+         _host_timer(sinks["per_item"])),
+        (bls_backend, "_program", _host_timer(sinks["assemble"])),
+        (vm, "execute", exec_wrap),
+        (bls_backend, "_easy_part_flat", _host_timer(sinks["easy"])),
+        (cuda_step, "run_steps", _device_timer(torch, sinks["steps"])),
+    ]
+    pubkey_sets, messages, signatures = slot
+    cuda_step.LAUNCHES = cuda_step.STEPS = cuda_fq.LAUNCHES = 0
+    with contextlib.ExitStack() as stack:
+        for module, name, wrap in patches:
+            stack.enter_context(_patched(module, name, wrap))
+        t0 = time.perf_counter()
+        if entry == "batch_verify_rlc":
+            got = bls_backend.batch_verify_rlc(
+                [("fast_aggregate", p, m, s)
+                 for p, m, s in zip(pubkey_sets, messages, signatures)],
+                rng=random.Random(SEED))
+        else:
+            got = bls_backend.batch_fast_aggregate_verify(
+                pubkey_sets, messages, signatures)
+        wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    total = {k: sum(v) for k, v in sinks.items()}
+    split = {
+        "wall_s": wall, "codec_prep_s": total["prep"],
+        "codec_decode_s": total["decode"],
+        "codec_subgroup_s": total["subgroup"], "codec_hash_s": total["hash"],
+        "codec_vm_execute_s": total["execute_prep"],
+        "per_item_prep_s": total["per_item"],
+        "per_item_prep_calls": len(sinks["per_item"]),
+        "assemble_s": total["assemble"], "vm_execute_s": total["execute"],
+        "vm_executions": len(sinks["execute"]) + len(sinks["execute_prep"]),
+        "easy_part_s": total["easy"], "step_kernel_ms": total["steps"],
+        "step_kernel_launches": cuda_step.LAUNCHES,
+        "step_kernel_steps": cuda_step.STEPS,
+        "mont_mul_kernel_launches": cuda_fq.LAUNCHES,
+        "prep_step_kernel_launches": prep_launches["vm_step"],
+        "prep_mont_mul_kernel_launches": prep_launches["mont_mul"],
+    }
+    split["other_host_s"] = wall - total["prep"] - total["assemble"] \
+        - total["execute"] - total["easy"]
+    _check(cuda_step.LAUNCHES == split["vm_executions"],
+           f"{cuda_step.LAUNCHES} step-kernel launches for "
+           f"{split['vm_executions']} vm.execute calls (expected one each)")
+    return got, split
+
+
+def _prep_kernel2_ms(torch, slot):
+    """Kernel 2's device time inside one codec prep of the evicted slot's
+    messages and signatures (an instrumented run, apart from the timed
+    walls): CUDA events around each wrapper launch, and around each chain
+    replay (the graph's launches plus its input copy and output clone)."""
+    from consensus_specs_tpu_torch.ops import bls_backend, cuda_fq
+
+    _evict(slot)
+    single, chains = [], []
+
+    def timed_chain(fn):
+        def wrapped(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            chains.append((start, end))
+            return out
+        return wrapped
+
+    launches = cuda_fq.LAUNCHES
+    with _patched(cuda_fq, "_lib", lambda lib: lambda: _TimedLaunches(
+            torch, lib(), "mont_mul_launch", single)), \
+            _patched(cuda_fq, "pow_chain", timed_chain):
+        t0 = time.perf_counter()
+        bls_backend.prewarm_host_caches(slot[1], slot[2])
+        wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    ms = lambda evs: sum(s.elapsed_time(e) for s, e in evs)
+    return {"wall_s": wall, "launches": cuda_fq.LAUNCHES - launches,
+            "single_launches": len(single), "single_ms": ms(single),
+            "chain_replays": len(chains), "chain_ms": ms(chains)}
+
+
+def _cold_pubkeys(torch, pool_pks):
+    """The pool's pubkeys dropped from the cache and prepared again: by the
+    codec on the card (one prewarm), then per item by the oracle."""
+    from consensus_specs_tpu_torch.ops import bls_backend, cuda_fq, cuda_step
+
+    out = {"pubkeys": len(pool_pks)}
+    for label in ("codec", "per_item"):
+        for pk in pool_pks:
+            bls_backend._PK_CACHE.pop(pk, None)
+        step0, mont0 = cuda_step.LAUNCHES, cuda_fq.LAUNCHES
+        t0 = time.perf_counter()
+        if label == "codec":
+            bls_backend.prewarm_host_caches([], [], pool_pks)
+        else:
+            for pk in pool_pks:
+                bls_backend._pubkey_limbs(pk)
+        torch.cuda.synchronize()
+        out[label] = {"s": time.perf_counter() - t0,
+                      "step_kernel_launches": cuda_step.LAUNCHES - step0,
+                      "mont_mul_kernel_launches": cuda_fq.LAUNCHES - mont0}
+    _check(all(pk in bls_backend._PK_CACHE for pk in pool_pks),
+           "cold pubkeys: the pool is not cached after its prep")
+    return out
+
+
+def _single_item_prep(torch, slot):
+    """n = 1: one fresh message and signature prepared by the codec on the
+    card (the first such call captures the chains at the new shapes, the
+    next one replays them), then per item by the oracle."""
+    from consensus_specs_tpu_torch.ops import bls_backend
+
+    out = {}
+    for label, i in (("codec_first", 0), ("codec", 1), ("per_item", 1)):
+        one = ([slot[0][i]], [slot[1][i]], [slot[2][i]])
+        _evict(one)
+        t0 = time.perf_counter()
+        if label.startswith("codec"):
+            bls_backend.prewarm_host_caches(one[1], one[2])
+        else:
+            bls_backend._message_limbs(bytes(one[1][0]))
+            bls_backend._signature_limbs(bytes(one[2][0]))
+        torch.cuda.synchronize()
+        out[label + "_s"] = time.perf_counter() - t0
+    return out
+
+
+def phase_codec(torch, dev, rng, imad_rate, l2_ns, card):
+    """The batched input codec on the card: its field functions against
+    the plain CPU path and its batch entry points against the host path at
+    a slot's prep sizes, its three programs on kernel 1 (first 256 steps
+    exact, whole streams timed), kernel 2 at its shapes, then fresh slots
+    (new messages and signatures, pubkeys cached) through both entry
+    points with the codec and with per-item prep."""
+    from consensus_specs_tpu_torch.ops import bls_backend, fq
+
+    t0 = time.perf_counter()
+    pubkey_sets, messages, signatures, expected, planted = make_slot(
+        message_seed=FRESH_SEED)
+    _, _, pool_pks = key_pool()
+    setup_s = time.perf_counter() - t0
+    slot = (pubkey_sets, messages, signatures)
+    _check(all(pk in bls_backend._PK_CACHE for pk in pool_pks),
+           "fresh slot: the key pool is not cached from phase 4")
+
+    pks, sigs = _codec_inputs(pool_pks, signatures)
+    field = _codec_field_checks(torch, dev, rng, pks, sigs, messages)
+    public = _codec_public_checks(torch, dev, pks, sigs, messages)
+    streams = phase_streams(torch, dev, rng, imad_rate, l2_ns,
+                            streams=CODEC_STREAMS)
+    mont = [_mont_mul_at(torch, dev, rng, imad_rate, (n,))
+            for n in (512, 128, 64)]
+
+    chains = _chain_checks(torch, dev, rng, imad_rate)
+
+    runs, paths = {}, {}
+    for entry, prep in (("batch_fast_aggregate_verify", "codec"),
+                        ("batch_fast_aggregate_verify", "codec_chain_steps"),
+                        ("batch_fast_aggregate_verify", "per_item"),
+                        ("batch_verify_rlc", "codec"),
+                        ("batch_verify_rlc", "per_item")):
+        if prep == "per_item":
+            os.environ["CONSENSUS_SPECS_TPU_BATCH_CODEC"] = "0"
+        # codec_chain_steps: the same codec with every chain run step by
+        # step instead of replayed, for the graph's gain in this call
+        steps = prep == "codec_chain_steps"
+        try:
+            with _patched(fq, "pow_fixed", lambda real: (
+                    fq.pow_fixed_steps if steps else real)):
+                got, run = _fresh_timed(torch, entry, slot)
+        finally:
+            os.environ.pop("CONSENSUS_SPECS_TPU_BATCH_CODEC", None)
+        _check(list(got) == list(expected),
+               f"fresh slot, {entry}, {prep} prep: verdicts "
+               f"{np.flatnonzero(~got).tolist()} false, planted "
+               f"{sorted(planted.values())}")
+        if prep == "codec":
+            _check(run["prep_mont_mul_kernel_launches"] > 0
+                   and run["prep_step_kernel_launches"] > 0,
+                   f"fresh slot, {entry}: the codec prep launched no kernel")
+            paths["codec" if entry == "batch_fast_aggregate_verify"
+                  else "codec_rlc"] = run
+        runs[f"{entry}.{prep}"] = run
+    for entry in ("batch_fast_aggregate_verify", "batch_verify_rlc"):
+        runs[entry + ".prep_speedup"] = (
+            runs[entry + ".per_item"]["per_item_prep_s"]
+            / runs[entry + ".codec"]["codec_prep_s"])
+    runs["chain_graph_prep_speedup"] = (
+        runs["batch_fast_aggregate_verify.codec_chain_steps"]["codec_prep_s"]
+        / runs["batch_fast_aggregate_verify.codec"]["codec_prep_s"])
+    kernel2 = _prep_kernel2_ms(torch, slot)
+    cold_pks = _cold_pubkeys(torch, pool_pks)
+    single = _single_item_prep(torch, slot)
+    return {
+        "phase": "codec", "setup_s": setup_s,
+        "fresh_slot": {"committees": len(expected),
+                       "committee_size": COMMITTEE, "key_pool": KEY_POOL,
+                       "planted_invalid": planted, "verdicts_exact": True},
+        "field_functions": field, "batch_codecs": public, "chains": chains,
+        "fresh": runs, "prep_kernel2": kernel2, "cold_pubkeys": cold_pks,
+        "single_item": single, **card,
+    }, streams, mont, paths
+
+
 def main():
     import torch
 
@@ -906,21 +1416,29 @@ def main():
         streams.append(rlc_head)
         _emit({"phase": "kernels", "results": [rlc_head] + rlc_mont,
                "elapsed_s": time.perf_counter() - t0, **card})
+
+        codec_line, codec_streams, codec_mont, codec_runs = phase_codec(
+            torch, dev, rng, imad_rate, l2_ns, card)
+        _emit({**codec_line, "elapsed_s": time.perf_counter() - t0})
+        streams += codec_streams
+        _emit({"phase": "kernels", "results": codec_streams + codec_mont,
+               "elapsed_s": time.perf_counter() - t0, **card})
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
     # each path's launches, counted from 0 just before it ran: the per-item
-    # slice (cold), the RLC slot (warm best of 3), the tower combine
+    # slice (cold), the RLC slot (warm best of 3), the tower combine, and
+    # the fresh slot with the codec prep through each entry point
     paths = {"slice": {"vm_step": launches["vm_step"],
                        "vm_step_steps": launches["vm_step_steps"],
                        "mont_mul": launches["mont_mul"]}}
-    for path, run in rlc_runs.items():
+    for path, run in {**rlc_runs, **codec_runs}.items():
         paths[path] = {"vm_step": run["step_kernel_launches"],
                        "vm_step_steps": run["step_kernel_steps"],
                        "mont_mul": run["mont_mul_kernel_launches"]}
     total = {k: sum(p[k] for p in paths.values()) for k in paths["slice"]}
-    # vm_step's line: the checked heads of the three real streams
+    # vm_step's line: the checked heads of the six real streams
     head_bytes = sum(r["head_bytes"] for r in streams)
     head_imad = sum(r["head_imad"] for r in streams)
     step_bound = _bound(head_bytes, head_imad, imad_rate)

@@ -3,9 +3,14 @@ verify subset of consensus_specs_tpu/ops/bls_backend.py.
 
 Pipeline (the same as the JAX package's, with the same programs):
 
-  HOST  decode / KeyValidate pubkeys, decode + subgroup-check signatures,
-        hash messages to G2 — per item with the exact-int oracle
-        (utils/bls12_381.py), the Montgomery limb encodings cached.
+  PREP  decode / KeyValidate pubkeys, decode + subgroup-check signatures,
+        hash messages to G2 for every cache miss at once through the
+        batched input codec (ops/codec.py: on the card, its field
+        functions on the Montgomery kernel and its subgroup and
+        hash-finish programs on the step kernel; on the CPU, raw-int host
+        math); the Montgomery limb encodings cached. With
+        CONSENSUS_SPECS_TPU_BATCH_CODEC=0 each miss is prepared per item
+        by the exact-int oracle (utils/bls12_381.py) instead.
   PROG A (device) aggregate K projective pubkeys + both Miller loops
         -> f, agg_Z (vmlib miller_product / aggregate_verify).
   HOST  easy part of the final exponentiation (one exact Fq12 inversion +
@@ -274,6 +279,65 @@ def _message_limbs(message: bytes) -> np.ndarray:
     return _cached(_MSG_CACHE, message, _message_limbs_compute)
 
 
+# prep-plane counters: batched codec passes and the items they prepared,
+# and the cache misses left to per-item prep because the codec is off
+PREP_STATS = {
+    "codec_batches": 0,
+    "codec_items": 0,
+    "serial_fallback_items": 0,
+}
+
+
+def reset_prep_state() -> None:
+    for k in PREP_STATS:
+        PREP_STATS[k] = 0
+
+
+def _codec_enabled() -> bool:
+    return os.environ.get("CONSENSUS_SPECS_TPU_BATCH_CODEC", "1") != "0"
+
+
+def _prewarm_batched(msgs, sigs, pks, device) -> None:
+    """Fill the caches through the batched input codec. Validation
+    failures come back as ValueError VALUES and are not cached, as in
+    ``_cached`` (the item loop re-derives and raises them)."""
+    from . import codec
+
+    if msgs:
+        for m, v in zip(msgs, codec.message_limbs_batch(msgs, DST, device)):
+            _cache_put(_MSG_CACHE, m, v)
+    if sigs:
+        for s, v in zip(sigs, codec.signature_limbs_batch(sigs, device)):
+            if not isinstance(v, ValueError):
+                _cache_put(_SIG_CACHE, s, v)
+    if pks:
+        for p, v in zip(pks, codec.pubkey_limbs_batch(pks, device)):
+            if not isinstance(v, ValueError):
+                _cache_put(_PK_CACHE, p, v)
+
+
+def prewarm_host_caches(messages: Sequence[bytes], signatures: Sequence[bytes],
+                        pubkeys: Sequence[bytes] = (), device=None) -> None:
+    """Fill the hash-to-G2, signature-decode and pubkey caches for every
+    miss in one pass of the batched input codec (ops/codec.py) on
+    ``device``. With CONSENSUS_SPECS_TPU_BATCH_CODEC=0 nothing is
+    prepared here: the misses are counted and the item loop prepares them
+    one by one. A codec error raises."""
+    dev = resolve_device(device)
+    msgs = [m for m in dict.fromkeys(messages) if m not in _MSG_CACHE]
+    sigs = [s for s in dict.fromkeys(signatures) if s not in _SIG_CACHE]
+    pks = [p for p in dict.fromkeys(pubkeys) if p not in _PK_CACHE]
+    total = len(msgs) + len(sigs) + len(pks)
+    if total == 0:
+        return
+    if not _codec_enabled():
+        PREP_STATS["serial_fallback_items"] += total
+        return
+    _prewarm_batched(msgs, sigs, pks, dev)
+    PREP_STATS["codec_batches"] += 1
+    PREP_STATS["codec_items"] += total
+
+
 # ---------------------------------------------------------------------------
 # final exponentiation: host easy part, device hard part
 # ---------------------------------------------------------------------------
@@ -519,8 +583,9 @@ def reset_rlc_stats() -> None:
 def _miller_fast_aggregate(
     pubkey_sets, messages, signatures, device
 ) -> Tuple[Optional[dict], "_FoldLayout", np.ndarray]:
-    """PROG A stage of batch_fast_aggregate_verify: host prep + the
-    aggregate-and-Miller program. Returns (out, lay, precheck); ``out`` is
+    """PROG A stage of batch_fast_aggregate_verify: prep (the codec
+    prewarm, then the cached limbs per item) + the aggregate-and-Miller
+    program. Returns (out, lay, precheck); ``out`` is
     None when no item survived host prep."""
     n = len(pubkey_sets)
     max_k = max((len(pks) for pks in pubkey_sets), default=1)
@@ -529,6 +594,12 @@ def _miller_fast_aggregate(
 
     lay = _FoldLayout("miller_product", k, n)
     nb = lay.nb
+    prewarm_host_caches(
+        [bytes(m) for m in messages],
+        [bytes(s) for s in signatures],
+        [bytes(pk) for pks in pubkey_sets for pk in pks],
+        device,
+    )
     # stacked staging arrays; inactive-lane fillers: infinity pubkeys
     # (0:1:0), generator G2 points
     precheck = np.zeros(nb, dtype=bool)
@@ -608,6 +679,12 @@ def _miller_aggregate(
 
     lay = _FoldLayout("aggregate_verify", k, n)
     nb = lay.nb
+    prewarm_host_caches(
+        [bytes(m) for ms in message_lists for m in ms],
+        [bytes(s) for s in signatures],
+        [bytes(pk) for pks in pubkey_lists for pk in pks],
+        device,
+    )
     precheck = np.zeros(nb, dtype=bool)
     pk_x = np.zeros((nb, k, L), dtype=np.uint64)
     pk_y = np.zeros((nb, k, L), dtype=np.uint64)

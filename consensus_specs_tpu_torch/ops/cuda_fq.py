@@ -4,18 +4,30 @@ dispatch — the port's counterpart of consensus_specs_tpu/ops/pallas_fq.py.
 ``mont_mul(a, b)`` takes (..., 15) int64 limb tensors (limbs < 2^28). On a
 CUDA tensor it launches the kernel (or raises); on a CPU tensor it runs the
 plain version, ``fq.mont_mul_plain``. The two agree limb for limb.
+
+``pow_chain(a, bits)`` is ``fq.pow_fixed`` on the card: the chain of
+Montgomery products captured once per (device, stream, shape, exponent) as
+a CUDA graph whose every node is a launch of the kernel, then replayed, so
+a call costs one graph launch of host time instead of one wrapper call per
+product (the codec's square-root and inversion chains are ~750 products
+each and launch-bound otherwise).
 """
 import ctypes
+import threading
 
 import torch
 
 from . import cuda_build, fq
 
-# kernel launches made by mont_mul (a plain count; tests and the chip smoke
-# reset it to 0 and read it back)
+# kernel launches made by mont_mul and by pow_chain's graph replays (a
+# plain count; tests and the chip smoke reset it to 0 and read it back)
 LAUNCHES = 0
 
 _LIB = None
+# (device, stream, shape, bits) -> (graph, static input, static output,
+# kernel launches in the graph)
+_CHAINS = {}
+_CHAINS_LOCK = threading.Lock()
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -65,3 +77,36 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"mont_mul kernel launch failed: cudaError {rc}")
     LAUNCHES += 1
     return out
+
+
+def pow_chain(a: torch.Tensor, exp_bits) -> torch.Tensor:
+    """``fq.pow_fixed_steps(a, exp_bits)`` on a CUDA tensor, limb for limb,
+    as one replay of the chain's CUDA graph. The first call of a key runs
+    the chain step by step (its result is returned) and then captures it;
+    the capture launches nothing, so LAUNCHES counts the graph's kernel
+    launches at each replay."""
+    global LAUNCHES
+    if a.device.type != "cuda":
+        raise ValueError(f"pow_chain: operand on {a.device}")
+    stream = torch.cuda.current_stream(a.device)
+    key = (a.device, stream.cuda_stream, tuple(a.shape), tuple(exp_bits))
+    with _CHAINS_LOCK:
+        entry = _CHAINS.get(key)
+        if entry is None:
+            out = fq.pow_fixed_steps(a, exp_bits)
+            static_in = a.clone()
+            graph = torch.cuda.CUDAGraph()
+            before = LAUNCHES
+            try:
+                with torch.cuda.graph(graph):
+                    static_out = fq.pow_fixed_steps(static_in, exp_bits)
+                _CHAINS[key] = (graph, static_in, static_out,
+                                LAUNCHES - before)
+            finally:
+                LAUNCHES = before
+            return out
+        graph, static_in, static_out, n = entry
+        static_in.copy_(a)
+        graph.replay()
+        LAUNCHES += n
+        return static_out.clone()

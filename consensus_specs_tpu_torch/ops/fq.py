@@ -14,9 +14,10 @@ audit of ``mont_mul_plain`` keeps every column below 2^62.
 ``mont_mul_plain`` is the plain version of the CUDA Montgomery multiply
 (csrc/mont.cuh). ``mont_mul`` goes through ops/cuda_fq.py: on a CUDA
 tensor it launches the kernel, on a CPU tensor it runs the plain version.
-The loose-limb API the Fq12 towers need (``add``, ``compress``, ``sub``)
-is the JAX package's, limb for limb; every Montgomery product in it goes
-through ``mont_mul``.
+The loose-limb API (``add``, ``add_many``, ``compress``, ``sub``, ``neg``,
+``canonical``, ``is_zero``, ``eq``, ``select``, ``pow_fixed``, ``inv``,
+``const``) is the JAX package's, limb for limb; every Montgomery product in
+it goes through ``mont_mul``.
 """
 import functools
 
@@ -130,6 +131,7 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 _LIMB_CONSTS = {"one": ONE_MONT, "mp": MP_LIMBS}
+_P_MINUS_2_BITS = [int(b) for b in bin(P - 2)[2:]]
 
 
 @functools.lru_cache(maxsize=None)
@@ -156,3 +158,91 @@ def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     t = a + _const("mp", a.device) + (MASK - b)
     t[..., 0] += 1
     return _carry_limbs(t, out_limbs=NUM_LIMBS + 1)[..., :NUM_LIMBS]
+
+
+def add_many(terms) -> torch.Tensor:
+    """Sum a list of loose elements (raw limb sums, one carry pass)."""
+    acc = terms[0]
+    for t in terms[1:]:
+        acc = acc + t
+    return _carry_limbs(acc)
+
+
+def neg(a: torch.Tensor) -> torch.Tensor:
+    return sub(torch.zeros_like(a), a)
+
+
+def _geq_p(a: torch.Tensor) -> torch.Tensor:
+    """a >= p on carried limbs, most significant limb first."""
+    ge = torch.ones(a.shape[:-1], dtype=torch.bool, device=a.device)
+    gt = torch.zeros(a.shape[:-1], dtype=torch.bool, device=a.device)
+    for k in reversed(range(NUM_LIMBS)):
+        pk = int(P_LIMBS[k])
+        gt = gt | (ge & (a[..., k] > pk))
+        ge = ge & (a[..., k] == pk)
+    return gt | ge
+
+
+def _sub_p(a: torch.Tensor) -> torch.Tensor:
+    """a - p with borrows, on carried limbs of a value >= p."""
+    outs = []
+    borrow = torch.zeros(a.shape[:-1], dtype=torch.int64, device=a.device)
+    for k in range(NUM_LIMBS):
+        cur = a[..., k] + (1 << LIMB_BITS) - int(P_LIMBS[k]) - borrow
+        outs.append(cur & MASK)
+        borrow = 1 - (cur >> LIMB_BITS)
+    return torch.stack(outs, dim=-1)
+
+
+def canonical(a: torch.Tensor) -> torch.Tensor:
+    """The unique representative in [0, p): one Montgomery multiply by
+    repr(1) (output < p + eps) and one conditional subtract."""
+    r = mont_mul(a, _const("one", a.device))
+    return torch.where(_geq_p(r)[..., None], _sub_p(r), r)
+
+
+def is_zero(a: torch.Tensor) -> torch.Tensor:
+    """Mod-p zero test (canonicalizes internally)."""
+    return (canonical(a) == 0).all(dim=-1)
+
+
+def eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (canonical(a) == canonical(b)).all(dim=-1)
+
+
+def select(cond: torch.Tensor, a: torch.Tensor,
+           b: torch.Tensor) -> torch.Tensor:
+    return torch.where(cond[..., None], a, b)
+
+
+def pow_fixed(a: torch.Tensor, exp_bits) -> torch.Tensor:
+    """a^e for a static msb-first bit list (loose in, loose out). On a CUDA
+    tensor the chain is one replay of its captured CUDA graph
+    (ops/cuda_fq.pow_chain); elsewhere ``pow_fixed_steps``."""
+    if a.device.type == "cuda":
+        from . import cuda_fq  # cuda_fq imports this module
+
+        return cuda_fq.pow_chain(a, exp_bits)
+    return pow_fixed_steps(a, exp_bits)
+
+
+def pow_fixed_steps(a: torch.Tensor, exp_bits) -> torch.Tensor:
+    """The chain step by step: the top bit seeds the accumulator, each
+    later bit costs a square, a multiply and a select (the JAX package's
+    lax.scan body; the bits are static, so the select is made here)."""
+    acc = a
+    for bit in exp_bits[1:]:
+        acc = mont_mul(acc, acc)
+        acc_mul = mont_mul(acc, a)
+        acc = acc_mul if bit else acc
+    return acc
+
+
+def inv(a: torch.Tensor) -> torch.Tensor:
+    """Modular inverse via Fermat: a^(p-2); inv(0) == 0."""
+    return pow_fixed(a, _P_MINUS_2_BITS)
+
+
+def const(x_int: int, batch_shape=(), *, device) -> torch.Tensor:
+    c = torch.from_numpy(to_mont_int(x_int % P).astype(np.int64)).to(device)
+    return c.expand(tuple(batch_shape) + (NUM_LIMBS,))

@@ -240,3 +240,48 @@ def test_tower_combine_on_the_card_matches_cpu(dev):
     assert cuda_fq.LAUNCHES > before
     want = pairing.rlc_combine(torch.from_numpy(fs), torch.from_numpy(bits))
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("shape", [(15,), (7, 15), (64, 2, 15)])
+def test_pow_chain_replays_match_the_steps(dev, shape):
+    """fq.pow_fixed on the card (the chain's CUDA graph: a step-by-step
+    first call, then replays) against the plain chain on the CPU, raw limbs
+    equal; each replay counts its graph's kernel-2 launches."""
+    from consensus_specs_tpu_torch.ops import cuda_fq, fq
+
+    rng = np.random.default_rng(14 + len(shape))
+    bits = [1] + list(rng.integers(0, 2, 40))
+    for _ in range(3):
+        a = torch.from_numpy(_loose(rng, shape[:-1])).to(dev)
+        before = cuda_fq.LAUNCHES
+        got = fq.pow_fixed(a, bits)
+        assert cuda_fq.LAUNCHES == before + 2 * (len(bits) - 1)
+        want = fq.pow_fixed_steps(a.cpu(), bits)
+        assert torch.equal(got.cpu(), want)
+
+
+def test_codec_on_the_card_matches_the_host_path(dev):
+    """The batch codecs on the card (tensor path) against the raw-int host
+    path, item for item, invalid encodings included."""
+    from consensus_specs_tpu_torch.ops import bls_backend, codec
+    from consensus_specs_tpu_torch.utils import bls12_381 as O
+
+    pks = [O.g1_to_bytes(O.ec_mul(O.G1_GEN, k)) for k in (3, 5)] + [
+        bytes([0xC0]) + b"\x00" * 47, bytes([0x9F]) + b"\xff" * 47]
+    sigs = [O.g2_to_bytes(O.ec_mul(O.G2_GEN, k)) for k in (3, 5)] + [
+        bytes([0x80]) + b"\x00" * 94 + b"\x07"]
+    msgs = [b"", b"abc", b"\x00" * 32]
+
+    def norm(v):
+        if isinstance(v, ValueError):
+            return str(v)
+        if isinstance(v, tuple):
+            return tuple(np.asarray(x).tobytes() for x in v)
+        return np.asarray(v).tobytes()
+
+    for fn, items in ((codec.pubkey_limbs_batch, pks),
+                      (codec.signature_limbs_batch, sigs),
+                      (lambda xs, device: codec.message_limbs_batch(
+                          xs, bls_backend.DST, device), msgs)):
+        got = [norm(v) for v in fn(items, device=dev)]
+        assert got == [norm(v) for v in fn(items, device="cpu")]

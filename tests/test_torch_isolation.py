@@ -17,12 +17,15 @@ import consensus_specs_tpu_torch as port
 mods = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
 for m in mods:
     __import__(m)
-from consensus_specs_tpu_torch.ops import fq
+from consensus_specs_tpu_torch.ops import codec, fq
 a = fq.limbs_from_numpy(fq.ONE_MONT, "cpu")
 out = fq.mont_mul_plain(a, a)
+hashed = codec.message_limbs_batch([b"abc"], b"DST", device="cpu")
 print(json.dumps({
     "modules": mods,
     "one_squared": fq.from_mont_limbs(out.numpy()),
+    "hashed": len(hashed),
+    "native_sha256": sorted(m for m in sys.modules if "native_sha256" in m),
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
     "reference": sorted(m for m in sys.modules
                         if m == "consensus_specs_tpu"
@@ -40,9 +43,12 @@ def test_port_imports_no_jax_and_no_reference_module():
     got = json.loads(res.stdout.strip().splitlines()[-1])
     assert "consensus_specs_tpu_torch.ops.bls_backend" in got["modules"]
     assert "consensus_specs_tpu_torch.ops.cuda_step" in got["modules"]
+    assert "consensus_specs_tpu_torch.ops.codec" in got["modules"]
     assert got["one_squared"] == 1
+    assert got["hashed"] == 1
     assert got["jax"] == []
     assert got["reference"] == []
+    assert got["native_sha256"] == []
 
 
 @pytest.fixture

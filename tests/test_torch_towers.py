@@ -102,7 +102,7 @@ def test_fq12_one_select():
     rng = random.Random(606)
     a = _rand_loose(rng, (2, 12), 382)
     b = _rand_loose(rng, (2, 12), 382)
-    assert np.array_equal(_np(towers.fq12_one((2,))),
+    assert np.array_equal(_np(towers.fq12_one((2,), "cpu")),
                           np.asarray(jtowers.fq12_one((2,))))
     cond = np.array([True, False])
     assert np.array_equal(
