@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Drives ``consensus_specs_tpu_torch`` (never jax, never the JAX package)
-through seven phases, each printing one JSON line:
+through eight phases, each printing one JSON line:
 
   1. build   -- compile every CUDA kernel of the port from csrc/ with nvcc
                for sm_90a (one nvcc per source, all started together);
@@ -60,6 +60,27 @@ through seven phases, each printing one JSON line:
                (decode, subgroup checks, hash), assembly, vm.execute and
                easy part; the pool's 512 pubkeys prepared cold both ways,
                and one fresh item both ways.
+  8. serve   -- the serve plane: the port's VerificationService on the
+               card (its prep and device stages on CUDA streams of their
+               own) in front of the port's backend, at the JAX serve
+               bench's knobs (max_batch 32, max_wait 20 ms, Poisson
+               arrivals at 256 Hz): a new slot of phase 4's key pool (64
+               aggregates of 146, the same 4 planted) heard over 256
+               submits, the later half of the committees joining in the
+               stream's second half. Every verdict exact; no retry, no
+               fallback, no prep/RLC/backend error, codec prep only, one
+               backend item per distinct check, and at least one chain
+               graph captured inside the stream; its kernel launches,
+               latencies, occupancy, prep/device split and the overlap of
+               the prep (host) and card lanes of the occupancy ledger are
+               printed. Then the same distinct checks through one
+               batch_verify_rlc call (the offline floor), and the port's
+               serve/load.run_serve_bench at its defaults (8 committees
+               of 8, 64 events) behind FailingBackendProxy, which falls
+               back on purpose: calls 1-2 failing (the poisoned flush
+               served by the per-group path) and calls 1-4 failing
+               (served by the oracle, journalled and warned about), every
+               verdict right and later flushes served by the backend.
 
 Then it prints the card's name and power limit, a ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``. Any failure exits
@@ -1352,6 +1373,402 @@ def phase_codec(torch, dev, rng, imad_rate, l2_ns, card):
     }, streams, mont, paths
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the serve plane
+# ---------------------------------------------------------------------------
+
+SERVE_SEED = SEED + 2  # the serve slot's members, messages and signatures
+# the JAX package's serve bench knobs (serve/load.py run_serve_bench)
+SERVE_EVENTS = 256
+SERVE_RATE_HZ = 256.0
+SERVE_MAX_BATCH = 32
+SERVE_MAX_WAIT_MS = 20.0
+# the fault-injection stream: the JAX serve bench's defaults, which the
+# port's serve/load.run_serve_bench keeps (k sizes the warm programs)
+FAULT_K = 8
+_ENTRIES = ("batch_verify_rlc", "batch_fast_aggregate_verify",
+            "batch_aggregate_verify", "prewarm_host_caches")
+
+
+class _CallLog:
+    """A backend (the port's module, or a proxy of it) with every entry
+    call logged as [entry, items, traceback or None], so a fault that the
+    service's ladder absorbs is still reported."""
+
+    def __init__(self, backend):
+        self._backend = backend
+        self.calls = []
+
+    def __getattr__(self, name):
+        fn = getattr(self._backend, name)
+        if name not in _ENTRIES:
+            return fn
+
+        def call(*args, **kwargs):
+            rec = [name, len(args[0]) if args else 0, None]
+            self.calls.append(rec)
+            try:
+                return fn(*args, **kwargs)
+            except Exception:
+                import traceback
+
+                rec[2] = traceback.format_exc()[-1500:]
+                raise
+        return call
+
+    def errors(self):
+        return [c for c in self.calls if c[2] is not None]
+
+
+def _warm_programs(ks):
+    """Assemble every program a flush of 1 to 32 items can resolve, outside
+    the timed streams (the serve bench's warm-up): PROG A for each k bucket
+    at folds 1-8, the combine chunks 2-16, the device hard part at folds
+    1-8 and the codec's signature and hash programs."""
+    from consensus_specs_tpu_torch.ops import bls_backend
+
+    t0 = time.perf_counter()
+    wanted = [("miller_product", k, f) for k in ks for f in (1, 2, 4, 8)]
+    wanted += [("rlc_combine", c, 1) for c in (2, 4, 8, 16)]
+    wanted += [("hard_part_frobenius", 0, f) for f in (1, 2, 4, 8)]
+    wanted += [("g2_subgroup", 0, f) for f in (1, 2, 4, 8)]
+    wanted += [("h2g_finish", 0, f) for f in (1, 2, 4)]
+    for kind, k, fold in wanted:
+        bls_backend._program(kind, k, fold=fold)
+    return {"programs": len(wanted), "s": time.perf_counter() - t0}
+
+
+def _union(intervals):
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _overlap_s(xs, ys):
+    """Seconds covered by both interval sets."""
+    xs, ys = _union(xs), _union(ys)
+    total, i, j = 0.0, 0, 0
+    while i < len(xs) and j < len(ys):
+        lo, hi = max(xs[i][0], ys[j][0]), min(xs[i][1], ys[j][1])
+        total += max(0.0, hi - lo)
+        if xs[i][1] < ys[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def _serve_stream(torch, backend, committees, rng, picks):
+    """The serve bench's stream (serve/load.py run_serve_bench) through the
+    port's VerificationService on the card: one submit per pick at Poisson
+    gaps from ``rng``, every future awaited. Returns (service, verdicts,
+    expected, elapsed_s, signatures submitted, device-stage intervals)."""
+    import concurrent.futures as cf
+
+    from consensus_specs_tpu_torch.serve import VerificationService
+
+    svc = VerificationService(backend=backend, max_batch=SERVE_MAX_BATCH,
+                              max_wait_ms=SERVE_MAX_WAIT_MS)
+    stage = []
+    process = svc._process
+
+    def timed_process(batch):
+        t0 = time.perf_counter()
+        try:
+            return process(batch)
+        finally:
+            stage.append((t0, time.perf_counter()))
+    svc._process = timed_process
+    try:
+        futures, expected, sig_count = [], [], 0
+        t_start = time.perf_counter()
+        t_next = t_start
+        for ci in picks:
+            pks, msg, sig, ok = committees[ci]
+            futures.append(svc.submit("fast_aggregate", pks, msg, sig))
+            expected.append(bool(ok))
+            sig_count += len(pks)
+            t_next += rng.expovariate(SERVE_RATE_HZ)
+            pause = t_next - time.perf_counter()
+            if pause > 0:
+                time.sleep(pause)
+        _, pending = cf.wait(futures, timeout=600)
+        elapsed = time.perf_counter() - t_start
+    finally:
+        svc.close(timeout=120)
+    torch.cuda.synchronize()
+    _check(not pending, f"serve stream: {len(pending)} of {len(futures)} "
+                        "requests never resolved")
+    got = [bool(f.result()) for f in futures]
+    return svc, got, expected, elapsed, sig_count, (t_start, stage)
+
+
+_LADDER = ("serve.prep_error", "serve.rlc_error", "serve.backend_error",
+           "serve.device_stage_error")
+
+
+def _ladder_records():
+    from consensus_specs_tpu_torch.ops import profiling
+
+    summ = profiling.summary()
+    return {label: summ.get(label, {}).get("calls", 0) for label in _LADDER}
+
+
+def _serve_main(torch):
+    """The main stream: a new slot of phase 4's key pool heard four times
+    over through the service, no injected fault."""
+    from consensus_specs_tpu_torch.obs import devices
+    from consensus_specs_tpu_torch.obs import programs as obs_programs
+    from consensus_specs_tpu_torch.ops import (bls_backend, cuda_fq,
+                                               cuda_step, profiling)
+    from consensus_specs_tpu_torch.serve import load
+
+    t0 = time.perf_counter()
+    pubkey_sets, messages, signatures, expected, planted = make_slot(
+        message_seed=SERVE_SEED)
+    committees = list(zip(pubkey_sets, messages, signatures, expected))
+    rng = random.Random(SEED)
+    picks = load._event_schedule(rng, committees, SERVE_EVENTS)
+    distinct = sorted(set(picks))
+    setup_s = time.perf_counter() - t0
+    warm = _warm_programs((bls_backend._k_bucket(COMMITTEE), FAULT_K))
+    # the bench's warm-up: one committee outside the stream (the slot's
+    # unheard committee, or the first when every one is heard)
+    spare = ([i for i in range(len(committees)) if i not in set(picks)]
+             or [0])[0]
+    t0 = time.perf_counter()
+    warm_ok = bls_backend.batch_fast_aggregate_verify(
+        [pubkey_sets[spare]], [messages[spare]], [signatures[spare]])
+    warm["warmup_verify_s"] = time.perf_counter() - t0
+    _check(bool(warm_ok[0]) == bool(expected[spare]),
+           "serve warm-up: wrong verdict")
+
+    profiling.reset()
+    obs_programs.export_gauges()
+    devices.reset_global()
+    bls_backend.reset_call_counts()
+    bls_backend.reset_prep_state()
+    log = _CallLog(bls_backend)
+    cuda_step.LAUNCHES = cuda_step.STEPS = 0
+    cuda_fq.LAUNCHES = cuda_fq.CAPTURES = 0
+    svc, got, want, elapsed, sig_count, (t_start, stage) = _serve_stream(
+        torch, log, committees, rng, picks)
+    launches = {"vm_step": cuda_step.LAUNCHES,
+                "vm_step_steps": cuda_step.STEPS,
+                "mont_mul": cuda_fq.LAUNCHES}
+    captures = cuda_fq.CAPTURES
+
+    wrong = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+    _check(not wrong, f"serve stream: events {wrong[:10]} answered wrong")
+    _check(not log.errors(), "serve stream: backend calls raised:\n"
+           + "\n".join(e[2] for e in log.errors()[:2]))
+    snap = svc.metrics.snapshot()
+    ladder = _ladder_records()
+    for key in ("fallback_items", "backend_retries", "mesh_fallbacks"):
+        _check(snap[key] == 0, f"serve stream: {key} = {snap[key]}")
+    _check(not any(ladder.values()), f"serve stream: ladder records {ladder}")
+    prep = dict(bls_backend.PREP_STATS)
+    _check(prep["codec_batches"] > 0 and prep["serial_fallback_items"] == 0,
+           f"serve stream: prep {prep}, expected codec batches only")
+    calls = dict(bls_backend.CALL_COUNTS)
+    _check(calls["items"] == len(distinct),
+           f"serve stream: {calls['items']} items reached the backend for "
+           f"{len(distinct)} distinct checks")
+    _check(captures > 0, "serve stream: no chain graph was captured")
+    _check(launches["vm_step"] > 0 and launches["mont_mul"] > 0,
+           f"serve stream: kernel launches {launches}")
+
+    ledger = devices.global_ledger()
+    lanes = ledger.snapshot()["lanes"]
+    card_lane = str(torch.cuda.current_device())
+    timeline = ledger.timeline()
+    t_end = t_start + elapsed
+
+    def clip(iv):
+        return [(max(a, t_start), min(b, t_end)) for a, b in iv
+                if b > t_start and a < t_end]
+    host_iv = clip([(a, b) for lane, _, a, b in timeline
+                    if lane == devices.HOST_LANE])
+    card_iv = clip([(a, b) for lane, _, a, b in timeline
+                    if lane == card_lane])
+    stage_iv = clip(stage)
+    verified_keys = sum(len(pubkey_sets[i]) for i in distinct)
+    lat = snap["latency"]
+    line = {
+        "committees": len(committees), "committee_size": COMMITTEE,
+        "events": len(picks), "distinct_checks": len(distinct),
+        "rate_hz": SERVE_RATE_HZ, "max_batch": SERVE_MAX_BATCH,
+        "max_wait_ms": SERVE_MAX_WAIT_MS, "planted_invalid": planted,
+        "verdicts_exact": True, "setup_s": setup_s, "warm": warm,
+        "elapsed_s": elapsed,
+        "served_sigs_per_s": sig_count / elapsed,
+        "verified_sigs_per_s": verified_keys / elapsed,
+        "p50_ms": lat.get("p50_ms"), "p95_ms": lat.get("p95_ms"),
+        "p99_ms": lat.get("p99_ms"), "latency_n": lat.get("n"),
+        "flushes": snap["device_flushes"], "batches": snap["batches"],
+        "occupancy_rows": snap["occupancy_rows"],
+        "occupancy_lanes": snap["occupancy_lanes"],
+        "cache_hit_rate": snap["cache_hit_rate"],
+        "cache_hits": snap["cache_hits"],
+        "inflight_joins": snap["inflight_joins"],
+        "prep_ms_per_flush": snap["prep_ms_per_flush"],
+        "device_ms_per_flush": snap["device_ms_per_flush"],
+        "final_exps_per_item": snap["final_exps_per_item"],
+        "rlc": snap["rlc"], "prep": prep, "call_counts": calls,
+        "fallback_items": snap["fallback_items"],
+        "backend_retries": snap["backend_retries"],
+        "mesh_fallbacks": snap["mesh_fallbacks"], "ladder_records": ladder,
+        "step_kernel_launches": launches["vm_step"],
+        "step_kernel_steps": launches["vm_step_steps"],
+        "mont_mul_kernel_launches": launches["mont_mul"],
+        "chain_graph_captures": captures,
+        "card_lane_busy_s": lanes.get(card_lane, {}).get("busy_s", 0.0),
+        "host_lane_busy_s": lanes.get(devices.HOST_LANE, {}).get(
+            "busy_s", 0.0),
+        # the two ledger lanes overlap (the card lane holds the prep's
+        # own codec programs too), and the prep stage against the device
+        # stage proper: the pipeline's overlap
+        "lane_overlap_share": _overlap_s(host_iv, card_iv) / elapsed,
+        "stage_overlap_share": _overlap_s(host_iv, stage_iv) / elapsed,
+        "device_stage_busy_share": sum(
+            b - a for a, b in _union(stage_iv)) / elapsed,
+    }
+    verdict_by_committee = {ci: g for ci, g in zip(picks, got)}
+    return line, launches, committees, distinct, verdict_by_committee
+
+
+def _serve_offline(torch, committees, distinct, stream_verdicts):
+    """The stream's distinct checks through one batch_verify_rlc call,
+    warm (every input cached by the stream), best of 2 after a first
+    call: the offline floor of the same work."""
+    from consensus_specs_tpu_torch.ops import bls_backend
+
+    items = [("fast_aggregate",) + tuple(committees[ci][:3])
+             for ci in distinct]
+    want = [stream_verdicts[ci] for ci in distinct]
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        got = bls_backend.batch_verify_rlc(items, rng=random.Random(SEED))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        _check([bool(g) for g in got] == want,
+               "offline floor: verdicts differ from the stream's")
+    best = min(walls[1:])
+    keys = sum(len(committees[ci][0]) for ci in distinct)
+    return {"items": len(items), "wall_s": best, "wall_s_all": walls,
+            "verified_sigs_per_s": keys / best, "verdicts_equal": True}
+
+
+def _serve_fault(torch, fail_calls):
+    """The JAX serve bench's fault-injection stream, driven through the
+    port's own serve/load.run_serve_bench on the card at its defaults (8
+    committees of 8, 64 events at 256 Hz, the last committee corrupt),
+    behind FailingBackendProxy with ``fail_calls``: the ladder working on
+    purpose. Every verdict must be right and later flushes must reach the
+    backend; the poisoned (first) flush goes to the per-group path when
+    calls 1-2 fail, and on to the oracle when calls 1-4 fail, where the
+    service must journal it and warn even with the flight recorder
+    off."""
+    import warnings
+
+    from consensus_specs_tpu_torch.obs import flight
+    from consensus_specs_tpu_torch.ops import bls_backend
+    from consensus_specs_tpu_torch.serve import load
+
+    made = []
+
+    def logged_proxy(real):
+        def make(backend):
+            proxy = real(backend, fail_calls=fail_calls)
+            made.append((proxy, _CallLog(proxy)))
+            return made[-1][1]
+        return make
+
+    bls_backend.reset_call_counts()
+    flight.reset_global()
+    with warnings.catch_warnings(record=True) as caught, \
+            _patched(load, "FailingBackendProxy", logged_proxy):
+        warnings.simplefilter("always")
+        rec = load.run_serve_bench()
+    torch.cuda.synchronize()
+    _check(len(made) == 1, f"fault stream {fail_calls}: {len(made)} proxies")
+    proxy, log = made[0]
+    oracle_warnings = [w for w in caught
+                       if "pure-Python oracle" in str(w.message)]
+    oracle_notes = [e for e in flight.global_recorder().events()
+                    if e["kind"] in ("degraded_to_oracle",
+                                     "device_stage_error")]
+    flight.reset_global()
+    _check(rec["lost"] == 0 and rec["wrong"] == 0 and rec["fault_injected"],
+           f"fault stream {fail_calls}: lost {rec['lost']}, wrong "
+           f"{rec['wrong']}, injected {rec['fault_injected']}")
+    ladder = {label: rec["profile"].get(label, {}).get("calls", 0)
+              for label in _LADDER}
+    verify = [c for c in log.calls if c[0] != "prewarm_host_caches"]
+    poisoned = verify[0][1]
+    injected = [c for c in verify if c[2] is not None]
+    _check(len(injected) == len(fail_calls) == proxy.fired
+           and all("injected device failure" in c[2] for c in injected),
+           f"fault stream {fail_calls}: unexpected failures {injected}")
+    calls = dict(bls_backend.CALL_COUNTS)
+    _check(calls["batch_verify_rlc"] > 0,
+           f"fault stream {fail_calls}: no later flush reached the backend")
+    if len(fail_calls) == 2:
+        # rung 1: both RLC attempts failed, the per-group call served
+        _check(verify[2][0] == "batch_fast_aggregate_verify"
+               and verify[2][1] == poisoned and verify[2][2] is None
+               and rec["fallback_items"] == 0
+               and ladder["serve.rlc_error"] == 1
+               and ladder["serve.backend_error"] == 0
+               and not oracle_notes and not oracle_warnings,
+               f"fault stream {fail_calls}: ladder {ladder}, calls "
+               f"{[c[:2] for c in verify[:4]]}, fallback "
+               f"{rec['fallback_items']}, oracle notes {oracle_notes}")
+    else:
+        # rung 2: the per-group attempts failed too, the oracle served,
+        # journalled and warned about with the recorder off
+        _check(rec["fallback_items"] == poisoned
+               and ladder["serve.rlc_error"] == 1
+               and ladder["serve.backend_error"] == 1
+               and len(oracle_notes) == 1 and len(oracle_warnings) == 1
+               and oracle_notes[0]["data"]["items"] == poisoned,
+               f"fault stream {fail_calls}: fallback "
+               f"{rec['fallback_items']} for a poisoned flush of "
+               f"{poisoned}, ladder {ladder}, oracle notes {oracle_notes}, "
+               f"warnings {len(oracle_warnings)}")
+    return {"entry": "serve/load.run_serve_bench",
+            "fail_calls": list(fail_calls), "events": rec["events"],
+            "committees": rec["committees"], "k": rec["k"],
+            "poisoned_flush_items": poisoned, "injected": proxy.fired,
+            "fallback_items": rec["fallback_items"],
+            "ladder_records": ladder, "oracle_notes": len(oracle_notes),
+            "oracle_warnings": len(oracle_warnings), "call_counts": calls,
+            "batches": rec["batches"], "elapsed_s": rec["elapsed_s"],
+            "served_sigs_per_s": rec["value"],
+            "verified_sigs_per_s": rec["verified_sigs_per_sec"],
+            "p99_ms": rec["p99_ms"], "verdicts_exact": True}
+
+
+def phase_serve(torch, card):
+    """The serve plane on the card: the main stream (no fault), its offline
+    floor, and the fault-injection streams whose fallback is on purpose."""
+    main, launches, committees, distinct, verdicts = _serve_main(torch)
+    offline = _serve_offline(torch, committees, distinct, verdicts)
+    faults = [_serve_fault(torch, (1, 2)), _serve_fault(torch, (1, 2, 3, 4))]
+    return {"phase": "serve", "main": main, "offline_floor": offline,
+            "offline_over_stream_verified": (
+                offline["verified_sigs_per_s"]
+                / main["verified_sigs_per_s"]),
+            "fault_injection": faults,
+            "fault_injection_note": "these streams fall back on purpose",
+            **card}, launches
+
+
 def main():
     import torch
 
@@ -1423,16 +1840,21 @@ def main():
         streams += codec_streams
         _emit({"phase": "kernels", "results": codec_streams + codec_mont,
                "elapsed_s": time.perf_counter() - t0, **card})
+
+        serve_line, serve_launches = phase_serve(torch, card)
+        _emit({**serve_line, "elapsed_s": time.perf_counter() - t0})
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
     # each path's launches, counted from 0 just before it ran: the per-item
-    # slice (cold), the RLC slot (warm best of 3), the tower combine, and
-    # the fresh slot with the codec prep through each entry point
+    # slice (cold), the RLC slot (warm best of 3), the tower combine, the
+    # fresh slot with the codec prep through each entry point, and the
+    # serve plane's main stream
     paths = {"slice": {"vm_step": launches["vm_step"],
                        "vm_step_steps": launches["vm_step_steps"],
-                       "mont_mul": launches["mont_mul"]}}
+                       "mont_mul": launches["mont_mul"]},
+             "serve": serve_launches}
     for path, run in {**rlc_runs, **codec_runs}.items():
         paths[path] = {"vm_step": run["step_kernel_launches"],
                        "vm_step_steps": run["step_kernel_steps"],

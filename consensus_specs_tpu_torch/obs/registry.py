@@ -1,0 +1,281 @@
+"""Metric-name registry and Prometheus text rendering (the port's copy
+of consensus_specs_tpu/obs/registry.py, holding the families the port
+publishes).
+
+One source of truth for every label the port feeds into ``ops/profiling``
+(gauges via ``set_gauge``, stat accumulators via ``record`` / ``timed``,
+latency histograms via ``record_latency``). ``render_prometheus()``
+renders ``profiling``'s snapshot as Prometheus text format 0.0.4:
+registered names become metric families of their own; dynamic labels
+(the per-shape VM execution timings ``vm[steps=...,regs=...,batch=...]``,
+the per-lane ``device[<lane>]`` gauges) map onto ONE family each with
+the full label string as a ``label`` label, so shapes never mint
+unbounded metric names.
+"""
+import re
+from typing import Dict, Iterable
+
+PROM_PREFIX = "consensus_specs_tpu_"
+
+# -- the registry -----------------------------------------------------------
+
+# every span stage a plane may stamp onto a trace, by plane: the list
+# ``obs/tracing.py`` re-exports
+SPAN_STAGES: Dict[str, tuple] = {
+    # the serve pipeline's five per-request stages (`combine` only on
+    # RLC-routed flushes)
+    "serve": ("queue_wait", "prep", "device", "combine", "finalize"),
+    # `ingress` spans a gossip item's birth to its acceptance into the
+    # serve queue, on request traces whose submit carried a birth time
+    "latency": ("ingress",),
+}
+
+GAUGES: Dict[str, str] = {
+    "serve.queue_depth": "ingress queue depth after the last enqueue/flush",
+    "serve.cache_hit_rate": "share of non-eager submits answered by the "
+                            "result cache or in-flight dedup",
+    "serve.occupancy_rows": "filled batch rows / padded rows (batch axis "
+                            "rounds up to a power of two)",
+    "serve.occupancy_lanes": "actual committee keys / (rows * K bucket)",
+    "serve.mesh_devices": "devices in the verify plane's mesh (0 = "
+                          "single-device path, the only one the port has)",
+    "serve.mesh_fallbacks": "mesh-sharded verify attempts that degraded to "
+                            "the single-device path (ladder rung 0)",
+    "serve.ladder_rung": "commanded degradation-ladder rung for the "
+                         "service (0 = RLC combine, 1 = per-group batched, "
+                         "2 = sequential oracle)",
+    "serve.deadline_flushes": "flushes fired early by the slot-budget "
+                              "rule (remaining slot time minus the "
+                              "observed downstream p99 would have been "
+                              "blown by waiting for size-or-deadline; "
+                              "CONSENSUS_SPECS_TPU_SLOT_MS arms it)",
+    "serve.deadline_budget_ms": "slot budget remaining at the most "
+                                "recent deadline-driven flush (ms, after "
+                                "subtracting the downstream p99)",
+    "bls.prep_serial_fallback_items": "items left to serial per-item host "
+                                      "prep (CONSENSUS_SPECS_TPU_BATCH_"
+                                      "CODEC=0)",
+    "bls.rlc_combines": "RLC combine programs run (process-wide)",
+    "bls.rlc_bisections": "failed combined checks that forced a bisection "
+                          "split",
+    "bls.final_exps": "final exponentiations paid (device rows incl. "
+                      "padding + host-oracle hard parts)",
+    "bls.final_exp_rows_inflight": "hard-part rows the last device "
+                                   "finalization window coalesced (>= 2 "
+                                   "means concurrent flushes shared one VM "
+                                   "execution)",
+    "bls.vm_cache_hits": "assembled VM programs served from the "
+                         ".vm_cache_torch/ disk cache this process",
+    "bls.vm_cache_misses": "VM programs that had to pay host assembly "
+                           "(list scheduling) this process",
+    "hist.families": "latency-histogram families tracked by this process "
+                     "(mergeable log-bucketed distributions)",
+    "device.count": "devices (plus the host prep lane) the occupancy "
+                    "ledger has seen busy",
+    "device.busy_s": "total busy seconds across all device lanes since "
+                     "ledger start/reset",
+    "flight.events": "structured events the flight recorder has journaled "
+                     "(ring-bounded; see flight.dropped)",
+    "flight.dropped": "flight-recorder events overwritten by ring churn "
+                      "(raise CONSENSUS_SPECS_TPU_FLIGHT_RING)",
+    "flight.dumps": "flight-recorder JSONL dumps written (on fault or on "
+                    "demand)",
+}
+
+STATS: Dict[str, str] = {
+    "serve.batch_flush": "per-(kind, K-bucket) group verification time "
+                         "within a flush",
+    "serve.prep_flush": "host codec prep time per micro-batch (pipeline "
+                        "stage 1)",
+    "serve.prep_error": "prep-stage exceptions (prep is an optimization; "
+                        "the device stage re-derives)",
+    "serve.rlc_error": "whole-flush RLC attempts that exhausted retries "
+                       "and fell back to the per-group path",
+    "serve.backend_error": "per-group backend failures that degraded to "
+                           "the sequential oracle",
+}
+
+LATENCIES: Dict[str, str] = {
+    "serve.submit_to_result": "submit()->Future-resolution latency "
+                              "(p50/p95/p99 over a mergeable log-bucket "
+                              "histogram)",
+}
+
+# dynamic label families: labels built at run time with a shape or lane
+# payload; ``prefix`` -> (prometheus family, help). The whole label string
+# is exposed as a `label` label on the family.
+DYNAMIC_PREFIXES: Dict[str, tuple] = {
+    "vm[": ("vm_execute", "per-program VM execution timing, labelled "
+                          "vm[steps=...,regs=...,batch=...,sharded=...]"),
+    "device[": ("device_busy_frac", "per-device occupancy (busy seconds / "
+                                    "elapsed), labelled device[<index>] "
+                                    "(device[host] is the prep lane)"),
+    "latency[": ("latency_stage", "per-stage serve-pipeline latency "
+                                  "histograms, labelled latency[<stage>] "
+                                  "over the fixed obs/latency.py stage "
+                                  "set"),
+    # node-labelled instances: N VerificationService instances in one
+    # process export under serve[<node>].<name> via node_label()
+    "serve[": ("serve_node", "per-node serve-plane metrics from multi-"
+                             "instance runs, labelled serve[<node>].<name> "
+                             "— same names as the serve.* family"),
+}
+
+
+def node_label(base: str, node) -> str:
+    """``serve.queue_depth`` -> ``serve[<node>].queue_depth`` when a node
+    name is set: the one spelling of the instance-labelled form.
+    ``node`` None returns ``base`` unchanged (the single-instance shape).
+    """
+    if node is None:
+        return base
+    plane, name = base.split(".", 1)
+    label = f"{plane}[{node}].{name}"
+    assert known(label), f"unregistered node-labelled family for {base!r}"
+    return label
+
+
+def all_names() -> Iterable[str]:
+    """Every registered static metric name (drift-gate + docs surface)."""
+    names = []
+    names.extend(sorted(GAUGES))
+    names.extend(sorted(STATS))
+    names.extend(sorted(LATENCIES))
+    return names
+
+
+def known(label: str) -> bool:
+    """True when ``label`` is registered (exactly or via a dynamic prefix)."""
+    if label in GAUGES or label in STATS or label in LATENCIES:
+        return True
+    return any(label.startswith(p) for p in DYNAMIC_PREFIXES)
+
+
+# -- Prometheus text rendering ----------------------------------------------
+
+
+def _ident(label: str) -> str:
+    return re.sub(r"[^a-zA-Z0-9_]", "_", label)
+
+
+def _escape(value: str) -> str:
+    return (value.replace("\\", "\\\\").replace('"', '\\"')
+            .replace("\n", "\\n"))
+
+
+def _family(label: str):
+    """(prometheus base name, label-value or None) for a profiling label."""
+    if label in GAUGES or label in STATS or label in LATENCIES:
+        return PROM_PREFIX + _ident(label), None
+    for prefix, (fam, _help) in DYNAMIC_PREFIXES.items():
+        if label.startswith(prefix):
+            return PROM_PREFIX + fam, label
+    return PROM_PREFIX + "unregistered", label
+
+
+def _series(name: str, label_value, value) -> str:
+    if label_value is None:
+        return f"{name} {value}"
+    return f'{name}{{label="{_escape(label_value)}"}} {value}'
+
+
+def render_prometheus() -> str:
+    """Prometheus text format 0.0.4 over the live profiling snapshot.
+
+    Stat accumulators render as ``_calls_total`` / ``_seconds_total``
+    counters and a ``_max_seconds`` gauge; latency histograms render
+    twice: a summary (quantiles 0.5 / 0.95 / 0.99 with ``_sum`` /
+    ``_count``) and a full Prometheus histogram family (``_hist_bucket``
+    with ``le`` labels, ``_hist_sum`` / ``_hist_count``) whose fixed
+    log-bucket bounds merge exactly across processes; gauges render as
+    they are. HELP/TYPE headers appear once per family even when dynamic
+    labels fan it out into many series.
+    """
+    from ..ops import profiling
+
+    # one histogram snapshot per latency family: the summary lines and the
+    # histogram lines below derive from the same detached copy, so the
+    # two agree on count and sum within one scrape
+    stats, gauges = profiling.stats_and_gauges()
+    lat_hists = profiling.latency_histograms()
+    entries = {label: ("stat", v) for label, v in stats.items()}
+    entries.update({label: ("lat", h) for label, h in lat_hists.items()})
+    entries.update({label: ("gauge", v) for label, v in gauges.items()})
+    # family -> {"type": ..., "help": ..., "lines": [...]}
+    families: Dict[str, Dict] = {}
+
+    def fam(name, mtype, help_text):
+        f = families.get(name)
+        if f is None:
+            f = families[name] = {"type": mtype, "help": help_text,
+                                  "lines": []}
+        return f["lines"]
+
+    for label, (kind, value) in sorted(entries.items()):
+        base, label_value = _family(label)
+        if kind == "gauge":
+            help_text = GAUGES.get(label, "unregistered gauge")
+            fam(base, "gauge", help_text).append(
+                _series(base, label_value, value))
+        elif kind == "lat":
+            h = value
+            entry = h.summary()
+            help_text = LATENCIES.get(label, "latency reservoir")
+            name = base + "_latency_seconds"
+            lines = fam(name, "summary", help_text)
+            for q, key in (("0.5", "p50_ms"), ("0.95", "p95_ms"),
+                           ("0.99", "p99_ms")):
+                if label_value is None:
+                    lines.append(f'{name}{{quantile="{q}"}} '
+                                 f"{entry[key] / 1e3}")
+                else:
+                    lines.append(
+                        f'{name}{{label="{_escape(label_value)}",'
+                        f'quantile="{q}"}} {entry[key] / 1e3}')
+            count = entry["count"]
+            lines.append(_series(
+                name + "_sum", label_value,
+                round(entry["mean_ms"] / 1e3 * count, 6)))
+            lines.append(_series(name + "_count", label_value, count))
+            max_name = base + "_latency_max_seconds"
+            fam(max_name, "gauge", help_text + " (max)").append(
+                _series(max_name, label_value, entry["max_ms"] / 1e3))
+            hist_name = base + "_latency_hist_seconds"
+            hlines = fam(hist_name, "histogram",
+                         help_text + " (mergeable log buckets)")
+            extra = ("" if label_value is None
+                     else f'label="{_escape(label_value)}",')
+            for le, cum in h.buckets():
+                hlines.append(
+                    f'{hist_name}_bucket{{{extra}le="{le:.9g}"}} {cum}')
+            hlines.append(
+                f'{hist_name}_bucket{{{extra}le="+Inf"}} {h.count}')
+            hlines.append(_series(hist_name + "_sum", label_value,
+                                  round(h.sum, 9)))
+            hlines.append(_series(hist_name + "_count", label_value,
+                                  h.count))
+        else:  # stat accumulator: calls/total_s/max_s
+            entry = value
+            help_text = STATS.get(label)
+            if help_text is None and label_value is not None:
+                for prefix, (f_name, f_help) in DYNAMIC_PREFIXES.items():
+                    if label.startswith(prefix):
+                        help_text = f_help
+                        break
+            help_text = help_text or "unregistered stat"
+            fam(base + "_calls_total", "counter", help_text).append(
+                _series(base + "_calls_total", label_value, entry["calls"]))
+            fam(base + "_seconds_total", "counter",
+                help_text + " (seconds)").append(
+                _series(base + "_seconds_total", label_value,
+                        entry["total_s"]))
+            fam(base + "_max_seconds", "gauge", help_text + " (max)").append(
+                _series(base + "_max_seconds", label_value, entry["max_s"]))
+
+    out = []
+    for name in sorted(families):
+        f = families[name]
+        out.append(f"# HELP {name} {f['help']}")
+        out.append(f"# TYPE {name} {f['type']}")
+        out.extend(f["lines"])
+    return "\n".join(out) + "\n"

@@ -30,6 +30,11 @@ touching the device.
 
 Entry points take ``device=None`` (the CUDA card; raises without one) or
 ``device="cpu"`` (the plain PyTorch steps).
+
+The planes read the counters here (``CALL_COUNTS``, ``PREP_STATS``,
+``RLC_STATS``, bumped under one lock since a service's prep and device
+threads both call in), the ``bls.*`` gauges of ``ops/profiling`` and the
+``vm`` notes of the flight recorder (``obs/flight.py``).
 """
 import functools
 import hashlib
@@ -43,9 +48,11 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs import flight
+from ..obs import programs as obs_programs
 from ..utils import bls12_381 as O
 from ..utils.bls12_381 import P
-from . import fq, vm, vmlib
+from . import fq, profiling, vm, vmlib
 
 DST = b"BLS_SIG_BLS12381G2_XMD:SHA-256_SSWU_RO_POP_"
 
@@ -58,6 +65,15 @@ PAD_STEPS = 256
 _K_BUCKETS = [1, 2, 4, 8, 16, 32, 64, 128, 160, 256, 512, 1024, 2048]
 
 _VM_CACHE_VERSION = 1
+
+# guards every read-modify-write of CALL_COUNTS, PREP_STATS and RLC_STATS
+_STATS_LOCK = threading.Lock()
+
+
+def _bump(stats: Dict[str, int], **deltas) -> None:
+    with _STATS_LOCK:
+        for k, n in deltas.items():
+            stats[k] += n
 
 
 def _k_bucket(k: int) -> int:
@@ -139,6 +155,7 @@ def _program(kind: str, k: int = 0, fold: int = None) -> Tuple[vm.Program, int]:
     builder = vmlib.BUILDERS.get(kind)
     if builder is None:
         raise ValueError(kind)
+    t0 = time.perf_counter()
     path = os.path.join(
         _vm_cache_dir(),
         f"v{_VM_CACHE_VERSION}_{_program_fingerprint()}_{kind}_k{k}_f{fold}"
@@ -148,6 +165,8 @@ def _program(kind: str, k: int = 0, fold: int = None) -> Tuple[vm.Program, int]:
         with open(path, "rb") as fh:
             loaded = pickle.load(fh)
         if isinstance(loaded, vm.Program):
+            _note_program(kind, k, fold, loaded, time.perf_counter() - t0,
+                          disk_hit=True)
             return loaded, fold
     except (OSError, pickle.UnpicklingError, EOFError, AttributeError):
         pass  # absent or unreadable entry: assemble below
@@ -155,14 +174,35 @@ def _program(kind: str, k: int = 0, fold: int = None) -> Tuple[vm.Program, int]:
         w_mul=W_MUL, w_lin=W_LIN, pad_steps_to=PAD_STEPS,
         pad_regs_to=_pow2(64),
     )
-    tmp = f"{path}.{os.getpid()}.tmp"
+    # per thread: a service's two stages may assemble the same program
+    tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
     try:
         with open(tmp, "wb") as fh:
             pickle.dump(assembled, fh)
         os.replace(tmp, path)
     except OSError:
         pass  # the cache is an optimization only
+    _note_program(kind, k, fold, assembled, time.perf_counter() - t0,
+                  disk_hit=False)
     return assembled, fold
+
+
+def _note_program(kind: str, k: int, fold: int, assembled, seconds: float,
+                  disk_hit: bool) -> None:
+    """Feed the per-program registry (obs/programs.py) and the flight
+    journal, once per (kind, k, fold) a process (the lru_cache on _program
+    absorbs repeats); an assembly paid inline for a second or more is an
+    ``assembly_stall``."""
+    key = f"{kind}[k={k},fold={fold}]"
+    obs_programs.note_assembly(key, n_steps=assembled.n_steps,
+                               n_regs=assembled.n_regs, seconds=seconds,
+                               disk_cache_hit=disk_hit)
+    flight.note("vm", "program_resolved", key=key,
+                cache="hit" if disk_hit else "miss",
+                seconds=round(seconds, 4))
+    if not disk_hit and seconds >= 1.0:
+        flight.note("vm", "assembly_stall", key=key,
+                    seconds=round(seconds, 4), steps=int(assembled.n_steps))
 
 
 # ---------------------------------------------------------------------------
@@ -289,8 +329,10 @@ PREP_STATS = {
 
 
 def reset_prep_state() -> None:
-    for k in PREP_STATS:
-        PREP_STATS[k] = 0
+    with _STATS_LOCK:
+        for k in PREP_STATS:
+            PREP_STATS[k] = 0
+    profiling.set_gauge("bls.prep_serial_fallback_items", 0.0)
 
 
 def _codec_enabled() -> bool:
@@ -331,11 +373,12 @@ def prewarm_host_caches(messages: Sequence[bytes], signatures: Sequence[bytes],
     if total == 0:
         return
     if not _codec_enabled():
-        PREP_STATS["serial_fallback_items"] += total
+        _bump(PREP_STATS, serial_fallback_items=total)
+        profiling.set_gauge("bls.prep_serial_fallback_items",
+                            PREP_STATS["serial_fallback_items"])
         return
     _prewarm_batched(msgs, sigs, pks, dev)
-    PREP_STATS["codec_batches"] += 1
-    PREP_STATS["codec_items"] += total
+    _bump(PREP_STATS, codec_batches=1, codec_items=total)
 
 
 # ---------------------------------------------------------------------------
@@ -463,7 +506,7 @@ def _run_hard_part(g_flat_batch: np.ndarray, device,
     rows against RLC_STATS['final_exps']. ``kind`` overrides the variant
     route (_hard_part_kind)."""
     n = g_flat_batch.shape[0]
-    RLC_STATS["final_exps"] += n
+    _bump(RLC_STATS, final_exps=n)
     if kind is None:
         kind = _hard_part_kind(n)
     lay = _FoldLayout(kind, 0, n)
@@ -522,12 +565,13 @@ class _FinalExpBatcher:
                 batch = self._pending.pop(device, [])
                 self._leaders.discard(device)  # later arrivals re-elect
                 n = len(batch)
-                # the ledger shares this lock: concurrent windows (one per
-                # device) must not lose read-modify-write increments
-                RLC_STATS["final_exp_windows"] += 1
-                RLC_STATS["final_exp_window_rows"] += n
+            _bump(RLC_STATS, final_exp_windows=1, final_exp_window_rows=n)
             rows = np.stack([e[0] for e in batch])
-            ok = _run_hard_part(rows, device, kind=_hard_part_kind(n))
+            kind = _hard_part_kind(n)
+            profiling.set_gauge("bls.final_exp_rows_inflight", n)
+            flight.note("vm", "final_exp_route", route="device", rows=n,
+                        variant=kind)
+            ok = _run_hard_part(rows, device, kind=kind)
         except BaseException as e:
             if batch is None:  # died before collecting: take over now
                 with self._lock:
@@ -560,6 +604,28 @@ _FINAL_EXP_BATCHER = _FinalExpBatcher()
 # batched public API
 # ---------------------------------------------------------------------------
 
+# entry-point counters: batch calls and the items they carried (the serve
+# plane's dedup checks read them: every distinct check verified once)
+CALL_COUNTS = {
+    "batch_fast_aggregate_verify": 0,
+    "batch_aggregate_verify": 0,
+    "batch_verify_rlc": 0,
+    "items": 0,
+}
+
+
+def _count_call(name: str, n_items: int) -> None:
+    with _STATS_LOCK:
+        CALL_COUNTS[name] += 1
+        CALL_COUNTS["items"] += n_items
+
+
+def reset_call_counts() -> None:
+    with _STATS_LOCK:
+        for k in CALL_COUNTS:
+            CALL_COUNTS[k] = 0
+
+
 # RLC-plane counters: combine programs run, failed combined checks that
 # forced a bisection split, hard-part evaluations paid (device rows,
 # padding included, + host-oracle hard parts), candidates that reached
@@ -575,9 +641,17 @@ RLC_STATS = {
 }
 
 
+def _export_rlc_gauges() -> None:
+    profiling.set_gauge("bls.rlc_combines", RLC_STATS["combines"])
+    profiling.set_gauge("bls.rlc_bisections", RLC_STATS["bisections"])
+    profiling.set_gauge("bls.final_exps", RLC_STATS["final_exps"])
+
+
 def reset_rlc_stats() -> None:
-    for k in RLC_STATS:
-        RLC_STATS[k] = 0
+    with _STATS_LOCK:
+        for k in RLC_STATS:
+            RLC_STATS[k] = 0
+    _export_rlc_gauges()
 
 
 def _miller_fast_aggregate(
@@ -655,6 +729,7 @@ def batch_fast_aggregate_verify(
     n = len(pubkey_sets)
     if len(messages) != n or len(signatures) != n:
         raise ValueError("pubkey_sets, messages and signatures differ in length")
+    _count_call("batch_fast_aggregate_verify", n)
     if n == 0:
         return np.zeros(0, dtype=bool)
     out, lay, precheck = _miller_fast_aggregate(
@@ -742,6 +817,7 @@ def batch_aggregate_verify(
     if len(message_lists) != n or len(signatures) != n:
         raise ValueError("pubkey_lists, message_lists and signatures differ "
                          "in length")
+    _count_call("batch_aggregate_verify", n)
     if n == 0:
         return np.zeros(0, dtype=bool)
     out, lay, precheck = _miller_aggregate(
@@ -757,6 +833,12 @@ def batch_aggregate_verify(
 # ---------------------------------------------------------------------------
 # RLC batch verification: one final exponentiation per micro-batch
 # ---------------------------------------------------------------------------
+
+
+def rlc_enabled() -> bool:
+    """Serve-plane default: micro-batches ride the RLC path unless
+    CONSENSUS_SPECS_TPU_RLC=0 reverts to per-item final exponentiation."""
+    return os.environ.get("CONSENSUS_SPECS_TPU_RLC", "1") != "0"
 
 
 def _rlc_backend() -> str:
@@ -831,7 +913,7 @@ def hard_part_res_oracle(g) -> "O.Fq12":
 
 def _hard_part_is_one_oracle(g_coeffs: List[int]) -> bool:
     """res == 1 verdict over hard_part_res_oracle."""
-    RLC_STATS["final_exps"] += 1
+    _bump(RLC_STATS, final_exps=1)
     g = _flat_ints_to_oracle(g_coeffs)
     return _oracle_to_flat_ints(hard_part_res_oracle(g)) == [1] + [0] * 11
 
@@ -844,6 +926,7 @@ def _final_exp_is_one(f_coeffs: List[int], device) -> bool:
     if g is None:
         return False  # degenerate f: no valid item produces it
     if _rlc_final_mode(device) == "host":
+        flight.note("vm", "final_exp_route", route="host", rows=1)
         return _hard_part_is_one_oracle(g)
     gm = np.stack([fq.to_mont_int(c) for c in g])
     return bool(_FINAL_EXP_BATCHER.run(gm, device))
@@ -924,6 +1007,7 @@ def batch_verify_rlc(items, device=None, rng=None) -> np.ndarray:
     dev = resolve_device(device)
     items = list(items)
     n = len(items)
+    _count_call("batch_verify_rlc", n)
     if n == 0:
         return np.zeros(0, dtype=bool)
     verdict = np.zeros(n, dtype=bool)
@@ -959,8 +1043,9 @@ def batch_verify_rlc(items, device=None, rng=None) -> np.ndarray:
             cand_idx.append(i)
 
     m = len(cand_idx)
-    RLC_STATS["items"] += m
+    _bump(RLC_STATS, items=m)
     if m == 0:
+        _export_rlc_gauges()
         return verdict
     fs = np.stack(fs_rows)  # (m, 12, L), loose limbs straight from PROG A
 
@@ -969,7 +1054,7 @@ def batch_verify_rlc(items, device=None, rng=None) -> np.ndarray:
         return _final_exp_is_one(coeffs, dev)
 
     def combine_check(sel: List[int]) -> bool:
-        RLC_STATS["combines"] += 1
+        _bump(RLC_STATS, combines=1)
         bits = _rlc_scalars(len(sel), rng)
         sub = fs[np.asarray(sel)]
         if _rlc_backend() == "jax":
@@ -986,7 +1071,7 @@ def batch_verify_rlc(items, device=None, rng=None) -> np.ndarray:
             for j in sel:
                 verdict[cand_idx[j]] = True
             return
-        RLC_STATS["bisections"] += 1
+        _bump(RLC_STATS, bisections=1)
         mid = len(sel) // 2
         resolve(sel[:mid])
         resolve(sel[mid:])
@@ -995,6 +1080,7 @@ def batch_verify_rlc(items, device=None, rng=None) -> np.ndarray:
         verdict[cand_idx[0]] = finalize_item(0)  # plain-path degeneration
     else:
         resolve(list(range(m)))
+    _export_rlc_gauges()
     return verdict
 
 

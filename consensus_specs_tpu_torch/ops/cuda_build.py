@@ -11,6 +11,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from typing import Dict, Sequence, Tuple
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -24,6 +25,9 @@ NVCC_FLAGS = (
 )
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+# one build-and-load at a time: two threads of a process would otherwise
+# write the same temporary library
+_LOAD_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -84,11 +88,12 @@ def build(names: Sequence[str] = KERNELS) -> Dict[str, str]:
 
 def load(name: str) -> ctypes.CDLL:
     """The ctypes handle of kernel library ``name``, built on first use."""
-    lib = _LOADED.get(name)
-    if lib is None:
-        path = library_path(name)
-        if not os.path.exists(path):
-            build([name])
-        lib = ctypes.CDLL(path)
-        _LOADED[name] = lib
-    return lib
+    with _LOAD_LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            path = library_path(name)
+            if not os.path.exists(path):
+                build([name])
+            lib = ctypes.CDLL(path)
+            _LOADED[name] = lib
+        return lib

@@ -11,6 +11,14 @@ a CUDA graph whose every node is a launch of the kernel, then replayed, so
 a call costs one graph launch of host time instead of one wrapper call per
 product (the codec's square-root and inversion chains are ~750 products
 each and launch-bound otherwise).
+
+Threads: the counters are bumped under a lock, and a capture records its
+launches in a tally of the capturing thread (they are recorded into the
+graph, not run), so launches another thread makes meanwhile are counted
+as they happen. A capture runs in thread-local mode on the caller's
+stream (a side stream of the thread when that is the legacy default
+stream, which cannot capture), so another thread may launch, allocate
+and synchronize while it lasts.
 """
 import ctypes
 import threading
@@ -19,15 +27,43 @@ import torch
 
 from . import cuda_build, fq
 
-# kernel launches made by mont_mul and by pow_chain's graph replays (a
-# plain count; tests and the chip smoke reset it to 0 and read it back)
+# kernel launches made by mont_mul and by pow_chain's graph replays, and
+# the chain graphs captured (tests and the chip smoke reset them to 0 and
+# read them back)
 LAUNCHES = 0
+CAPTURES = 0
 
 _LIB = None
 # (device, stream, shape, bits) -> (graph, static input, static output,
 # kernel launches in the graph)
 _CHAINS = {}
 _CHAINS_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+# per thread: ``capture`` is the launch tally of a capture in progress
+# (None outside one), ``side`` the side streams captures run on
+_THREAD = threading.local()
+
+
+def _count_launch() -> None:
+    global LAUNCHES
+    tally = getattr(_THREAD, "capture", None)
+    if tally is not None:
+        tally[0] += 1  # recorded into the graph being captured, not run
+        return
+    with _COUNT_LOCK:
+        LAUNCHES += 1
+
+
+def _capture_stream(stream: torch.cuda.Stream) -> torch.cuda.Stream:
+    """The stream a capture runs on: the caller's, or the thread's own
+    side stream of the device when the caller is on the legacy default
+    stream."""
+    if stream != torch.cuda.default_stream(stream.device):
+        return stream
+    side = _THREAD.__dict__.setdefault("side", {})
+    if stream.device not in side:
+        side[stream.device] = torch.cuda.Stream(stream.device)
+    return side[stream.device]
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -55,7 +91,6 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
 
 def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a * b * 2^-420 (mod p), loose in and out, broadcasting the batch."""
-    global LAUNCHES
     if a.device.type == "cpu" and b.device.type == "cpu":
         return fq.mont_mul_plain(a, b)
     if a.device.type != "cuda" or a.device != b.device:
@@ -75,7 +110,7 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                                 stream)
     if rc != 0:
         raise RuntimeError(f"mont_mul kernel launch failed: cudaError {rc}")
-    LAUNCHES += 1
+    _count_launch()
     return out
 
 
@@ -85,7 +120,7 @@ def pow_chain(a: torch.Tensor, exp_bits) -> torch.Tensor:
     the chain step by step (its result is returned) and then captures it;
     the capture launches nothing, so LAUNCHES counts the graph's kernel
     launches at each replay."""
-    global LAUNCHES
+    global LAUNCHES, CAPTURES
     if a.device.type != "cuda":
         raise ValueError(f"pow_chain: operand on {a.device}")
     stream = torch.cuda.current_stream(a.device)
@@ -96,17 +131,29 @@ def pow_chain(a: torch.Tensor, exp_bits) -> torch.Tensor:
             out = fq.pow_fixed_steps(a, exp_bits)
             static_in = a.clone()
             graph = torch.cuda.CUDAGraph()
-            before = LAUNCHES
+            capture = _capture_stream(stream)
+            if capture != stream:
+                capture.wait_stream(stream)  # static_in is written first
+            tally = _THREAD.capture = [0]
             try:
-                with torch.cuda.graph(graph):
-                    static_out = fq.pow_fixed_steps(static_in, exp_bits)
-                _CHAINS[key] = (graph, static_in, static_out,
-                                LAUNCHES - before)
+                # capture_begin/end rather than torch.cuda.graph, whose
+                # entry synchronizes the whole device and runs the garbage
+                # collector: a capture then costs its own thread alone
+                with torch.cuda.stream(capture):
+                    graph.capture_begin(capture_error_mode="thread_local")
+                    try:
+                        static_out = fq.pow_fixed_steps(static_in, exp_bits)
+                    finally:
+                        graph.capture_end()
             finally:
-                LAUNCHES = before
+                _THREAD.capture = None
+            _CHAINS[key] = (graph, static_in, static_out, tally[0])
+            with _COUNT_LOCK:
+                CAPTURES += 1
             return out
         graph, static_in, static_out, n = entry
         static_in.copy_(a)
         graph.replay()
-        LAUNCHES += n
+        with _COUNT_LOCK:
+            LAUNCHES += n
         return static_out.clone()

@@ -16,6 +16,7 @@ register, the reference where a test stream has such lanes. Nothing on
 the main path calls them.
 """
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -23,10 +24,12 @@ import torch
 from . import cuda_build, fq
 
 # kernel launches made by run_steps, one per call on a CUDA tensor that has
-# steps and rows; and the VM steps those launches ran (plain counts: tests
-# and the chip smoke reset them to 0 and read them back)
+# steps and rows; and the VM steps those launches ran (bumped under a lock,
+# since two threads may launch; tests and the chip smoke reset them to 0
+# and read them back)
 LAUNCHES = 0
 STEPS = 0
+_COUNT_LOCK = threading.Lock()
 
 _LIB = None
 
@@ -121,8 +124,9 @@ def run_steps(regs: torch.Tensor, instr) -> torch.Tensor:
     if instr[0].shape[0] == 0 or regs.shape[0] == 0:
         return regs
     launch(_lib(), regs, instr)
-    LAUNCHES += 1
-    STEPS += instr[0].shape[0]
+    with _COUNT_LOCK:
+        LAUNCHES += 1
+        STEPS += instr[0].shape[0]
     return regs
 
 

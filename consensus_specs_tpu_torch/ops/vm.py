@@ -21,6 +21,7 @@ Register values are loose Montgomery residues (ops/fq.py conventions). The
 assembler tracks magnitude bounds per value and auto-inserts compress
 multiplies, so lazy reduction is handled statically at assembly time.
 """
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
@@ -549,17 +550,39 @@ def execute(program: Program, inputs: Dict[str, np.ndarray], batch_shape=(),
     ``vm.execute`` in its default mode.
 
     ``device=None`` runs on the CUDA card (every step through the fused
-    step kernel); ``device="cpu"`` runs the plain PyTorch steps."""
+    step kernel); ``device="cpu"`` runs the plain PyTorch steps.
+
+    Each call is timed under ``vm[steps=...,regs=...,batch=...,sharded=
+    False]`` in ``ops/profiling``, noted on its device's lane of the
+    occupancy ledger (``obs/devices.py``) and, with tracing on, in the
+    tracer (``obs/tracing.py``). The interval ends once the outputs are on
+    the host, so it covers the card's work."""
+    from ..obs import devices, tracing
+    from . import profiling
+
     dev = resolve_device(device)
     batch_shape = tuple(int(d) for d in batch_shape)
     rows = int(np.prod(batch_shape)) if batch_shape else 1
-    stacked = program.stack_inputs(inputs, batch_shape).reshape(
-        (rows, len(program.input_names), fq.NUM_LIMBS))
-    regs = _init_regs(program, stacked, dev)
-    cuda_step.run_steps(regs, program.device_instr(dev))
-    out_idx = torch.as_tensor(program.output_regs.astype(np.int64),
-                              device=dev)
-    out = regs[:, out_idx, :].cpu().numpy().astype(np.uint64)
+    label = (f"vm[steps={program.n_steps},regs={program.n_regs},"
+             f"batch={batch_shape},sharded=False]")
+    t0 = time.perf_counter()
+    with profiling.timed(label):
+        stacked = program.stack_inputs(inputs, batch_shape).reshape(
+            (rows, len(program.input_names), fq.NUM_LIMBS))
+        regs = _init_regs(program, stacked, dev)
+        cuda_step.run_steps(regs, program.device_instr(dev))
+        out_idx = torch.as_tensor(program.output_regs.astype(np.int64),
+                                  device=dev)
+        out = regs[:, out_idx, :].cpu().numpy().astype(np.uint64)
+    dt = time.perf_counter() - t0
+    if tracing.trace_enabled():
+        tracing.global_tracer().note_execution(
+            steps=program.n_steps, regs=program.n_regs, batch=batch_shape,
+            sharded=False, t0=t0, seconds=dt)
+    ledger = devices.maybe_ledger()
+    if ledger is not None:
+        ledger.note_execution(dev, t0, dt,
+                              label=f"vm[steps={program.n_steps}]")
     out = out.reshape(batch_shape + out.shape[1:])
     return {
         name: out[..., i, :] for i, name in enumerate(program.output_names)

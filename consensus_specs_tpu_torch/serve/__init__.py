@@ -1,0 +1,18 @@
+"""Serve plane of the port: continuous micro-batching ingress for the
+port's BLS backend (the counterpart of consensus_specs_tpu/serve/,
+without its fleet tier).
+
+Bounded ingress queue -> micro-batches (flush on size OR deadline) -> ONE
+RLC combined check per flush (batch_verify_rlc; CONSENSUS_SPECS_TPU_RLC=0
+reverts to (kind, K-bucket) grouped batched calls, the fallback ladder
+either way ending at the pure-Python oracle) -> content-keyed result cache
+and in-flight dedup. See service.py for the dataflow and its CUDA streams.
+"""
+from .cache import ResultCache, check_key  # noqa: F401
+from .metrics import ServeMetrics  # noqa: F401
+from .service import (  # noqa: F401
+    QueueFull,
+    ServiceClosed,
+    SlotClock,
+    VerificationService,
+)

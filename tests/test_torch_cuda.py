@@ -285,3 +285,104 @@ def test_codec_on_the_card_matches_the_host_path(dev):
                           xs, bls_backend.DST, device), msgs)):
         got = [norm(v) for v in fn(items, device=dev)]
         assert got == [norm(v) for v in fn(items, device="cpu")]
+
+
+def test_chain_capture_beside_a_step_kernel_stream(dev):
+    """Two threads, each on its own stream: one runs and captures a new
+    exponentiation chain (cuda_fq.pow_chain, a thread-local capture) and
+    replays it, while the other launches the step kernel on the first 256
+    steps of a real program again and again, synchronizing its stream
+    after each launch. No CUDA error; every result equals its plain
+    version limb for limb; the launch counters equal the sums of what the
+    two threads launched."""
+    import threading
+
+    from consensus_specs_tpu_torch.ops import bls_backend, cuda_fq, cuda_step
+    from consensus_specs_tpu_torch.ops import fq, vm
+
+    rng = np.random.default_rng(41)
+    bits = [1] + list(rng.integers(0, 2, 47))  # an exponent no test shares
+    xs = [torch.from_numpy(_loose(rng, (33,))).to(dev) for _ in range(2)]
+    program, _ = bls_backend._program("hard_part_frobenius", 0, 1)
+    instr = tuple(x[:256].contiguous() for x in program.device_instr(dev))
+    regs = torch.from_numpy(_loose(rng, (2, program.n_regs), bits=381))
+    want_regs = vm._run_steps_plain(regs.clone(), tuple(
+        x.cpu() for x in instr))
+    regs = regs.to(dev)
+
+    chain_out, step_out, errors = [], [], []
+    chain_done = threading.Event()
+    start = threading.Barrier(2)
+
+    def chains():
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(dev)):
+                start.wait()
+                for x in xs:  # the first call captures, the second replays
+                    chain_out.append(fq.pow_fixed(x, bits))
+                torch.cuda.current_stream().synchronize()
+        except Exception as e:  # reported below, not lost in the thread
+            errors.append(e)
+        finally:
+            chain_done.set()
+
+    def steps():
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(dev)):
+                start.wait()
+                while not chain_done.is_set() or len(step_out) < 4:
+                    step_out.append(cuda_step.run_steps(regs.clone(), instr))
+                    torch.cuda.current_stream().synchronize()
+        except Exception as e:
+            errors.append(e)
+
+    fq0, cap0 = cuda_fq.LAUNCHES, cuda_fq.CAPTURES
+    st0, steps0 = cuda_step.LAUNCHES, cuda_step.STEPS
+    threads = [threading.Thread(target=f) for f in (chains, steps)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    torch.cuda.synchronize()
+    assert not errors, errors
+    for x, got in zip(xs, chain_out):
+        assert torch.equal(got.cpu(), fq.pow_fixed_steps(x.cpu(), bits))
+    assert all(torch.equal(r.cpu(), want_regs) for r in step_out)
+    # the first call runs the chain step by step (counted), its capture
+    # launches nothing, the replay counts the graph's launches
+    assert cuda_fq.LAUNCHES - fq0 == 2 * 2 * (len(bits) - 1)
+    assert cuda_fq.CAPTURES - cap0 == 1
+    assert cuda_step.LAUNCHES - st0 == len(step_out)
+    assert cuda_step.STEPS - steps0 == 256 * len(step_out)
+
+
+def test_service_on_the_card_with_the_real_backend(dev, monkeypatch):
+    """The port's VerificationService on the card in front of the port's
+    backend (tests/test_serve.py's real-backend shapes, RLC chunks of 2):
+    one flush through batch_verify_rlc, exact verdicts, no fallback, each
+    stage on a stream of its own."""
+    from consensus_specs_tpu_torch.ops import bls_backend
+    from consensus_specs_tpu_torch.serve import VerificationService
+    from consensus_specs_tpu_torch.utils import bls
+
+    monkeypatch.setenv("CONSENSUS_SPECS_TPU_RLC_CHUNK", "2")
+    sk1, sk2 = 41, 42
+    pk1, pk2 = bls.SkToPk(sk1), bls.SkToPk(sk2)
+    msg = b"\x06" * 32
+    agg = bls.Aggregate([bls.Sign(sk1, msg), bls.Sign(sk2, msg)])
+    bls_backend.reset_call_counts()
+    svc = VerificationService(max_batch=2, max_wait_ms=10_000)
+    try:
+        streams = {svc._prep_stream, svc._device_stream}
+        assert len(streams) == 2
+        assert torch.cuda.default_stream(dev) not in streams
+        f_good = svc.submit("fast_aggregate", [pk1, pk2], msg, agg)
+        f_bad = svc.submit("fast_aggregate", [pk1, pk1], msg, agg)
+        assert f_good.result(timeout=600) is True
+        assert f_bad.result(timeout=600) is False
+    finally:
+        svc.close(timeout=60)
+    assert bls_backend.CALL_COUNTS["batch_verify_rlc"] == 1
+    assert bls_backend.CALL_COUNTS["items"] == 2
+    assert svc.metrics.fallback_items == 0
+    assert svc.metrics.backend_retries == 0

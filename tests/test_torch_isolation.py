@@ -1,5 +1,7 @@
 """The port stands alone: it imports neither jax nor any module of the JAX
-package, and its entry points never quietly fall back to the CPU."""
+package (nor does chip_smoke.py), and its entry points never quietly fall
+back to the CPU."""
+import ast
 import json
 import os
 import subprocess
@@ -21,10 +23,27 @@ from consensus_specs_tpu_torch.ops import codec, fq
 a = fq.limbs_from_numpy(fq.ONE_MONT, "cpu")
 out = fq.mont_mul_plain(a, a)
 hashed = codec.message_limbs_batch([b"abc"], b"DST", device="cpu")
+# the serve plane, its observability and the switchboard, driven once
+from consensus_specs_tpu_torch.obs import registry
+from consensus_specs_tpu_torch.serve import VerificationService
+from consensus_specs_tpu_torch.utils import bls
+class Backend:
+    def batch_fast_aggregate_verify(self, pks, msgs, sigs, device=None):
+        return [s.endswith(b"ok") for s in sigs]
+class Oracle:
+    def verify_one(self, p):
+        return False
+with VerificationService(backend=Backend(), oracle=Oracle(), device="cpu",
+                         max_wait_ms=1) as svc:
+    served = svc.submit("fast_aggregate", [b"k"], b"m", b"ok").result(30)
+import chip_smoke
 print(json.dumps({
     "modules": mods,
     "one_squared": fq.from_mont_limbs(out.numpy()),
     "hashed": len(hashed),
+    "served": served,
+    "switchboard": bls.backend_name(),
+    "prometheus": "serve_submit_to_result" in registry.render_prometheus(),
     "native_sha256": sorted(m for m in sys.modules if "native_sha256" in m),
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
     "reference": sorted(m for m in sys.modules
@@ -44,11 +63,34 @@ def test_port_imports_no_jax_and_no_reference_module():
     assert "consensus_specs_tpu_torch.ops.bls_backend" in got["modules"]
     assert "consensus_specs_tpu_torch.ops.cuda_step" in got["modules"]
     assert "consensus_specs_tpu_torch.ops.codec" in got["modules"]
+    for mod in ("serve.service", "serve.load", "serve.metrics", "serve.cache",
+                "obs.tracing", "obs.flight", "obs.devices", "obs.latency",
+                "obs.registry", "obs.hist", "obs.programs", "obs.fsio",
+                "ops.profiling", "utils.bls"):
+        assert "consensus_specs_tpu_torch." + mod in got["modules"], mod
     assert got["one_squared"] == 1
     assert got["hashed"] == 1
+    assert got["served"] is True and got["prometheus"] is True
+    # the switchboard defaults to the card (resolved on first verify)
+    assert got["switchboard"] == "gpu"
     assert got["jax"] == []
     assert got["reference"] == []
     assert got["native_sha256"] == []
+
+
+def test_chip_smoke_imports_nothing_of_jax():
+    """Every import statement of chip_smoke.py, at any depth, names the
+    port, torch or the standard library: never jax or the JAX package."""
+    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+    roots = {n.split(".")[0] for n in names}
+    assert "consensus_specs_tpu_torch" in roots
+    assert not roots & {"jax", "jaxlib", "consensus_specs_tpu"}, roots
 
 
 @pytest.fixture
@@ -105,3 +147,14 @@ def test_kernel_wrappers_refuse_other_devices():
                   for _ in range(7))
     with pytest.raises(ValueError):
         cuda_step.run_steps(regs, instr)
+
+
+def test_serve_plane_raises_without_a_gpu(no_gpu):
+    """The service and the serve bench resolve ``device=None`` to the card
+    and refuse to start without one."""
+    from consensus_specs_tpu_torch.serve import VerificationService, load
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        VerificationService(backend=object())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load.run_serve_bench()
