@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Drives ``consensus_specs_tpu_torch`` (never jax, never the JAX package)
-through eight phases, each printing one JSON line:
+through twelve phases, each printing one JSON line:
 
   1. build   -- compile every CUDA kernel of the port from csrc/ with nvcc
                for sm_90a (one nvcc per source, all started together);
@@ -81,6 +81,41 @@ through eight phases, each printing one JSON line:
                served by the per-group path) and calls 1-4 failing
                (served by the oracle, journalled and warned about), every
                verdict right and later flushes served by the backend.
+
+  9. wide    -- the wide buckets on the card: one committee of 512 and one
+               of 2,048 keys (the sync committee and the mainnet maximum),
+               valid and with one signer dropped, through
+               batch_fast_aggregate_verify and batch_verify_rlc, first and
+               warm, each run's step-kernel ms and launches printed.
+ 10. epoch   -- BASELINE config 4 through the port's SignatureCollector:
+               32 slots x (64 attestation aggregates of 146 signers from a
+               pool of 512 keys + a sync aggregate of 512 + a proposer
+               check) = 2,112 checks, 315,424 signatures, through
+               flush(), flush(rlc=True) and flush(service=) (a new
+               VerificationService a run): first, warm and fresh (messages
+               and signatures evicted, so the codec prepares them), each
+               wall against the north star's 2 s and split into prep,
+               assembly, vm.execute, easy part and the RLC host fold; then
+               the epoch with 4 planted checks across the buckets, every
+               verdict exact and the planted ones and a sample of valid
+               ones equal to the oracle's. Any fallback, retry or ladder
+               record fails it.
+ 11. mainnet -- the port's scale/smoke.py rounds at 8,192 validators
+               (valid, censored, bad committee; hierarchical == flat ==
+               oracle), then one slot of a 1,048,576-validator registry (64
+               committees of 512) through the hierarchical fold: cold and
+               warm attestations/s, one final exponentiation a slot, a
+               pubkey hit rate of 1 on the warm round, the pubkey plane
+               within its budget, peak RSS, and a planted bad committee
+               localized by bisection and checked against the oracle with
+               one other committee.
+Phases 9-11 build their keys and signatures in a pool of spawned
+processes (utils/keygen.py).
+ 12. kernels -- every program and row count that phases 9-11 launched the
+               step kernel at (noted during those phases) and that no
+               earlier phase checked: the first 256 steps on random
+               canonical inputs limb for limb against the plain version,
+               then each whole stream timed, as in phase 5.
 
 Then it prints the card's name and power limit, a ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``. Any failure exits
@@ -337,50 +372,108 @@ def _stream_work(instr, n_regs, rows):
     return n_bytes, n_ops, n_mul, n_lin
 
 
+def _check_stream(torch, dev, rng, imad_rate, l2_ns, prog, rows, **labels):
+    """One program's real instruction stream on ``rows`` rows of random
+    canonical inputs, one launch each: the first CHECK_STEPS steps against
+    the plain version on the whole register file (limb for limb, both
+    timed), then the full stream timed."""
+    from consensus_specs_tpu_torch.ops import cuda_step, vm
+
+    instr = prog.device_instr(dev)
+    stacked = _canonical_limbs(rng, (rows, len(prog.input_names)))
+    regs0 = vm._init_regs(prog, stacked.astype(np.uint64), dev)
+    head = tuple(x[:CHECK_STEPS] for x in instr)
+
+    got = cuda_step.run_steps(regs0.clone(), head)
+    want = regs0.clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vm._run_steps_plain(want, head)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = int((got - want).abs().max().item())
+    _check(err == 0, f"{labels['stream']} ({labels['kind']}, {rows} rows): "
+                     f"step kernel differs from plain over {CHECK_STEPS} "
+                     f"steps: max |err| {err}")
+    del got, want
+    work = regs0
+    head_ms = _cuda_ms(torch, lambda: cuda_step.run_steps(work, head), 5)
+    full_ms = _cuda_ms(torch, lambda: cuda_step.run_steps(work, instr), 3)
+    full = _stream_work(prog.instr, prog.n_regs, rows)
+    part = _stream_work(tuple(x[:CHECK_STEPS] for x in prog.instr),
+                        prog.n_regs, rows)
+    return {
+        **labels, "rows": rows, "steps": prog.n_steps, "n_regs": prog.n_regs,
+        "check_steps": CHECK_STEPS, "max_abs_err": err,
+        "head_ms": head_ms, "head_plain_ms": plain_ms,
+        "head_bytes": part[0], "head_imad": part[1],
+        **{f"head_{key}": v
+           for key, v in _bound(part[0], part[1], imad_rate).items()},
+        "ms": full_ms, "us_per_step": full_ms * 1e3 / prog.n_steps,
+        "bytes": full[0], "imad": full[1], "mul_lanes": full[2],
+        "lin_lanes": full[3], **_bound(full[0], full[1], imad_rate),
+        "latency_floor_ms": prog.n_steps * l2_ns * 1e-6,
+    }
+
+
 def phase_streams(torch, dev, rng, imad_rate, l2_ns, streams=MAIN_STREAMS):
-    """The main path's real instruction streams, one launch each: the first
-    CHECK_STEPS steps against the plain version on the whole register file
-    (limb for limb, both timed), then each full stream timed."""
-    from consensus_specs_tpu_torch.ops import bls_backend, cuda_step, vm
+    """The main path's real instruction streams, each through
+    _check_stream."""
+    from consensus_specs_tpu_torch.ops import bls_backend
 
     out = []
     for label, kind, k, fold, rows in streams:
         prog, got_fold = bls_backend._program(kind, k, fold)
-        instr = prog.device_instr(dev)
-        stacked = _canonical_limbs(rng, (rows, len(prog.input_names)))
-        regs0 = vm._init_regs(prog, stacked.astype(np.uint64), dev)
-        head = tuple(x[:CHECK_STEPS] for x in instr)
-
-        got = cuda_step.run_steps(regs0.clone(), head)
-        want = regs0.clone()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        vm._run_steps_plain(want, head)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        err = int((got - want).abs().max().item())
-        _check(err == 0, f"{label} ({kind}): step kernel differs from plain "
-                         f"over {CHECK_STEPS} steps: max |err| {err}")
-        work = regs0.clone()
-        head_ms = _cuda_ms(torch, lambda: cuda_step.run_steps(work, head), 5)
-        full_ms = _cuda_ms(torch, lambda: cuda_step.run_steps(work, instr), 3)
-        full = _stream_work(prog.instr, prog.n_regs, rows)
-        part = _stream_work(tuple(x[:CHECK_STEPS] for x in prog.instr),
-                            prog.n_regs, rows)
-        out.append({
-            "stream": label, "kind": kind, "k": k, "fold": got_fold,
-            "rows": rows, "steps": prog.n_steps, "n_regs": prog.n_regs,
-            "check_steps": CHECK_STEPS, "max_abs_err": err,
-            "head_ms": head_ms, "head_plain_ms": plain_ms,
-            "head_bytes": part[0], "head_imad": part[1],
-            **{f"head_{key}": v
-               for key, v in _bound(part[0], part[1], imad_rate).items()},
-            "ms": full_ms, "us_per_step": full_ms * 1e3 / prog.n_steps,
-            "bytes": full[0], "imad": full[1], "mul_lanes": full[2],
-            "lin_lanes": full[3], **_bound(full[0], full[1], imad_rate),
-            "latency_floor_ms": prog.n_steps * l2_ns * 1e-6,
-        })
+        out.append(_check_stream(torch, dev, rng, imad_rate, l2_ns, prog,
+                                 rows, stream=label, kind=kind, k=k,
+                                 fold=got_fold))
     return out
+
+
+def _recording_launch_shapes(shapes):
+    """Wraps for bls_backend._program and vm.execute (see _patched) that
+    note, in ``shapes``, each program the step kernel is launched with,
+    its row count and its (kind, k, fold): {(id, rows): (program, rows,
+    name)}, in first-launch order. Every launch resolves its program
+    through _program (a _FoldLayout) just before its vm.execute."""
+    names = {}
+
+    def program_wrap(fn):
+        def named(kind, k=0, fold=None):
+            prog, got_fold = fn(kind, k, fold)
+            names[id(prog)] = (kind, k, got_fold)
+            return prog, got_fold
+        return named
+
+    def execute_wrap(fn):
+        def recorded(program, inputs, batch_shape=(), device=None):
+            rows = int(np.prod(batch_shape)) if batch_shape else 1
+            shapes.setdefault((id(program), rows), (program, rows, names.get(
+                id(program), (f"steps{program.n_steps}", 0, 0))))
+            return fn(program, inputs, batch_shape=batch_shape,
+                      device=device)
+        return recorded
+    return program_wrap, execute_wrap
+
+
+def phase_path_streams(torch, dev, rng, imad_rate, l2_ns, shapes_by_path,
+                       checked):
+    """Every (program, rows) that the paths in ``shapes_by_path`` launched
+    the step kernel at, and that no earlier check covered (``checked``:
+    the earlier streams' result dicts), through _check_stream."""
+    done = {(r["kind"], r["k"], r["fold"], r["rows"]) for r in checked}
+    todo = {}
+    for path, shapes in shapes_by_path.items():
+        for prog, rows, (kind, k, fold) in shapes.values():
+            key = (kind, k, fold, rows)
+            if key in done:
+                continue
+            todo.setdefault(key, [prog, rows, kind, k, fold, []])[5].append(
+                path)
+    return [_check_stream(torch, dev, rng, imad_rate, l2_ns, prog, rows,
+                          stream=f"{kind} k{k} fold {fold}", kind=kind, k=k,
+                          fold=fold, paths=paths)
+            for prog, rows, kind, k, fold, paths in todo.values()]
 
 
 def _bound(n_bytes, n_ops, imad_rate):
@@ -1123,37 +1216,71 @@ def _evict(slot):
         bls_backend._SIG_CACHE.pop(bytes(s), None)
 
 
-def _fresh_timed(torch, entry, slot):
-    """One call of ``entry`` on the slot, evicted first, with its wall split
-    into codec prep (and within it decode, subgroup checks, hash-to-G2,
-    the codec's vm.execute calls and its kernel launches), per-item prep,
-    program assembly, the other vm.execute calls, the host easy part and
-    the rest; kernel counts from 0 just before the call."""
+def _split_run(torch, call):
+    """Run ``call()`` with the kernel counts from 0 and its wall split into
+    codec prep (decode, subgroup checks, hash to G2, the prep's own
+    vm.execute and kernel launches), per-item prep, program assembly, the
+    other vm.execute calls, the step kernels (CUDA events), the host easy
+    part (every _easy_part_flat), the RLC host fold (the rlc_combine call
+    less its vm.execute and program assembly: the host products of the
+    chunk results) and the rest. A service's stage threads are covered
+    too: the patches are module-wide and the prep and fold nesting is
+    tracked per thread."""
+    import threading
+
     from consensus_specs_tpu_torch.ops import (bls_backend, codec, cuda_fq,
                                                cuda_step, vm)
 
-    _evict(slot)
-    sinks = {k: [] for k in ("prep", "decode", "subgroup", "hash", "per_item",
-                             "assemble", "execute", "execute_prep", "easy",
-                             "steps")}
+    keys = ("prep", "decode", "subgroup", "hash", "per_item", "assemble",
+            "assemble_fold", "execute", "execute_prep", "execute_fold",
+            "easy", "fold", "scalars", "steps")
+    sinks = {k: [] for k in keys}
+    ctx = threading.local()
     prep_launches = {"vm_step": 0, "mont_mul": 0}
-    in_prep = []
+    lock = threading.Lock()
+
+    def scoped(name, sink):
+        def wrap(fn):
+            def wrapped(*args, **kwargs):
+                outer = getattr(ctx, name, False)
+                setattr(ctx, name, True)
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    if not outer:
+                        sinks[sink].append(time.perf_counter() - t0)
+                    setattr(ctx, name, outer)
+            return wrapped
+        return wrap
 
     def prep_wrap(fn):
+        timed = scoped("prep", "prep")(fn)
+
         def wrapped(*args, **kwargs):
             step0, mont0 = cuda_step.LAUNCHES, cuda_fq.LAUNCHES
-            in_prep.append(True)
             try:
-                return _host_timer(sinks["prep"])(fn)(*args, **kwargs)
+                return timed(*args, **kwargs)
             finally:
-                in_prep.pop()
-                prep_launches["vm_step"] += cuda_step.LAUNCHES - step0
-                prep_launches["mont_mul"] += cuda_fq.LAUNCHES - mont0
+                # the counters' growth over the prep (beside a service's
+                # device stage, an upper bound)
+                with lock:
+                    prep_launches["vm_step"] += cuda_step.LAUNCHES - step0
+                    prep_launches["mont_mul"] += cuda_fq.LAUNCHES - mont0
         return wrapped
 
     def exec_wrap(fn):
         def wrapped(*args, **kwargs):
-            sink = sinks["execute_prep" if in_prep else "execute"]
+            sink = ("execute_prep" if getattr(ctx, "prep", False) else
+                    "execute_fold" if getattr(ctx, "fold", False) else
+                    "execute")
+            return _host_timer(sinks[sink])(fn)(*args, **kwargs)
+        return wrapped
+
+    def asm_wrap(fn):
+        def wrapped(*args, **kwargs):
+            sink = sinks["assemble_fold" if getattr(ctx, "fold", False)
+                         else "assemble"]
             return _host_timer(sink)(fn)(*args, **kwargs)
         return wrapped
 
@@ -1169,27 +1296,26 @@ def _fresh_timed(torch, entry, slot):
          _host_timer(sinks["per_item"])),
         (bls_backend, "_message_limbs_compute",
          _host_timer(sinks["per_item"])),
-        (bls_backend, "_program", _host_timer(sinks["assemble"])),
+        (bls_backend, "_program", asm_wrap),
         (vm, "execute", exec_wrap),
         (bls_backend, "_easy_part_flat", _host_timer(sinks["easy"])),
+        (bls_backend, "_rlc_combine_vm", scoped("fold", "fold")),
+        (bls_backend, "_rlc_scalars", _host_timer(sinks["scalars"])),
         (cuda_step, "run_steps", _device_timer(torch, sinks["steps"])),
     ]
-    pubkey_sets, messages, signatures = slot
+    rlc0 = dict(bls_backend.RLC_STATS)
+    calls0 = dict(bls_backend.CALL_COUNTS)
+    prep0 = dict(bls_backend.PREP_STATS)
     cuda_step.LAUNCHES = cuda_step.STEPS = cuda_fq.LAUNCHES = 0
     with contextlib.ExitStack() as stack:
         for module, name, wrap in patches:
             stack.enter_context(_patched(module, name, wrap))
         t0 = time.perf_counter()
-        if entry == "batch_verify_rlc":
-            got = bls_backend.batch_verify_rlc(
-                [("fast_aggregate", p, m, s)
-                 for p, m, s in zip(pubkey_sets, messages, signatures)],
-                rng=random.Random(SEED))
-        else:
-            got = bls_backend.batch_fast_aggregate_verify(
-                pubkey_sets, messages, signatures)
+        got = call()
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    torch.cuda.synchronize()
+    launches, n_steps, monts = (cuda_step.LAUNCHES, cuda_step.STEPS,
+                                cuda_fq.LAUNCHES)
     total = {k: sum(v) for k, v in sinks.items()}
     split = {
         "wall_s": wall, "codec_prep_s": total["prep"],
@@ -1198,21 +1324,49 @@ def _fresh_timed(torch, entry, slot):
         "codec_vm_execute_s": total["execute_prep"],
         "per_item_prep_s": total["per_item"],
         "per_item_prep_calls": len(sinks["per_item"]),
-        "assemble_s": total["assemble"], "vm_execute_s": total["execute"],
-        "vm_executions": len(sinks["execute"]) + len(sinks["execute_prep"]),
-        "easy_part_s": total["easy"], "step_kernel_ms": total["steps"],
-        "step_kernel_launches": cuda_step.LAUNCHES,
-        "step_kernel_steps": cuda_step.STEPS,
-        "mont_mul_kernel_launches": cuda_fq.LAUNCHES,
+        "assemble_s": total["assemble"] + total["assemble_fold"],
+        "vm_execute_s": total["execute"] + total["execute_fold"],
+        "step_kernel_ms": total["steps"], "easy_part_s": total["easy"],
+        "rlc_host_fold_s": (total["fold"] - total["execute_fold"]
+                            - total["assemble_fold"]),
+        "rlc_combine_vm_execute_s": total["execute_fold"],  # in the above
+        "rlc_scalars_s": total["scalars"],
+        "vm_executions": sum(len(sinks[k]) for k in (
+            "execute", "execute_prep", "execute_fold")),
+        "step_kernel_launches": launches, "step_kernel_steps": n_steps,
+        "mont_mul_kernel_launches": monts,
         "prep_step_kernel_launches": prep_launches["vm_step"],
         "prep_mont_mul_kernel_launches": prep_launches["mont_mul"],
+        "rlc_stats": {k: bls_backend.RLC_STATS[k] - rlc0[k] for k in rlc0},
+        "call_counts": {k: bls_backend.CALL_COUNTS[k] - calls0[k]
+                        for k in calls0},
+        "prep_stats": {k: bls_backend.PREP_STATS[k] - prep0[k]
+                       for k in prep0},
     }
+    # the service's stages overlap, so only a direct call's parts add up
     split["other_host_s"] = wall - total["prep"] - total["assemble"] \
-        - total["execute"] - total["easy"]
-    _check(cuda_step.LAUNCHES == split["vm_executions"],
-           f"{cuda_step.LAUNCHES} step-kernel launches for "
+        - total["execute"] - total["easy"] - total["fold"] \
+        - total["scalars"]
+    _check(launches == split["vm_executions"],
+           f"{launches} step-kernel launches for "
            f"{split['vm_executions']} vm.execute calls (expected one each)")
     return got, split
+
+
+def _fresh_timed(torch, entry, slot):
+    """One call of ``entry`` on the slot, evicted first, split by
+    _split_run."""
+    from consensus_specs_tpu_torch.ops import bls_backend
+
+    _evict(slot)
+    pubkey_sets, messages, signatures = slot
+    if entry == "batch_verify_rlc":
+        return _split_run(torch, lambda: bls_backend.batch_verify_rlc(
+            [("fast_aggregate", p, m, s)
+             for p, m, s in zip(pubkey_sets, messages, signatures)],
+            rng=random.Random(SEED)))
+    return _split_run(torch, lambda: bls_backend.batch_fast_aggregate_verify(
+        pubkey_sets, messages, signatures))
 
 
 def _prep_kernel2_ms(torch, slot):
@@ -1769,6 +1923,325 @@ def phase_serve(torch, card):
             **card}, launches
 
 
+# ---------------------------------------------------------------------------
+# phases 9-11: the wide buckets, the mainnet epoch through the collector,
+# and the mainnet-scale plane
+# ---------------------------------------------------------------------------
+
+WIDE_KS = (512, 2048)  # the sync committee, the mainnet-max committee
+NORTH_STAR_EPOCH_S = 2.0  # BASELINE: one mainnet epoch's checks in < 2 s
+EPOCH_WARM_RUNS = 2
+MAINNET_VALIDATORS = 1 << 20  # 64 committees of 512
+MAINNET_RSS_BUDGET_MB = 8192  # the JAX package's bench/mainnet.py default
+SCALE_SMOKE_VALIDATORS = 8192  # the port's scale/smoke.py default
+
+
+def _add_counts(total, split):
+    """Add a _split_run's kernel counts to a path's running total."""
+    for k, key in (("vm_step", "step_kernel_launches"),
+                   ("vm_step_steps", "step_kernel_steps"),
+                   ("mont_mul", "mont_mul_kernel_launches")):
+        total[k] = total.get(k, 0) + split[key]
+
+
+def phase_wide(torch, pool, card):
+    """The wide buckets: one committee of k keys, valid and with one signer
+    dropped, through batch_fast_aggregate_verify and batch_verify_rlc,
+    first then warm (the per-item entry's first run assembles the bucket's
+    programs, the RLC entry's first run its combine)."""
+    from consensus_specs_tpu_torch.ops import bls_backend
+    from consensus_specs_tpu_torch.utils.bls12_381 import R
+
+    buckets, launches = [], {}
+    for k in WIDE_KS:
+        t0 = time.perf_counter()
+        sks = list(range(1, k + 1))
+        pks = pool.sk_to_pk(sks)
+        msg = bytes([k % 251]) * 32
+        sig = pool.sign([(sum(sks) % R, msg)])[0]
+        setup_s = time.perf_counter() - t0
+        sets, want = [pks, pks[1:]], [True, False]
+        fold = bls_backend._fold_for("miller_product", k, len(sets))
+        entry_runs = {}
+        for entry in ("batch_fast_aggregate_verify", "batch_verify_rlc"):
+            if entry == "batch_verify_rlc":
+                def call():
+                    return bls_backend.batch_verify_rlc(
+                        [("fast_aggregate", p, msg, sig) for p in sets],
+                        rng=random.Random(SEED))
+            else:
+                def call():
+                    return bls_backend.batch_fast_aggregate_verify(
+                        sets, [msg, msg], [sig, sig])
+            runs = {}
+            for label in ("first", "warm"):
+                got, split = _split_run(torch, call)
+                _check([bool(g) for g in got] == want,
+                       f"wide k{k} {entry} {label}: verdicts "
+                       f"{[bool(g) for g in got]}, want {want}")
+                _add_counts(launches, split)
+                runs[label] = split
+            entry_runs[entry] = runs
+        prog, _ = bls_backend._program("miller_product", k, fold=fold)
+        buckets.append({
+            "k": k, "k_bucket": bls_backend._k_bucket(k), "fold": fold,
+            "miller_product_steps": int(prog.n_steps),
+            "miller_product_registers": int(prog.n_regs),
+            "setup_s": setup_s, "verdicts": want, "verdicts_exact": True,
+            **{entry: runs for entry, runs in entry_runs.items()}})
+    return {"phase": "wide", "buckets": buckets, **card}, launches
+
+
+def _epoch_routes(col):
+    """The collector's three flush routes: per item, RLC, and the port's
+    serve plane (a new VerificationService for each run, so no verdict
+    comes from an earlier run's result cache)."""
+    from consensus_specs_tpu_torch.serve import VerificationService
+
+    def service_flush():
+        svc = VerificationService()
+        try:
+            got = col.flush(service=svc)
+            snap = svc.metrics.snapshot()
+        finally:
+            svc.close(timeout=120)
+        service_flush.snapshots.append(snap)
+        return got
+    service_flush.snapshots = []
+    return {"flush": lambda: col.flush(),
+            "flush_rlc": lambda: col.flush(rlc=True),
+            "flush_service": service_flush}
+
+
+def _epoch_run(torch, label, route_fn, want, launches):
+    """One run of a flush route, split by _split_run. Fails on any wrong
+    verdict, any ladder record and, for the service route, any fallback,
+    retry or mesh fallback; adds its kernel counts to ``launches``."""
+    from consensus_specs_tpu_torch.ops import profiling
+
+    profiling.reset()
+    got, split = _split_run(torch, route_fn)
+    got = [bool(g) for g in got]
+    wrong = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+    _check(len(got) == len(want) and not wrong,
+           f"{label}: checks {wrong[:10]} answered wrong")
+    ladder = _ladder_records()
+    _check(not any(ladder.values()), f"{label}: ladder records {ladder}")
+    snaps = getattr(route_fn, "snapshots", None)
+    if snaps:
+        snap = snaps[-1]
+        for key in ("fallback_items", "backend_retries", "mesh_fallbacks"):
+            _check(snap[key] == 0, f"{label}: {key} = {snap[key]}")
+        split["service"] = {k: snap[k] for k in (
+            "device_flushes", "batches", "prep_ms_per_flush",
+            "device_ms_per_flush")}
+    _add_counts(launches, split)
+    return split
+
+
+def _evict_checks(col):
+    from consensus_specs_tpu_torch.ops import bls_backend
+
+    for c in col.checks:
+        bls_backend._MSG_CACHE.pop(bytes(c.messages), None)
+        bls_backend._SIG_CACHE.pop(bytes(c.signature), None)
+
+
+def _planted_epoch(triples, shape):
+    """The epoch with 4 checks corrupted across the buckets (an attestation
+    over a wrong message, one carrying the next check's signature, a sync
+    aggregate missing a member, a proposer check with a malformed
+    signature): (triples, {reason: index})."""
+    slots, per = shape["slots"], shape["committees"]
+    at = lambda slot, c: (slot % slots) * (per + 2) + c % per
+    planted = {"wrong_message": at(3, 10),
+               "other_check_signature": at(9, 40),
+               "sync_missing_member": (17 % slots) * (per + 2) + per,
+               "proposer_malformed_signature": (25 % slots) * (per + 2)
+               + per + 1}
+    out = list(triples)
+    pks, msg, sig = out[planted["wrong_message"]]
+    out[planted["wrong_message"]] = (pks, b"X" + msg[1:], sig)
+    i = planted["other_check_signature"]
+    out[i] = (out[i][0], out[i][1], out[i + 1][2])
+    pks, msg, sig = out[planted["sync_missing_member"]]
+    out[planted["sync_missing_member"]] = (pks[:-1], msg, sig)
+    pks, msg, sig = out[planted["proposer_malformed_signature"]]
+    out[planted["proposer_malformed_signature"]] = (
+        pks, msg, bytes([sig[0] ^ 0x80]) + sig[1:])
+    return out, planted
+
+
+def phase_epoch(torch, pool, card):
+    """BASELINE config 4 through the port's SignatureCollector: 32 slots of
+    64 attestation aggregates of 146 signers (a pool of 512 keys), a sync
+    aggregate of 512 and a proposer check each; every flush route cold,
+    warm and fresh, then the epoch with 4 planted checks."""
+    from consensus_specs_tpu_torch.bench import epoch_replay
+    from consensus_specs_tpu_torch.utils import bls
+
+    shape = epoch_replay.MAINNET
+    n_sigs = epoch_replay.epoch_signatures(
+        shape["slots"], shape["committees"], shape["k_att"], shape["k_sync"])
+    t0 = time.perf_counter()
+    triples = epoch_replay.epoch_triples(**shape, pool=pool)
+    setup_s = time.perf_counter() - t0
+    col = epoch_replay.collect(triples)
+    n_checks = len(col.checks)
+    want = [True] * n_checks
+
+    launches, routes_out = {}, {}
+    for name, fn in _epoch_routes(col).items():
+        runs = {}
+        for label in (["cold"] + [f"warm{i}" for i in range(EPOCH_WARM_RUNS)]
+                      + ["fresh"]):
+            if label == "fresh":
+                _evict_checks(col)
+            split = _epoch_run(torch, f"epoch {name} {label}", fn, want,
+                               launches)
+            split["sigs_per_s"] = n_sigs / split["wall_s"]
+            split["under_north_star"] = split["wall_s"] < NORTH_STAR_EPOCH_S
+            runs[label] = split
+        warm = min((runs[f"warm{i}"] for i in range(EPOCH_WARM_RUNS)),
+                   key=lambda r: r["wall_s"])
+        routes_out[name] = {"warm_best": warm, "runs": runs}
+
+    # the planted epoch, once through every route (inputs mostly cached)
+    bad_triples, planted = _planted_epoch(triples, shape)
+    bad = epoch_replay.collect(bad_triples)
+    want_bad = [True] * n_checks
+    for i in planted.values():
+        want_bad[i] = False
+    sample_valid = [0, shape["committees"], shape["committees"] + 1,
+                    n_checks - 3]
+    oracle = {}
+    for i in sorted(set(planted.values()) | set(sample_valid)):
+        c = bad.checks[i]
+        t1 = time.perf_counter()
+        v = bls.oracle_fast_aggregate_verify(c.pubkeys, c.messages,
+                                             c.signature)
+        _check(v == want_bad[i], f"epoch planted: oracle says {v} on check "
+               f"{i}, planted {want_bad[i]}")
+        oracle[str(i)] = {"verdict": v, "k": len(c.pubkeys),
+                          "oracle_s": time.perf_counter() - t1}
+    planted_runs = {
+        name: _epoch_run(torch, f"epoch planted {name}", fn, want_bad,
+                         launches)
+        for name, fn in _epoch_routes(bad).items()}
+    return {"phase": "epoch", "slots": shape["slots"],
+            "committees": shape["committees"], "k_att": shape["k_att"],
+            "k_sync": shape["k_sync"], "key_pool": shape["pool_size"],
+            "checks": n_checks, "signatures": n_sigs,
+            "setup_s": setup_s, "setup_processes": pool.processes,
+            "north_star_s": NORTH_STAR_EPOCH_S, "verdicts_exact": True,
+            "routes": routes_out, "planted": planted,
+            "planted_oracle": oracle, "planted_runs": planted_runs,
+            **card}, launches
+
+
+def phase_mainnet(torch, pool, card):
+    """The port's scale/smoke.py rounds (three-way verdict identity), then
+    one slot of a 1,048,576-validator registry (64 committees of 512)
+    through the hierarchical fold: cold, warm, and with a planted bad
+    committee localized by bisection."""
+    from consensus_specs_tpu_torch.ops import profiling
+    from consensus_specs_tpu_torch.scale import hierarchy, smoke
+    from consensus_specs_tpu_torch.scale.pubkeys import (PubkeyPlane,
+                                                         peak_rss_bytes)
+    from consensus_specs_tpu_torch.scale.registry import Registry
+
+    launches = {}
+    profiling.reset()
+    rounds, split = _split_run(
+        torch, lambda: smoke.run_rounds(SCALE_SMOKE_VALIDATORS, pool=pool))
+    _add_counts(launches, split)
+    scale_smoke = {"three_way_identity": True, "wall_s": split["wall_s"],
+                   "step_kernel_launches": split["step_kernel_launches"],
+                   "mont_mul_kernel_launches":
+                       split["mont_mul_kernel_launches"], **rounds}
+
+    t0 = time.perf_counter()
+    reg = Registry(MAINNET_VALIDATORS, seed=20)
+    per_slot = reg.committees_per_slot()
+    committees = reg.committees_at_slot(0)
+    shuffle_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    items = hierarchy.committee_items(reg, slot=0, pool=pool)
+    derive_s = time.perf_counter() - t0
+    plane = PubkeyPlane()
+
+    def slot_run(slot_items):
+        rep, run = _split_run(torch, lambda: hierarchy.verify_slot(
+            slot_items, slot=0, plane=plane, rng=random.Random(SEED)))
+        _add_counts(launches, run)
+        run.update({"attestations": rep.attestations,
+                    "atts_per_s": rep.attestations / rep.verify_s,
+                    "verify_s": rep.verify_s, "combines": rep.combines,
+                    "bisections": rep.bisections,
+                    "final_exps_per_slot": rep.final_exps_per_slot,
+                    "pubkey_hits": rep.pubkey_hits,
+                    "pubkey_misses": rep.pubkey_misses,
+                    "bad_committees": rep.bad_committees})
+        return rep, run
+
+    cold_rep, cold = slot_run(items)
+    warm_rep, warm = slot_run(items)
+    hit_rate = warm_rep.pubkey_hits / max(
+        1, warm_rep.pubkey_hits + warm_rep.pubkey_misses)
+    for tag, rep in (("cold", cold_rep), ("warm", warm_rep)):
+        _check(rep.all_valid, f"mainnet {tag}: committees "
+               f"{rep.bad_committees} rejected in the valid slot")
+        _check(rep.final_exps_per_slot == 1.0, f"mainnet {tag}: "
+               f"final_exps_per_slot {rep.final_exps_per_slot}")
+    _check(hit_rate == 1.0, f"mainnet warm: pubkey hit rate {hit_rate}")
+    _check(plane.bytes <= plane.budget_bytes,
+           f"mainnet: pubkey plane {plane.bytes} over {plane.budget_bytes}")
+
+    bad_ci = per_slot // 2
+    items_b = list(items)
+    items_b[bad_ci] = hierarchy.corrupt_item(items_b[bad_ci])
+    bad_rep, bad = slot_run(items_b)
+    _check(bad_rep.bad_committees == [bad_ci] and bad_rep.bisections >= 1,
+           f"mainnet bad committee: localized {bad_rep.bad_committees} by "
+           f"{bad_rep.bisections} bisections, planted {bad_ci}")
+    oracle = {}
+    for ci in (bad_ci, 0):
+        t1 = time.perf_counter()
+        v = hierarchy.verify_slot_oracle([items_b[ci]])[0]
+        _check(bool(v) == bool(bad_rep.verdicts[ci]),
+               f"mainnet bad committee: oracle {bool(v)} on committee {ci}, "
+               f"plane {bool(bad_rep.verdicts[ci])}")
+        oracle[str(ci)] = {"verdict": bool(v),
+                           "oracle_s": time.perf_counter() - t1}
+    ladder = _ladder_records()
+    _check(not any(ladder.values()), f"mainnet: ladder records {ladder}")
+    peak_rss_mb = peak_rss_bytes() / (1 << 20)
+    _check(peak_rss_mb <= MAINNET_RSS_BUDGET_MB,
+           f"mainnet: peak RSS {peak_rss_mb:.0f} MiB over "
+           f"{MAINNET_RSS_BUDGET_MB}")
+    return {"phase": "mainnet", "scale_smoke": scale_smoke,
+            "slot_replay": {
+                "validators": MAINNET_VALIDATORS,
+                "committees_per_slot": per_slot,
+                "committee_size": len(committees[0]),
+                "registry_shuffle_s": shuffle_s, "pubkey_derive_s": derive_s,
+                "derive_processes": pool.processes,
+                "atts_per_s_cold": cold["atts_per_s"],
+                "atts_per_s_warm": warm["atts_per_s"],
+                "final_exps_per_slot": warm_rep.final_exps_per_slot,
+                "pubkey_hit_rate_warm": hit_rate,
+                "pubkey_plane_bytes": plane.bytes,
+                "pubkey_budget_bytes": plane.budget_bytes,
+                "peak_rss_mb": peak_rss_mb,
+                "rss_budget_mb": MAINNET_RSS_BUDGET_MB,
+                "cold": cold, "warm": warm},
+            "bad_committee": {"planted": bad_ci,
+                              "localized": bad_rep.bad_committees,
+                              "extra_final_exps": bad_rep.final_exps - 1,
+                              "oracle": oracle, **bad},
+            **card}, launches
+
+
 def main():
     import torch
 
@@ -1843,24 +2316,56 @@ def main():
 
         serve_line, serve_launches = phase_serve(torch, card)
         _emit({**serve_line, "elapsed_s": time.perf_counter() - t0})
+
+        # the later phases' keys and signatures, built in spawned processes;
+        # the programs and row counts each phase launches kernel 1 at are
+        # noted, then held against the plain steps below
+        from consensus_specs_tpu_torch.ops import vm
+        from consensus_specs_tpu_torch.utils.keygen import KeyPool
+
+        path_launches, path_shapes = {}, {}
+        with KeyPool() as pool:
+            for path, phase in (("wide", phase_wide), ("epoch", phase_epoch),
+                                ("mainnet", phase_mainnet)):
+                shapes = path_shapes[path] = {}
+                program_wrap, execute_wrap = _recording_launch_shapes(shapes)
+                with _patched(bls_backend, "_program", program_wrap), \
+                        _patched(vm, "execute", execute_wrap):
+                    line, path_launches[path] = phase(torch, pool, card)
+                _emit({**line, "elapsed_s": time.perf_counter() - t0})
+
+        path_streams = phase_path_streams(torch, dev, rng, imad_rate, l2_ns,
+                                          path_shapes, streams)
+        streams += path_streams
+        _emit({"phase": "kernels", "paths": list(path_shapes),
+               "shapes_launched": {p: len(s) for p, s in path_shapes.items()},
+               "results": path_streams, "l2_hit_ns": l2_ns,
+               "elapsed_s": time.perf_counter() - t0, **card})
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
     # each path's launches, counted from 0 just before it ran: the per-item
     # slice (cold), the RLC slot (warm best of 3), the tower combine, the
-    # fresh slot with the codec prep through each entry point, and the
-    # serve plane's main stream
+    # fresh slot with the codec prep through each entry point, the serve
+    # plane's main stream, and (summed over their runs) the wide buckets,
+    # the epoch's flush routes and the mainnet-scale plane
     paths = {"slice": {"vm_step": launches["vm_step"],
                        "vm_step_steps": launches["vm_step_steps"],
                        "mont_mul": launches["mont_mul"]},
-             "serve": serve_launches}
+             "serve": serve_launches, **path_launches}
     for path, run in {**rlc_runs, **codec_runs}.items():
         paths[path] = {"vm_step": run["step_kernel_launches"],
                        "vm_step_steps": run["step_kernel_steps"],
                        "mont_mul": run["mont_mul_kernel_launches"]}
     total = {k: sum(p[k] for p in paths.values()) for k in paths["slice"]}
-    # vm_step's line: the checked heads of the six real streams
+    idle = [f"{path} {k}" for path in ("wide", "epoch", "mainnet")
+            for k in ("vm_step", "mont_mul") if paths[path][k] == 0]
+    if idle:
+        print(f"chip_smoke: FAILED: kernels never launched on {idle}",
+              file=sys.stderr)
+        return 1
+    # vm_step's line: the checked heads of every real stream
     head_bytes = sum(r["head_bytes"] for r in streams)
     head_imad = sum(r["head_imad"] for r in streams)
     step_bound = _bound(head_bytes, head_imad, imad_rate)

@@ -18,7 +18,9 @@ The verify functions keep the reference's contract: any exception of the
 verification is a False verdict (reference utils/bls.py:47-74), and with
 ``bls_active`` off they return True without any crypto. The
 ``oracle_*`` functions are the pure-Python verifications alone, whatever
-the switch says: the serve plane's last rung calls them. Ciphersuite:
+the switch says: the serve plane's last rung calls them, as do the
+point helpers (``pubkey_to_G1``, ``signature_to_G2``) and the pairings
+(``pairing_check``, ``Pairing``) the spec's draft forks use. Ciphersuite:
 BLS_SIG_BLS12381G2_XMD:SHA-256_SSWU_RO_POP_.
 """
 from typing import Sequence
@@ -26,6 +28,10 @@ from typing import Sequence
 from ..device import resolve_device
 from .bls12_381 import (
     G1_GEN,
+    G2_X0,
+    G2_X1,
+    G2_Y0,
+    G2_Y1,
     R,
     Fq12,
     ec_add,
@@ -41,6 +47,7 @@ from .bls12_381 import (
     is_in_g1_subgroup,
     is_in_g2_subgroup,
     multi_pairing,
+    pairing,
 )
 
 bls_active = True
@@ -50,6 +57,8 @@ DST = b"BLS_SIG_BLS12381G2_XMD:SHA-256_SSWU_RO_POP_"
 
 STUB_SIGNATURE = b"\x11" * 96
 STUB_PUBKEY = b"\x22" * 48
+G2_POINT_AT_INFINITY = b"\xc0" + b"\x00" * 95
+STUB_COORDINATES = ((G2_X0, G2_X1), (G2_Y0, G2_Y1))
 
 
 def use_py_ecc():
@@ -109,6 +118,26 @@ def only_with_bls(alt_return=None):
         return wrapper
 
     return decorator
+
+
+# ---------------------------------------------------------------------------
+# point helpers (also used by the spec's custody-game crypto); pure-Python
+# oracle functions whatever the backend switch says
+# ---------------------------------------------------------------------------
+
+
+def pubkey_to_G1(pubkey: bytes):
+    return g1_from_bytes(bytes(pubkey))
+
+
+def signature_to_G2(signature: bytes):
+    """Decompress a signature into G2 affine coordinate integers
+    (((x_c0, x_c1), (y_c0, y_c1))), None for infinity."""
+    aff = g2_from_bytes(bytes(signature))
+    if aff is None:
+        return None
+    x, y = aff
+    return ((x.c0, x.c1), (y.c0, y.c1))
 
 
 def _gpu_backend():
@@ -271,3 +300,27 @@ def AggregatePKs(pubkeys: Sequence[bytes]) -> bytes:
     for pk in pubkeys:
         acc = ec_add(acc, ec_from_affine(_key_validate_point(pk)))
     return g1_to_bytes(ec_to_affine(acc))
+
+
+@only_with_bls(alt_return=True)
+def pairing_check(pairs) -> bool:
+    """prod e(P_i, Q_i) == 1 over (G1 affine, G2 affine) pairs: the
+    sharding spec's KZG degree checks."""
+    return multi_pairing(pairs) == Fq12.one()
+
+
+@only_with_bls(alt_return=None)
+def Pairing(p, q):
+    """e(P, Q) as a comparable GT element (the sharding draft's
+    ``process_shard_header`` compares two pairings). Accepts G1 as
+    compressed Bytes48 or a curve point, G2 as compressed Bytes96 or a
+    curve point."""
+    if isinstance(p, (bytes, bytearray)):
+        p_aff = g1_from_bytes(bytes(p))
+    else:
+        p_aff = p if (p is None or len(p) == 2) else ec_to_affine(p)
+    if isinstance(q, (bytes, bytearray)):
+        q_aff = g2_from_bytes(bytes(q))
+    else:
+        q_aff = q if (q is None or len(q) == 2) else ec_to_affine(q)
+    return pairing(q_aff, p_aff)

@@ -386,3 +386,55 @@ def test_service_on_the_card_with_the_real_backend(dev, monkeypatch):
     assert bls_backend.CALL_COUNTS["items"] == 2
     assert svc.metrics.fallback_items == 0
     assert svc.metrics.backend_retries == 0
+
+
+@pytest.mark.parametrize("k", [512, 2048])
+def test_wide_bucket_matches_oracle(dev, k):
+    """The sync-committee (512) and mainnet-max (2048) buckets: one
+    committee valid and with one signer dropped, per item and through
+    RLC, against the pure-Python oracle."""
+    from consensus_specs_tpu_torch.ops import bls_backend
+    from consensus_specs_tpu_torch.utils import bls
+    from consensus_specs_tpu_torch.utils.bls12_381 import R
+    from consensus_specs_tpu_torch.utils.keygen import KeyPool
+
+    sks = list(range(1, k + 1))
+    with KeyPool() as pool:
+        pks = pool.sk_to_pk(sks)
+    msg = bytes([k % 251]) * 32
+    sig = bls.Sign(sum(sks) % R, msg)
+    sets = [pks, pks[1:]]
+    want = [bls.oracle_fast_aggregate_verify(p, msg, sig) for p in sets]
+    assert want == [True, False]
+    got = bls_backend.batch_fast_aggregate_verify(sets, [msg, msg],
+                                                  [sig, sig])
+    assert [bool(g) for g in got] == want
+    got = bls_backend.batch_verify_rlc(
+        [("fast_aggregate", p, msg, sig) for p in sets])
+    assert [bool(g) for g in got] == want
+
+
+def test_epoch_slot_through_the_collector(dev):
+    """One slot of the mainnet epoch (64 aggregates of 146, a sync
+    aggregate of 512, a proposer check) through the port's
+    SignatureCollector on the card, per item and through RLC, valid and
+    with one attestation over a wrong message; spot checks against the
+    oracle."""
+    from consensus_specs_tpu_torch.bench import epoch_replay
+    from consensus_specs_tpu_torch.utils import bls
+    from consensus_specs_tpu_torch.utils.keygen import KeyPool
+
+    with KeyPool() as pool:
+        triples = epoch_replay.epoch_triples(1, 64, 146, 512, 512, pool=pool)
+    assert [len(t[0]) for t in triples[-2:]] == [512, 1]
+    pks, msg, sig = triples[7]
+    triples[7] = (pks, b"X" + msg[1:], sig)
+    col = epoch_replay.collect(triples)
+    want = np.ones(66, dtype=bool)
+    want[7] = False
+    for i in (7, 0, 64, 65):
+        c = col.checks[i]
+        assert bls.oracle_fast_aggregate_verify(
+            c.pubkeys, c.messages, c.signature) == want[i]
+    assert np.array_equal(col.flush(), want)
+    assert np.array_equal(col.flush(rlc=True), want)

@@ -66,7 +66,9 @@ def test_port_imports_no_jax_and_no_reference_module():
     for mod in ("serve.service", "serve.load", "serve.metrics", "serve.cache",
                 "obs.tracing", "obs.flight", "obs.devices", "obs.latency",
                 "obs.registry", "obs.hist", "obs.programs", "obs.fsio",
-                "ops.profiling", "utils.bls"):
+                "ops.profiling", "utils.bls", "utils.keygen", "batch_verify",
+                "scale.registry", "scale.pubkeys", "scale.hierarchy",
+                "scale.smoke", "bench.epoch_replay"):
         assert "consensus_specs_tpu_torch." + mod in got["modules"], mod
     assert got["one_squared"] == 1
     assert got["hashed"] == 1
