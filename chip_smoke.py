@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Drives ``consensus_specs_tpu_torch`` (never jax, never the JAX package)
-through twelve phases, each printing one JSON line:
+through thirteen phases, each printing one JSON line:
 
   1. build   -- compile every CUDA kernel of the port from csrc/ with nvcc
                for sm_90a (one nvcc per source, all started together);
@@ -111,7 +111,25 @@ through twelve phases, each printing one JSON line:
                one other committee.
 Phases 9-11 build their keys and signatures in a pool of spawned
 processes (utils/keygen.py).
- 12. kernels -- every program and row count that phases 9-11 launched the
+ 12. fleet   -- the serve fleet on the card: FleetRouter with 2 bls worker
+               processes (each its own CUDA context). (a) the port's
+               serve/fleet_smoke.main: verdict identity fleet ==
+               single process == oracle over every input class, every
+               worker on the card with launches of both kernels, then a
+               forced worker fault -> SLO-burn shed/drain decision
+               rebuilt from the merged journal; then, on a fleet at phase
+               8's knobs, (b) phase 8's stream (same slot, picks and
+               Poisson gaps) through the router: the planted verdicts and
+               phase 8's, none lost, no fallback, retry or ladder record,
+               its rates, latencies and each worker's flushes, launches
+               and prep/device split beside phase 8's; (d) phase 11's
+               slot (64 committees of 512, committee 32 bad) twice
+               through CommitteeFleet: verify_slot's verdicts, a stable
+               assignment, 0 affinity moves; (c) one worker armed to fail
+               until the router sheds or drains it (falls back on
+               purpose). The workers' launch counts are summed and their
+               launch shapes (from their snapshots) join phase 13.
+ 13. kernels -- every program and row count that phases 9-12 launched the
                step kernel at (noted during those phases) and that no
                earlier phase checked: the first 256 steps on random
                canonical inputs limb for limb against the plain version,
@@ -1920,7 +1938,8 @@ def phase_serve(torch, card):
                 / main["verified_sigs_per_s"]),
             "fault_injection": faults,
             "fault_injection_note": "these streams fall back on purpose",
-            **card}, launches
+            **card}, launches, {"committees": committees,
+                                "verdicts": verdicts}
 
 
 # ---------------------------------------------------------------------------
@@ -2220,6 +2239,8 @@ def phase_mainnet(torch, pool, card):
            f"mainnet: peak RSS {peak_rss_mb:.0f} MiB over "
            f"{MAINNET_RSS_BUDGET_MB}")
     return {"phase": "mainnet", "scale_smoke": scale_smoke,
+            # popped by main(): the fleet phase routes this slot again
+            "_fleet_slot": (items_b, [bool(v) for v in bad_rep.verdicts]),
             "slot_replay": {
                 "validators": MAINNET_VALIDATORS,
                 "committees_per_slot": per_slot,
@@ -2240,6 +2261,312 @@ def phase_mainnet(torch, pool, card):
                               "extra_final_exps": bad_rep.final_exps - 1,
                               "oracle": oracle, **bad},
             **card}, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the serve fleet
+# ---------------------------------------------------------------------------
+
+FLEET_WORKERS = 2  # the JAX package's fleet smoke count
+# the fault part's objective, the fleet smoke's: a flush that falls to the
+# pure-Python oracle takes seconds an item, far past it
+FLEET_SLO = [{"name": "serve_p99", "label": "serve.submit_to_result",
+              "quantile": 99.0, "threshold_s": 0.5}]
+# flight events of the degradation ladder and of commanded sheds
+_FLEET_LADDER_EVENTS = ("backend_retry", "degraded_rlc_to_groups",
+                        "degraded_to_oracle", "device_stage_error",
+                        "prep_error", "shed_rung")
+_VM_LABEL = re.compile(r"^vm\[steps=(\d+),regs=(\d+),batch=\(([\d, ]*)\),")
+_PROGRAM_KEY = re.compile(r"^(\w+)\[k=(\d+),fold=(\d+)\]$")
+
+
+def _fleet_launch_shapes(snaps, shapes):
+    """Note in ``shapes`` (the layout of _recording_launch_shapes) every
+    (program, rows) a fleet worker ran the step kernel at: its
+    vm[steps=...,regs=...,batch=...] stats matched to the steps and
+    registers of the programs it resolved (its snapshot's
+    ``extra["programs"]``), each resolved again here through _program,
+    from the same .vm_cache_torch/ entry."""
+    from consensus_specs_tpu_torch.ops import bls_backend
+
+    for label, snap in snaps.items():
+        by_shape = {}
+        for key, p in snap["extra"]["programs"].items():
+            by_shape.setdefault((p["steps"], p["regs"]), []).append(key)
+        for stat in snap["stats"]:
+            m = _VM_LABEL.match(stat)
+            if m is None:
+                continue
+            dims = [int(d) for d in m.group(3).replace(" ", "").split(",")
+                    if d]
+            rows = int(np.prod(dims)) if dims else 1
+            keys = by_shape.get((int(m.group(1)), int(m.group(2))))
+            _check(keys, f"fleet worker {label}: no program it resolved "
+                         f"has the shape of {stat}")
+            for key in keys:
+                kind, k, fold = _PROGRAM_KEY.match(key).groups()
+                prog, got_fold = bls_backend._program(kind, int(k), int(fold))
+                shapes.setdefault((id(prog), rows),
+                                  (prog, rows, (kind, int(k), got_fold)))
+
+
+def _fleet_records(router, kinds):
+    """The merged journal's events of ``kinds`` and the merged ladder
+    stat counts (every live worker polled first)."""
+    router.poll_snapshots()
+    events = [e for e in router.aggregator.journal_events()
+              if e["kind"] in kinds]
+    stats = router.aggregator.merged_stats()
+    return events, {label: stats.get(label, {}).get("calls", 0)
+                    for label in _LADDER}
+
+
+def _percentile_ms(sorted_s, q):
+    """Nearest-rank percentile of sorted seconds, in ms."""
+    i = max(0, int(np.ceil(q / 100.0 * len(sorted_s))) - 1)
+    return sorted_s[i] * 1e3
+
+
+def _pool_cover():
+    """Checks of COMMITTEE members each that together hold every key of
+    phase 4's pool, over messages of their own, validly signed: a
+    worker's warm-up to the pubkey cache phase 8's process had."""
+    from consensus_specs_tpu_torch.ops.bls_backend import DST
+    from consensus_specs_tpu_torch.utils import bls12_381 as O
+
+    _, sks, pks = key_pool()
+    starts = list(range(0, KEY_POOL - COMMITTEE, COMMITTEE))
+    starts.append(KEY_POOL - COMMITTEE)
+    items = []
+    for i, lo in enumerate(starts):
+        msg = b"fleet warm-up %d" % i + b"\x00" * 16
+        agg_sk = sum(sks[lo:lo + COMMITTEE]) % O.R
+        sig = O.g2_to_bytes(O.ec_mul(O.hash_to_g2(msg, DST), agg_sk))
+        items.append(("fast_aggregate", pks[lo:lo + COMMITTEE], msg, sig))
+    return items
+
+
+def _fleet_stream(torch, router, committees, serve_verdicts, serve_main):
+    """Phase 8's main stream (its slot, picks and Poisson gaps, from the
+    same seed) routed through the fleet: every verdict the planted one and
+    phase 8's, none lost, and no fallback, retry or ladder record in the
+    merged journal or stats. Outside the window each worker first
+    verifies checks covering the key pool (phase 8's process had every
+    pool key decoded by the earlier phases) and the stream's spare
+    committee (the serve bench's warm-up)."""
+    import concurrent.futures as cf
+
+    from consensus_specs_tpu_torch.serve import load
+
+    rng = random.Random(SEED)
+    picks = load._event_schedule(rng, committees, SERVE_EVENTS)
+    spare = ([i for i in range(len(committees)) if i not in set(picks)]
+             or [0])[0]
+    t0 = time.perf_counter()
+    warm = _pool_cover() + [("fast_aggregate",) + tuple(committees[spare][:3])]
+    want = [True] * (len(warm) - 1) + [bool(committees[spare][3])]
+    for label in router.live_workers:
+        handle = router.handle(label)
+        got = [bool(f.result(timeout=600))
+               for f in [handle.submit(*it) for it in warm]]
+        _check(got == want, f"fleet warm-up on {label}: verdicts {got}")
+    warmup_s = time.perf_counter() - t0
+    before = router.poll_snapshots()
+    _check(sorted(before) == sorted(router.live_workers)
+           and len(before) == FLEET_WORKERS,
+           f"fleet stream: snapshots from {sorted(before)}")
+
+    futures, expected, t_sub, done_at = [], [], [], {}
+    sig_count = 0
+    t_start = time.perf_counter()
+    t_next = t_start
+    for ci in picks:
+        pks, msg, sig, ok = committees[ci]
+        t_sub.append(time.perf_counter())
+        fut = router.submit("fast_aggregate", pks, msg, sig)
+        fut.add_done_callback(
+            lambda f, i=len(futures): done_at.__setitem__(
+                i, time.perf_counter()))
+        futures.append(fut)
+        expected.append(bool(ok))
+        sig_count += len(pks)
+        t_next += rng.expovariate(SERVE_RATE_HZ)
+        pause = t_next - time.perf_counter()
+        if pause > 0:
+            time.sleep(pause)
+    _, pending = cf.wait(futures, timeout=600)
+    elapsed = time.perf_counter() - t_start
+    _check(not pending, f"fleet stream: {len(pending)} of {len(futures)} "
+                        "requests never resolved")
+    got = [bool(f.result()) for f in futures]
+    wrong = [i for i, (g, w) in enumerate(zip(got, expected)) if g != w]
+    _check(not wrong, f"fleet stream: events {wrong[:10]} answered wrong")
+    differ = [i for i, ci in enumerate(picks) if got[i] != serve_verdicts[ci]]
+    _check(not differ, f"fleet stream: events {differ[:10]} differ from "
+                       "the single-process stream's verdicts")
+    events, ladder = _fleet_records(router, _FLEET_LADDER_EVENTS)
+    _check(not events and not any(ladder.values()),
+           f"fleet stream: ladder records {ladder}, events {events[:3]}")
+    after = {label: router.aggregator.worker_snapshot(label)
+             for label in router.live_workers}
+    workers = {}
+    for label in sorted(after):
+        k0, s0 = (before[label]["extra"]["kernels"],
+                  before[label]["extra"]["serve"])
+        k1, s1 = after[label]["extra"]["kernels"], after[label]["extra"]["serve"]
+        flushes = s1["device_flushes"] - s0["device_flushes"]
+        preps = s1["prep_batches"] - s0["prep_batches"]
+        w = {"submits": s1["submits"] - s0["submits"],
+             "cache_hits": s1["cache_hits"] - s0["cache_hits"],
+             "inflight_joins": s1["inflight_joins"] - s0["inflight_joins"],
+             "flushes": flushes, "prep_batches": preps,
+             "prep_ms_per_flush": (s1["prep_ms_total"]
+                                   - s0["prep_ms_total"]) / max(1, preps),
+             "device_ms_per_flush": (s1["device_ms_total"]
+                                     - s0["device_ms_total"]) / max(1, flushes),
+             "step_kernel_launches": k1["vm_step"] - k0["vm_step"],
+             "step_kernel_steps": k1["vm_step_steps"] - k0["vm_step_steps"],
+             "mont_mul_kernel_launches": k1["mont_mul"] - k0["mont_mul"],
+             "chain_graph_captures": (k1["mont_mul_captures"]
+                                      - k0["mont_mul_captures"]),
+             "fallback_items": s1["fallback_items"],
+             "backend_retries": s1["backend_retries"],
+             "rlc": s1["rlc"]}
+        _check(w["fallback_items"] == 0 and w["backend_retries"] == 0,
+               f"fleet stream: worker {label} fell back: {w}")
+        _check(flushes > 0 and w["step_kernel_launches"] > 0
+               and w["mont_mul_kernel_launches"] > 0,
+               f"fleet stream: worker {label} flushed {flushes} times with "
+               f"kernel launches {w}")
+        workers[label] = w
+    lat = sorted(done_at[i] - t_sub[i] for i in range(len(futures)))
+    verified_keys = sum(len(committees[ci][0]) for ci in set(picks))
+    return {"committees": len(committees), "committee_size": COMMITTEE,
+            "events": len(picks), "distinct_checks": len(set(picks)),
+            "rate_hz": SERVE_RATE_HZ, "max_batch": SERVE_MAX_BATCH,
+            "max_wait_ms": SERVE_MAX_WAIT_MS, "workers": FLEET_WORKERS,
+            "verdicts_exact": True, "lost": 0, "wrong": 0,
+            "equal_to_single_process": True, "ladder_records": ladder,
+            "warmup_s": warmup_s, "elapsed_s": elapsed,
+            "served_sigs_per_s": sig_count / elapsed,
+            "verified_sigs_per_s": verified_keys / elapsed,
+            "p50_ms": _percentile_ms(lat, 50), "p95_ms": _percentile_ms(lat, 95),
+            "p99_ms": _percentile_ms(lat, 99), "latency_n": len(lat),
+            "latency_note": "submit to verdict as the router's caller sees "
+                            "it, the worker pipe included",
+            "per_worker": workers,
+            "single_process": {key: serve_main[key] for key in (
+                "served_sigs_per_s", "verified_sigs_per_s", "p50_ms",
+                "p95_ms", "p99_ms", "flushes", "prep_ms_per_flush",
+                "device_ms_per_flush", "step_kernel_launches",
+                "mont_mul_kernel_launches")}}
+
+
+def _fleet_affinity(router, items, want):
+    """Phase 11's mainnet slot (64 committees of 512, the planted bad
+    committee) routed twice through CommitteeFleet on the same workers:
+    verify_slot's verdicts both rounds, a stable assignment, 0 moves and
+    no ladder record."""
+    from consensus_specs_tpu_torch.scale.routing import CommitteeFleet
+
+    fleet = CommitteeFleet(router=router)
+    assign = fleet.assignment(range(len(items)))
+    walls = []
+    for rnd in range(2):
+        t0 = time.perf_counter()
+        got = fleet.submit_slot(items, timeout=600)
+        walls.append(time.perf_counter() - t0)
+        _check(got == want, f"fleet affinity round {rnd}: committees "
+               f"{[i for i, (g, w) in enumerate(zip(got, want)) if g != w]} "
+               "differ from verify_slot's verdicts")
+    _check(fleet.assignment(range(len(items))) == assign,
+           "fleet affinity: the committee->worker assignment drifted")
+    _check(fleet.affinity_moves == 0,
+           f"fleet affinity: {fleet.affinity_moves} moves on a stable ring")
+    events, ladder = _fleet_records(router, _FLEET_LADDER_EVENTS)
+    _check(not events and not any(ladder.values()),
+           f"fleet affinity: ladder records {ladder}, events {events[:3]}")
+    per_worker = {}
+    for ci, label in assign.items():
+        per_worker[label] = per_worker.get(label, 0) + 1
+    return {"committees": len(items), "committee_size": len(items[0][1]),
+            "bad_committees": [i for i, w in enumerate(want) if not w],
+            "verdicts_equal_verify_slot": True, "rounds": 2,
+            "round_walls_s": walls, "committees_per_worker": per_worker,
+            "committees_routed": fleet.committees_routed,
+            "affinity_moves": fleet.affinity_moves,
+            "atts_per_s_first_round": sum(len(it[1]) for it in items)
+            / walls[0]}
+
+
+def phase_fleet(torch, card, serve_input, serve_main, mainnet_slot):
+    """The serve fleet on the card, bls workers: (a) the port's fleet
+    smoke (both phases), then on a fleet at the serve knobs (b) phase 8's
+    stream, (d) phase 11's slot by committee affinity, and (c) one worker
+    armed to fail until the router sheds or drains it (ladder records
+    expected there, and only there). Every worker must run on the card,
+    name it, and launch both kernels; its final snapshot feeds the
+    launch counts and the launch shapes."""
+    from consensus_specs_tpu_torch.obs.slo import ShedPolicy
+    from consensus_specs_tpu_torch.serve import fleet_smoke
+    from consensus_specs_tpu_torch.serve.fleet import FleetRouter
+
+    cuda = torch.device("cuda")
+    t0 = time.perf_counter()
+    smoke_report = {}
+    rc = fleet_smoke.main(device="cuda", report=smoke_report)
+    _check(rc == 0, "fleet smoke failed (its line above says why)")
+    smoke = dict(smoke_report["result"], wall_s=time.perf_counter() - t0)
+    final = {f"smoke.{label}": snap
+             for label, snap in smoke_report["snapshots"].items()}
+
+    t0 = time.perf_counter()
+    os.environ["CONSENSUS_SPECS_TPU_FLIGHT"] = "1"  # the router journals
+    router = FleetRouter(
+        workers=FLEET_WORKERS, backend="bls",
+        env={"SERVE_MAX_BATCH": str(SERVE_MAX_BATCH),
+             "SERVE_MAX_WAIT_MS": str(SERVE_MAX_WAIT_MS),
+             "CONSENSUS_SPECS_TPU_FLIGHT": "1"},
+        objectives=FLEET_SLO, policy=ShedPolicy())
+    try:
+        spawn_s = time.perf_counter() - t0
+        stream = _fleet_stream(torch, router, serve_input["committees"],
+                               serve_input["verdicts"], serve_main)
+        items, want = mainnet_slot
+        affinity = _fleet_affinity(router, items, want)
+        _check(len(router.live_workers) == FLEET_WORKERS,
+               f"fleet: live workers {router.live_workers}")
+        fleet_smoke.check_worker_devices(router.poll_snapshots(), cuda)
+        # (c) baseline the burn windows on everything so far, then fault
+        router.control_tick()
+        fault = fleet_smoke.fault_decision(router, first_tag=500)
+        router.poll_snapshots()
+        final.update({label: router.aggregator.worker_snapshot(label)
+                      for label in router.aggregator.workers})
+    finally:
+        router.close()
+    fleet_smoke.check_worker_devices(final, cuda)
+    launches = {"vm_step": 0, "vm_step_steps": 0, "mont_mul": 0}
+    for snap in final.values():
+        kernels = snap["extra"]["kernels"]
+        for key in launches:
+            launches[key] += kernels[key]
+    shapes = {}
+    _fleet_launch_shapes(final, shapes)
+    return {"phase": "fleet", "workers": FLEET_WORKERS,
+            "smoke": smoke, "spawn_s": spawn_s, "stream": stream,
+            "affinity": affinity,
+            "fault": {key: fault[key] for key in (
+                "target", "decision", "burn", "objective", "window",
+                "fault_items", "ladder_events", "scrape_observations")},
+            "fault_note": "this part falls back on purpose",
+            "worker_kernels": {label: snap["extra"]["kernels"]
+                               for label, snap in final.items()},
+            "worker_device_names": sorted({snap["extra"]["device_name"]
+                                           for snap in final.values()}),
+            "step_kernel_launches": launches["vm_step"],
+            "mont_mul_kernel_launches": launches["mont_mul"],
+            **card}, launches, shapes
 
 
 def main():
@@ -2314,7 +2641,7 @@ def main():
         _emit({"phase": "kernels", "results": codec_streams + codec_mont,
                "elapsed_s": time.perf_counter() - t0, **card})
 
-        serve_line, serve_launches = phase_serve(torch, card)
+        serve_line, serve_launches, serve_input = phase_serve(torch, card)
         _emit({**serve_line, "elapsed_s": time.perf_counter() - t0})
 
         # the later phases' keys and signatures, built in spawned processes;
@@ -2332,7 +2659,14 @@ def main():
                 with _patched(bls_backend, "_program", program_wrap), \
                         _patched(vm, "execute", execute_wrap):
                     line, path_launches[path] = phase(torch, pool, card)
+                mainnet_slot = line.pop("_fleet_slot", None)
                 _emit({**line, "elapsed_s": time.perf_counter() - t0})
+
+        # the serve fleet: worker processes on the card; their launch
+        # shapes come home in their snapshots
+        line, path_launches["fleet"], path_shapes["fleet"] = phase_fleet(
+            torch, card, serve_input, serve_line["main"], mainnet_slot)
+        _emit({**line, "elapsed_s": time.perf_counter() - t0})
 
         path_streams = phase_path_streams(torch, dev, rng, imad_rate, l2_ns,
                                           path_shapes, streams)
@@ -2349,7 +2683,9 @@ def main():
     # slice (cold), the RLC slot (warm best of 3), the tower combine, the
     # fresh slot with the codec prep through each entry point, the serve
     # plane's main stream, and (summed over their runs) the wide buckets,
-    # the epoch's flush routes and the mainnet-scale plane
+    # the epoch's flush routes and the mainnet-scale plane, and the serve
+    # fleet (the sum of its workers' own counts: each worker process
+    # counts from 0)
     paths = {"slice": {"vm_step": launches["vm_step"],
                        "vm_step_steps": launches["vm_step_steps"],
                        "mont_mul": launches["mont_mul"]},
@@ -2359,7 +2695,7 @@ def main():
                        "vm_step_steps": run["step_kernel_steps"],
                        "mont_mul": run["mont_mul_kernel_launches"]}
     total = {k: sum(p[k] for p in paths.values()) for k in paths["slice"]}
-    idle = [f"{path} {k}" for path in ("wide", "epoch", "mainnet")
+    idle = [f"{path} {k}" for path in ("wide", "epoch", "mainnet", "fleet")
             for k in ("vm_step", "mont_mul") if paths[path][k] == 0]
     if idle:
         print(f"chip_smoke: FAILED: kernels never launched on {idle}",

@@ -12,7 +12,31 @@ record.
                 plus the ``host`` prep lane);
 - ``programs``  the per-program VM registry;
 - ``tracing``   per-request spans and the Chrome trace export (opt-in,
-                ``CONSENSUS_SPECS_TPU_TRACE``).
+                ``CONSENSUS_SPECS_TPU_TRACE``), with the fleet's
+                cross-process stitching;
+- ``slo``       declared latency objectives, multi-window burn rates
+                over the histograms, and the fleet ``ShedPolicy`` (burn
+                rates -> shed/drain decisions);
+- ``snapshot``  the cross-process wire format: a worker's whole obs state
+                (histograms, stats, gauges, flight journal, time series,
+                spans) as one JSON-safe dict, merge-exact;
+- ``fleet``     the ``FleetAggregator`` merging N worker snapshots into
+                one exact fleet-wide metrics and journal surface;
+- ``timeseries`` the bounded multi-resolution time-series store (opt-in,
+                ``CONSENSUS_SPECS_TPU_TS``) with its exact merge;
+- ``exposition`` the opt-in loopback HTTP endpoint: ``/metrics``,
+                ``/snapshot``, ``/healthz``, ``/flightdump``,
+                ``/timeseries``.
 
 Stdlib only at import; ``ops`` modules are reached lazily at record time.
 """
+from .exposition import ExpositionServer, start_exposition  # noqa: F401
+from .tracing import (  # noqa: F401
+    STAGES,
+    Tracer,
+    dump_trace,
+    global_tracer,
+    maybe_tracer,
+    reset_global,
+    trace_enabled,
+)

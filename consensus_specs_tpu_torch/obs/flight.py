@@ -42,6 +42,26 @@ DEFAULT_DUMP = "flight_dump.jsonl"
 # put a plane on the same row (new planes append)
 PLANES = ("serve", "chain", "vm", "fleet", "lightclient")
 
+# set by the fleet router in every worker process it spawns: dump paths
+# get a `.{label}-pid{pid}` suffix so N workers (and the router) sharing
+# one CONSENSUS_SPECS_TPU_FLIGHT_DUMP default never clobber each other's
+# post-mortems
+WORKER_ENV = "CONSENSUS_SPECS_TPU_FLEET_WORKER"
+
+
+def resolve_dump_path(path: str) -> str:
+    """Worker-disambiguated dump path: outside a fleet worker the path is
+    returned untouched; inside one (``CONSENSUS_SPECS_TPU_FLEET_WORKER``
+    set) the worker label and pid are suffixed before the extension:
+    ``flight_dump.jsonl`` -> ``flight_dump.w0-pid1234.jsonl``."""
+    label = (os.environ.get(WORKER_ENV) or "").strip()
+    if not label:
+        return path
+    label = "".join(c for c in label if c.isalnum() or c in "_-") or "w"
+    root, ext = os.path.splitext(path)
+    return f"{root}.{label}-pid{os.getpid()}{ext or '.jsonl'}"
+
+
 def enabled() -> bool:
     """Dynamic env read (the ``tracing.trace_enabled`` contract)."""
     return os.environ.get(FLIGHT_ENV, "0") not in ("", "0")
@@ -137,9 +157,11 @@ class FlightRecorder:
 
     def dump(self, path: Optional[str] = None,
              reason: str = "on_demand") -> str:
-        """Write the JSONL journal atomically; returns the path."""
+        """Write the JSONL journal atomically; returns the (worker-
+        disambiguated, see :func:`resolve_dump_path`) path."""
         if path is None:
             path = os.environ.get(DUMP_ENV, DEFAULT_DUMP)
+        path = resolve_dump_path(path)
         fsio.atomic_write_text(path, self.to_jsonl(reason=reason))
         with self._lock:
             self._dumps += 1

@@ -19,6 +19,10 @@ PROM_PREFIX = "consensus_specs_tpu_"
 
 # -- the registry -----------------------------------------------------------
 
+# The help text of every name both packages publish is the JAX package's,
+# word for word: a fleet aggregator of either package renders a worker
+# snapshot of either package to the same scrape.
+
 # every span stage a plane may stamp onto a trace, by plane: the list
 # ``obs/tracing.py`` re-exports
 SPAN_STAGES: Dict[str, tuple] = {
@@ -38,12 +42,13 @@ GAUGES: Dict[str, str] = {
                             "rounds up to a power of two)",
     "serve.occupancy_lanes": "actual committee keys / (rows * K bucket)",
     "serve.mesh_devices": "devices in the verify plane's mesh (0 = "
-                          "single-device path, the only one the port has)",
+                          "single-device path; CONSENSUS_SPECS_TPU_MESH)",
     "serve.mesh_fallbacks": "mesh-sharded verify attempts that degraded to "
                             "the single-device path (ladder rung 0)",
     "serve.ladder_rung": "commanded degradation-ladder rung for the "
                          "service (0 = RLC combine, 1 = per-group batched, "
-                         "2 = sequential oracle)",
+                         "2 = sequential oracle; the fleet router's shed "
+                         "decisions move it)",
     "serve.deadline_flushes": "flushes fired early by the slot-budget "
                               "rule (remaining slot time minus the "
                               "observed downstream p99 would have been "
@@ -52,9 +57,18 @@ GAUGES: Dict[str, str] = {
     "serve.deadline_budget_ms": "slot budget remaining at the most "
                                 "recent deadline-driven flush (ms, after "
                                 "subtracting the downstream p99)",
-    "bls.prep_serial_fallback_items": "items left to serial per-item host "
-                                      "prep (CONSENSUS_SPECS_TPU_BATCH_"
-                                      "CODEC=0)",
+    "fleet.workers": "live worker processes behind the fleet router "
+                     "(drained workers leave the ring and this count)",
+    "fleet.snapshots": "per-worker observability snapshots the fleet "
+                       "aggregator has merged",
+    "fleet.requests": "requests the fleet router has routed to workers "
+                      "(consistent-hash result-cache affinity)",
+    "fleet.sheds": "SLO-burn-driven shed decisions (a worker commanded "
+                   "one rung down the RLC->per-group->oracle ladder)",
+    "fleet.drains": "SLO-burn-driven drain decisions (a worker removed "
+                    "from the ring and drained)",
+    "bls.prep_serial_fallback_items": "items that degraded to serial "
+                                      "per-item host prep",
     "bls.rlc_combines": "RLC combine programs run (process-wide)",
     "bls.rlc_bisections": "failed combined checks that forced a bisection "
                           "split",
@@ -62,10 +76,10 @@ GAUGES: Dict[str, str] = {
                       "padding + host-oracle hard parts)",
     "bls.final_exp_rows_inflight": "hard-part rows the last device "
                                    "finalization window coalesced (>= 2 "
-                                   "means concurrent flushes shared one VM "
-                                   "execution)",
-    "bls.vm_cache_hits": "assembled VM programs served from the "
-                         ".vm_cache_torch/ disk cache this process",
+                                   "means concurrent flushes pipelined "
+                                   "one VM execution)",
+    "bls.vm_cache_hits": "assembled VM programs served from the .vm_cache/ "
+                         "disk cache this process",
     "bls.vm_cache_misses": "VM programs that had to pay host assembly "
                            "(list scheduling) this process",
     "hist.families": "latency-histogram families tracked by this process "
@@ -80,6 +94,50 @@ GAUGES: Dict[str, str] = {
                       "(raise CONSENSUS_SPECS_TPU_FLIGHT_RING)",
     "flight.dumps": "flight-recorder JSONL dumps written (on fault or on "
                     "demand)",
+    "slo.ok": "1 when every declared objective is currently met "
+              "(vacuously 1 with no observations)",
+    "slo.violations": "declared objectives currently out of budget",
+    "slo.worst_burn_rate": "highest burn rate across objectives and "
+                           "windows (1.0 = consuming error budget exactly "
+                           "at the sustainable rate)",
+    "timeseries.samples": "fixed-interval samples the time-series "
+                          "store has recorded since process start",
+    "timeseries.points": "points currently retained across every "
+                         "ring level (bounded by "
+                         "CONSENSUS_SPECS_TPU_TS_CAP per level)",
+    "timeseries.evicted": "points dropped by ring eviction (the "
+                          "coarser levels still cover the horizon)",
+    "process.rss_bytes": "resident set size of this process "
+                         "(/proc/self/statm; the soak's memory-leak "
+                         "detector, per worker on the fleet surface)",
+    "process.cpu_s": "user+system CPU seconds consumed by this "
+                     "process (resource.getrusage)",
+    "process.open_fds": "open file descriptors held by this process "
+                        "(/proc/self/fd count; -1 when unreadable)",
+    "scale.pubkey_cache_hits": "pubkey-plane lookups served from the "
+                               "bytes-budgeted LRU of decompressed G1 "
+                               "keys",
+    "scale.pubkey_cache_misses": "pubkey-plane lookups that paid "
+                                 "batched G1 decompression through the "
+                                 "vectorized codec path",
+    "scale.pubkey_cache_bytes": "decompressed-key bytes currently "
+                                "resident in the pubkey plane (held "
+                                "under CONSENSUS_SPECS_TPU_SCALE_"
+                                "PK_BUDGET_MB)",
+    "scale.pubkey_cache_evictions": "LRU entries evicted (and "
+                                    "un-mirrored from the backend host "
+                                    "cache) to stay under the byte "
+                                    "budget",
+    "scale.pubkey_hit_rate": "pubkey-plane hits / (hits + misses) over "
+                             "the process lifetime",
+    "scale.final_exps_per_slot": "final exponentiations the last "
+                                 "hierarchical slot fold paid (1 = the "
+                                 "whole slot shared one RLC root)",
+    "scale.committees_routed": "distinct committees the affinity "
+                               "router has assigned to fleet workers",
+    "scale.affinity_moves": "committees whose affine worker changed "
+                            "(ring churn from drains/respawns; 0 on a "
+                            "stable fleet)",
 }
 
 STATS: Dict[str, str] = {
@@ -110,15 +168,28 @@ DYNAMIC_PREFIXES: Dict[str, tuple] = {
     "device[": ("device_busy_frac", "per-device occupancy (busy seconds / "
                                     "elapsed), labelled device[<index>] "
                                     "(device[host] is the prep lane)"),
-    "latency[": ("latency_stage", "per-stage serve-pipeline latency "
+    "latency[": ("latency_stage", "per-stage gossip→head latency "
                                   "histograms, labelled latency[<stage>] "
                                   "over the fixed obs/latency.py stage "
-                                  "set"),
+                                  "set (ingress/queue_wait/prep/device/"
+                                  "combine/finalize/validate/sig_wait/"
+                                  "apply/sweep/head plus the proof plane's "
+                                  "proof_build/proof_verify/proof_serve "
+                                  "and the Merkleization plane's "
+                                  "merkle_root)"),
     # node-labelled instances: N VerificationService instances in one
-    # process export under serve[<node>].<name> via node_label()
+    # process, or N fleet workers on the merged surface, export under
+    # serve[<node>].<name> via node_label()
     "serve[": ("serve_node", "per-node serve-plane metrics from multi-"
-                             "instance runs, labelled serve[<node>].<name> "
-                             "— same names as the serve.* family"),
+                             "instance (simnet) runs, labelled "
+                             "serve[<node>].<name> — same names as the "
+                             "serve.* family"),
+    "process[": ("process_node", "per-worker process resource gauges "
+                                 "on the merged fleet surface, "
+                                 "labelled process[<worker>].<name> — "
+                                 "same names as the process.* family "
+                                 "(resources must never SUM across "
+                                 "workers: each is one process's)"),
 }
 
 
@@ -179,8 +250,11 @@ def _series(name: str, label_value, value) -> str:
     return f'{name}{{label="{_escape(label_value)}"}} {value}'
 
 
-def render_prometheus() -> str:
-    """Prometheus text format 0.0.4 over the live profiling snapshot.
+def render_prometheus(stats=None, gauges=None, hists=None) -> str:
+    """Prometheus text format 0.0.4 over the live profiling snapshot, or,
+    when the (``stats``, ``gauges``, ``hists``) triple is passed, over
+    that state instead: the fleet aggregator (``obs/fleet.py``) renders
+    its merged cross-process view through this renderer.
 
     Stat accumulators render as ``_calls_total`` / ``_seconds_total``
     counters and a ``_max_seconds`` gauge; latency histograms render
@@ -191,13 +265,17 @@ def render_prometheus() -> str:
     they are. HELP/TYPE headers appear once per family even when dynamic
     labels fan it out into many series.
     """
-    from ..ops import profiling
+    if stats is None and gauges is None and hists is None:
+        from ..ops import profiling
 
-    # one histogram snapshot per latency family: the summary lines and the
-    # histogram lines below derive from the same detached copy, so the
-    # two agree on count and sum within one scrape
-    stats, gauges = profiling.stats_and_gauges()
-    lat_hists = profiling.latency_histograms()
+        # one histogram snapshot per latency family: the summary lines and
+        # the histogram lines below derive from the same detached copy, so
+        # the two agree on count and sum within one scrape
+        stats, gauges = profiling.stats_and_gauges()
+        hists = profiling.latency_histograms()
+    stats = stats or {}
+    gauges = gauges or {}
+    lat_hists = hists or {}
     entries = {label: ("stat", v) for label, v in stats.items()}
     entries.update({label: ("lat", h) for label, h in lat_hists.items()})
     entries.update({label: ("gauge", v) for label, v in gauges.items()})

@@ -1,6 +1,6 @@
 """Span-based request tracing for the serve pipeline and the VM
 execution plane (the port's copy of consensus_specs_tpu/obs/tracing.py,
-without the fleet's cross-process stitching).
+with the fleet's cross-process stitching).
 
 Every accepted ``VerificationService.submit()`` gets a ``RequestTrace``
 that the pipeline stages stamp with spans: ``queue_wait`` (submit to
@@ -309,6 +309,139 @@ class Tracer:
             path, json.dumps(self.to_chrome(), indent=1, sort_keys=True))
 
 
+# -- cross-process span stitching --------------------------------------------
+#
+# A fleet worker's spans would die at the process boundary. The worker
+# snapshot ships COMPLETED traces as JSON-safe wire dicts (`trace_to_wire`
+# / `wire_spans`, rid-delta'd the way flight events are seq-delta'd), and
+# the aggregator re-emits them under per-worker pids
+# (`worker_chrome_events`) in ONE stitched document (`stitched_chrome`).
+# Timestamps stay comparable because `time.perf_counter` is
+# CLOCK_MONOTONIC on Linux, one epoch for every process on the host, and
+# the stitch rewinds the router tracer's origin to the earliest worker
+# span, the rule `dump_trace` applies to the device and flight lanes. Flow
+# ids survive the boundary: the router forwards each submit's `flow_id`
+# over the worker protocol and the worker's finalize emits the flow START
+# on its own pid. The wire form is the JAX package's.
+
+# worker lanes start here: pid 1-4 are the router's own lanes (serve /
+# vm / devices / flight), workers take 100+index in snapshot order
+WORKER_PID_BASE = 100
+
+
+def trace_to_wire(tr: RequestTrace) -> Dict:
+    """One completed trace as a JSON-safe dict (the snapshot carrier)."""
+    return {
+        "rid": tr.rid,
+        "kind": tr.kind,
+        "n_keys": tr.n_keys,
+        "t_submit": tr.t_submit,
+        "ok": tr.ok,
+        "pinned": tr.pinned,
+        "total_s": tr.total_s,
+        "flow": tr.flow,
+        "flows": list(tr.flows),
+        "spans": [[name, a, b] for name, a, b in tr.spans],
+    }
+
+
+def wire_spans(tracer: Tracer, since_rid: int = 0) -> List[Dict]:
+    """Completed traces with ``rid`` past ``since_rid`` (the aggregator
+    passes its high-water rid back, so steady-state snapshots ship span
+    DELTAS — same incremental contract as the flight journal)."""
+    return [trace_to_wire(tr) for tr in tracer.completed()
+            if tr.rid > int(since_rid)]
+
+
+def earliest_wire_timestamp(traces: List[Dict]) -> Optional[float]:
+    times = []
+    for tr in traces:
+        times.append(float(tr.get("t_submit", 0.0)))
+        for _name, a, _b in tr.get("spans", ()):
+            times.append(float(a))
+    return min(times) if times else None
+
+
+def worker_chrome_events(traces: List[Dict], pid: int, label: str,
+                         us) -> List[Dict]:
+    """One worker's wire traces as Chrome events on its own pid —
+    the same span/flow shapes ``to_chrome`` emits for the router's
+    requests, so the stitched document reads as one pipeline."""
+    events: List[Dict] = [
+        {"ph": "M", "name": "process_name", "pid": pid,
+         "args": {"name": f"worker {label}"}},
+    ]
+    for tr in traces:
+        rid = int(tr.get("rid", 0))
+        events.append({
+            "ph": "M", "name": "thread_name", "pid": pid, "tid": rid,
+            "args": {"name": f"req-{rid} {tr.get('kind')} "
+                             f"k={tr.get('n_keys')}"},
+        })
+        spans = [(name, float(a), float(b))
+                 for name, a, b in tr.get("spans", ())]
+        for name, a, b in spans:
+            args = {"kind": tr.get("kind"), "n_keys": tr.get("n_keys"),
+                    "worker": label}
+            if name == "finalize":
+                args.update(ok=tr.get("ok"), pinned=tr.get("pinned"),
+                            total_ms=round(
+                                (tr.get("total_s") or 0.0) * 1e3, 3))
+            events.append({
+                "name": name, "cat": "serve", "ph": "X",
+                "pid": pid, "tid": rid,
+                "ts": us(a),
+                "dur": round(max(0.0, b - a) * 1e6, 3),
+                "args": args,
+            })
+        if spans:
+            if tr.get("flow") is not None:
+                events.append({
+                    "name": "gossip_to_head", "cat": "latency",
+                    "ph": "s", "id": int(tr["flow"]), "pid": pid,
+                    "tid": rid,
+                    "ts": us(max(b for _n, _a, b in spans)),
+                })
+            t_last_start = max(a for _n, a, _b in spans)
+            for fid in tr.get("flows", ()):
+                events.append({
+                    "name": "gossip_to_head", "cat": "latency",
+                    "ph": "f", "bp": "e", "id": int(fid),
+                    "pid": pid, "tid": rid,
+                    "ts": us(t_last_start),
+                })
+    return events
+
+
+def stitched_chrome(tracer: Tracer, worker_sections: Dict[str, Dict]) -> Dict:
+    """ONE Chrome document from the router tracer plus per-worker span
+    sections (``{label: {"pid": os_pid, "traces": [wire traces]}}`` —
+    what ``obs/fleet.FleetAggregator.worker_span_sections`` returns).
+    Workers render on pids ``WORKER_PID_BASE + i`` in sorted-label order
+    (the worker's OS pid rides the process_name metadata via its label
+    row in ``otherData.workerPids``), and every flow id the router
+    forwarded joins the worker-side START to the router-side FINISH."""
+    earliest = None
+    for sec in worker_sections.values():
+        t = earliest_wire_timestamp(sec.get("traces", ()))
+        if t is not None:
+            earliest = t if earliest is None else min(earliest, t)
+    if earliest is not None:
+        with tracer._lock:
+            tracer._t0 = min(tracer._t0, earliest)
+    doc = tracer.to_chrome()
+    worker_pids = {}
+    for i, label in enumerate(sorted(worker_sections)):
+        sec = worker_sections[label]
+        pid = WORKER_PID_BASE + i
+        worker_pids[label] = {"pid": pid,
+                              "os_pid": int(sec.get("pid") or 0)}
+        doc["traceEvents"].extend(worker_chrome_events(
+            sec.get("traces", ()), pid, label, tracer._us))
+    doc["otherData"]["workerPids"] = worker_pids
+    return doc
+
+
 # -- process-global tracer ---------------------------------------------------
 
 _global_lock = threading.Lock()
@@ -363,5 +496,29 @@ def dump_trace(path: str) -> str:
     doc["traceEvents"].extend(flight.chrome_events(tracer._us))
     from . import fsio
 
+    return fsio.atomic_write_text(
+        path, json.dumps(doc, indent=1, sort_keys=True))
+
+
+def dump_stitched_trace(path: str, worker_sections: Dict[str, Dict]) -> str:
+    """`dump_trace` plus the fleet's cross-process span sections: the
+    router's own lanes (pids 1-4) AND every worker's request spans on
+    per-worker pids, flow ids joining across the process boundary.
+    ``serve/fleet.FleetRouter.dump_trace`` is the caller."""
+    from . import devices, flight, fsio
+
+    tracer = global_tracer()
+    earliest = [t for t in (devices.earliest_timestamp(),
+                            flight.earliest_timestamp()) if t is not None]
+    for sec in worker_sections.values():
+        t = earliest_wire_timestamp(sec.get("traces", ()))
+        if t is not None:
+            earliest.append(t)
+    if earliest:
+        with tracer._lock:
+            tracer._t0 = min(tracer._t0, min(earliest))
+    doc = stitched_chrome(tracer, worker_sections)
+    doc["traceEvents"].extend(devices.chrome_events(tracer._us))
+    doc["traceEvents"].extend(flight.chrome_events(tracer._us))
     return fsio.atomic_write_text(
         path, json.dumps(doc, indent=1, sort_keys=True))

@@ -15,10 +15,11 @@ million-validator registry:
   combine, committee verdicts folded up a slot-level tree so the slot
   pays ONE final exponentiation, with bisection localizing a bad
   committee exactly.
+- ``routing.py``   — committee-affinity routing over the serve fleet
+  (``CommitteeFleet``: a committee's sub-batches always reach the same
+  worker, so its pubkey working set stays warm there).
 - ``smoke.py``     — a small-but-mainnet-preset slot verified
   hierarchically == flat == host oracle over valid / censored / bad
-  committee traffic, on the card.
-
-The JAX package's committee-affinity fleet routing (``routing.py``) and
-the smoke's fleet phase wait for the port's serve fleet.
+  committee traffic, on the card, then routed through a 2-worker fleet
+  by committee affinity.
 """

@@ -20,8 +20,10 @@ three verdict vectors required bit-identical:
    but wrong signature. The slot root fails, bisection must localize
    EXACTLY that committee, and the flat/oracle paths must agree.
 
-The JAX smoke's fourth phase (committee-affinity routing through a
-worker fleet) waits for the port's fleet. Exit 0 on pass, 1 with a
+Phase 4 (``run_affinity``) routes the slot through a real 2-worker fleet
+with committee-index affinity (verdict backend: affinity is
+crypto-independent) and demands a stable committee->worker assignment
+across rounds with zero affinity moves. Exit 0 on pass, 1 with a
 diagnosis.
 """
 import os
@@ -116,10 +118,40 @@ def run_rounds(n_validators: int = DEFAULT_VALIDATORS, device=None,
     return out
 
 
+def run_affinity(per_slot: int, device=None, workers: int = 2) -> dict:
+    """Phase 4: ``per_slot`` committees routed twice through a
+    ``workers``-worker verdict fleet on ``device`` (None is the card) by
+    committee-index affinity. Returns the assignment; raises
+    AssertionError on a wrong verdict, a drifting assignment or an
+    affinity move."""
+    from ..obs import flight
+    from . import routing
+
+    with routing.CommitteeFleet(workers=workers, backend="verdict",
+                                device=device) as fleet:
+        assign = fleet.assignment(range(per_slot))
+        verdict_items = [("fast_aggregate", [b"\x22" * 48],
+                          b"scale%03d" % ci + b"\x00" * 23, b"\x11" * 96)
+                         for ci in range(per_slot)]
+        for _round in range(2):
+            got = fleet.submit_slot(verdict_items)
+            assert all(got), f"fleet round verdicts: {got}"
+        assert fleet.assignment(range(per_slot)) == assign, (
+            "committee->worker assignment drifted between rounds")
+        assert fleet.affinity_moves == 0, (
+            f"{fleet.affinity_moves} affinity moves on a stable ring")
+        routed = fleet.committees_routed
+    flight.note("scale", "smoke_affinity",
+                assignment={str(k): v for k, v in assign.items()})
+    return {"assignment": assign, "committees_routed": routed,
+            "workers_covered": len(set(assign.values()))}
+
+
 def main() -> int:
     n = int(os.environ.get(VALIDATORS_ENV, str(DEFAULT_VALIDATORS)))
     try:
         res = run_rounds(n)
+        aff = run_affinity(res["committees_per_slot"])
     except Exception as e:  # noqa: BLE001 - the smoke's diagnosis
         print(f"mainnet-smoke FAIL: {type(e).__name__}: {e}")
         return 1
@@ -132,6 +164,8 @@ def main() -> int:
           f"out of committee 0, subset cover verified")
     print(f"mainnet-smoke: bad committee {res['bad_committee']['planted']} "
           f"localized by {res['bad_committee']['bisections']} bisection(s)")
+    print(f"mainnet-smoke: committee affinity stable across rounds "
+          f"({aff['workers_covered']} workers covered)")
     print("mainnet-smoke OK")
     return 0
 

@@ -14,12 +14,19 @@ cache hit rate, latency percentiles, the prep/device split and the RLC
 amortization. Env knobs (the JAX package's names and defaults):
   SERVE_COMMITTEES, SERVE_K, SERVE_EVENTS, SERVE_RATE_HZ,
   SERVE_MAX_BATCH, SERVE_MAX_WAIT_MS, SERVE_INJECT_FAILURE (1/0),
-  SERVE_SEED
+  SERVE_SEED, SERVE_METRICS_PORT (opt-in /metrics + /snapshot + /healthz
+  endpoint during the run; 0 = ephemeral port, reported in the record)
+
+It also holds the crypto-free pieces that fleet workers in verdict mode,
+and the tests, run on: ``VerdictBackend`` (the verdict rides in the
+signature bytes) and the per-event gossip fault plan.
 """
 import concurrent.futures as cf
 import os
 import random
 import time
+from collections.abc import Sequence
+from dataclasses import dataclass
 from typing import List, Tuple
 
 from ..device import resolve_device
@@ -64,6 +71,117 @@ class FailingBackendProxy:
     def prewarm_host_caches(self, *args, **kwargs):
         # codec prep never fails here: the injection targets verification
         return self._backend.prewarm_host_caches(*args, **kwargs)
+
+
+# -- crypto-free verdicts and gossip fault plans -------------------------------
+#
+# A gossip fault plan is a per-event kind string:
+#   "ok"            a valid attestation of a known committee;
+#   "invalid_sig"   its signature is BAD_SIGNATURE (the verdict backend and
+#                   the worker's per-item oracle answer False);
+#   "orphan"        it votes for a block no honest node has seen yet;
+#   "equivocation"  a conflicting twin proposal at the same slot, published
+#                   to a different subset of the network;
+#   "censored_agg"  the adversarial aggregator never publishes this
+#                   committee's aggregate.
+
+BAD_SIGNATURE = b"\xba" * 96  # the injected invalid-signature marker
+
+# every kind a fault plan may carry, in draw-priority order
+FAULT_KINDS = ("ok", "invalid_sig", "orphan", "equivocation", "censored_agg")
+
+
+@dataclass(frozen=True)
+class GossipFaultPlan(Sequence):
+    """The stable per-event fault plan: Sequence-shaped over the per-event
+    kind strings (``plan[e]``, ``len(plan)``, ``plan.count("orphan")``)
+    while carrying the rates that produced it. Equality is structural:
+    same seed, same rates, identical plan."""
+
+    kinds: Tuple[str, ...]
+    invalid_rate: float = 0.0
+    orphan_rate: float = 0.0
+    equivocation_rate: float = 0.0
+    censor_rate: float = 0.0
+
+    def __post_init__(self):
+        unknown = set(self.kinds) - set(FAULT_KINDS)
+        if unknown:
+            raise ValueError(f"unknown fault kinds in plan: {sorted(unknown)}")
+
+    def __len__(self) -> int:
+        return len(self.kinds)
+
+    def __getitem__(self, index):
+        return self.kinds[index]
+
+    def counts(self) -> dict:
+        """{kind: occurrences} over every kind, zeros included."""
+        return {kind: self.kinds.count(kind) for kind in FAULT_KINDS}
+
+
+class VerdictBackend:
+    """Crypto-free batched backend: the verdict rides IN the signature
+    bytes (``BAD_SIGNATURE`` -> False, anything else -> True), so replays
+    and fleet workers exercise the whole service pipeline (batching,
+    dedup, caching, False-verdict routing) without paying pairings.
+    Counts calls and items like the real backend's CALL_COUNTS. It does
+    no device work: ``device`` is accepted, as the service passes it, and
+    ignored."""
+
+    def __init__(self):
+        self.calls = 0
+        self.items = 0
+
+    def _verdicts(self, signatures):
+        self.calls += 1
+        self.items += len(signatures)
+        return [sig != BAD_SIGNATURE for sig in signatures]
+
+    def batch_fast_aggregate_verify(self, pubkey_sets, messages, signatures,
+                                    device=None):
+        return self._verdicts([bytes(s) for s in signatures])
+
+    def batch_aggregate_verify(self, pubkey_sets, message_sets, signatures,
+                               device=None):
+        return self._verdicts([bytes(s) for s in signatures])
+
+
+def plan_gossip_faults(rng: random.Random, events: int,
+                       invalid_rate: float = 0.0,
+                       orphan_rate: float = 0.0,
+                       equivocation_rate: float = 0.0,
+                       censor_rate: float = 0.0) -> GossipFaultPlan:
+    """Per-event fault plan for an attestation gossip replay: one kind
+    from ``FAULT_KINDS`` drawn independently per event (a single uniform
+    draw split across the rate bands, so adding a rate never perturbs the
+    draws of the kinds before it at a fixed seed). The first event is
+    always clean so a replay never starts with an empty applied set."""
+    kinds = []
+    bands = (
+        ("invalid_sig", invalid_rate),
+        ("orphan", orphan_rate),
+        ("equivocation", equivocation_rate),
+        ("censored_agg", censor_rate),
+    )
+    for e in range(events):
+        draw = rng.random()
+        kind = "ok"
+        if e:
+            upper = 0.0
+            for name, rate in bands:
+                upper += rate
+                if draw < upper:
+                    kind = name
+                    break
+        kinds.append(kind)
+    return GossipFaultPlan(
+        kinds=tuple(kinds),
+        invalid_rate=invalid_rate,
+        orphan_rate=orphan_rate,
+        equivocation_rate=equivocation_rate,
+        censor_rate=censor_rate,
+    )
 
 
 def build_committees(n_committees: int, k: int, seed: int = 7
@@ -161,7 +279,19 @@ def run_serve_bench(target: float = TARGET_PER_CHIP, device=None) -> dict:
         backend=backend, device=dev, max_batch=max_batch,
         max_wait_ms=max_wait_ms,
     )
+    # opt-in exposition endpoint, live DURING the load (SERVE_METRICS_PORT;
+    # 0 = ephemeral): /metrics Prometheus text, /snapshot ServeMetrics
+    # JSON, /healthz, scraped once mid-load to show it answers under load.
+    # The whole load runs under try/finally: the service drains and the
+    # port unbinds even when a submit or the (non-fatal) scrape fails.
+    exposition, scrape = None, None
+    port_env = (os.environ.get("SERVE_METRICS_PORT") or "").strip()
     try:
+        if port_env:
+            from ..obs.exposition import start_exposition
+
+            exposition = start_exposition(metrics=svc.metrics,
+                                          port=int(port_env))
         futures, expected, sig_count = [], [], 0
         t_start = time.perf_counter()
         t_next = t_start
@@ -174,13 +304,38 @@ def run_serve_bench(target: float = TARGET_PER_CHIP, device=None) -> dict:
             pause = t_next - time.perf_counter()
             if pause > 0:
                 time.sleep(pause)
+        scrape_thread, scrape_box = None, {}
+        if exposition is not None:
+            # the stream is submitted but far from drained: this scrape
+            # happens under live traffic, on a helper thread, so a slow
+            # endpoint never inflates the window the sigs/s headline
+            # divides by. A failed scrape is a recorded observation
+            # (scrape stays None), never the reason the measurement dies
+            import threading
+            import urllib.request
+
+            def _scrape():
+                try:
+                    with urllib.request.urlopen(exposition.url("/metrics"),
+                                                timeout=30) as resp:
+                        scrape_box["body"] = resp.read().decode()
+                except OSError:
+                    pass
+
+            scrape_thread = threading.Thread(target=_scrape, daemon=True)
+            scrape_thread.start()
         # bounded wait FIRST, then harvest: f.result(timeout=...) in a loop
         # would raise on the first unresolved future and never reach the
         # lost-request accounting below
         _, pending = cf.wait(futures, timeout=600)
         elapsed = time.perf_counter() - t_start
+        if scrape_thread is not None:
+            scrape_thread.join(35)
+            scrape = scrape_box.get("body")
     finally:
         svc.close(timeout=60)
+        if exposition is not None:
+            exposition.close()
 
     lost = len(pending)
     results = [bool(f.result()) if f.done() else None for f in futures]
@@ -249,4 +404,8 @@ def run_serve_bench(target: float = TARGET_PER_CHIP, device=None) -> dict:
     )
     if devices_section is not None:
         result["devices"] = devices_section
+    if exposition is not None:
+        result["metrics_port"] = exposition.port
+        result["metrics_scrape_ok"] = scrape is not None
+        result["metrics_scrape_lines"] = len((scrape or "").splitlines())
     return result

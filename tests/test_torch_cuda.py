@@ -438,3 +438,45 @@ def test_epoch_slot_through_the_collector(dev):
             c.pubkeys, c.messages, c.signature) == want[i]
     assert np.array_equal(col.flush(), want)
     assert np.array_equal(col.flush(rlc=True), want)
+
+
+def test_bls_fleet_on_the_card_answers_as_the_oracle(dev):
+    """A 2-worker ``bls`` fleet on the card (each worker its own process
+    and CUDA context) answers the fleet smoke's input classes (valid
+    committees, a corrupted message, an undecodable signature, an
+    infinity pubkey) as the pure-Python oracle does, and each worker
+    reports launches of both kernels and the card's name."""
+    from consensus_specs_tpu_torch.serve import fleet_smoke
+    from consensus_specs_tpu_torch.serve.fleet import FleetRouter
+    from consensus_specs_tpu_torch.utils import bls
+    from consensus_specs_tpu_torch.utils.bls12_381 import R
+
+    def committee(tag, k=1, good=True):
+        sks = [7000 * tag + j + 1 for j in range(k)]
+        msg = (b"flt%03d" % tag) + b"\x00" * 26
+        sig = bls.Sign(sum(sks) % R, msg)
+        if not good:
+            msg = b"\xff" + msg[1:]
+        return ("fast_aggregate", [bls.SkToPk(sk) for sk in sks], msg, sig)
+
+    items = [committee(1, k=2), committee(2), committee(3, good=False),
+             ("fast_aggregate", [bls.SkToPk(7)], b"m" * 32,
+              b"\xa0" + b"\x01" * 95),
+             ("fast_aggregate", [b"\xc0" + b"\x00" * 47], b"p" * 32,
+              bls.Sign(9, b"p" * 32))]
+    want = [bls.oracle_fast_aggregate_verify(*it[1:]) for it in items]
+    assert want == [True, True, False, False, False]
+    with FleetRouter(workers=2, backend="bls",
+                     env={"SERVE_MAX_WAIT_MS": "300"}) as router:
+        assert router.device.type == "cuda"
+        got = [bool(f.result(timeout=600))
+               for f in [router.submit(*it) for it in items]]
+        # each worker answers a valid committee of its own, so both run
+        # both kernels
+        for label in router.live_workers:
+            assert router.handle(label).submit(*committee(10)).result(
+                timeout=600) is True
+        snaps = router.poll_snapshots()
+    assert got == want
+    assert len(snaps) == 2
+    fleet_smoke.check_worker_devices(snaps, dev)

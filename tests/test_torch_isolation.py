@@ -68,7 +68,10 @@ def test_port_imports_no_jax_and_no_reference_module():
                 "obs.registry", "obs.hist", "obs.programs", "obs.fsio",
                 "ops.profiling", "utils.bls", "utils.keygen", "batch_verify",
                 "scale.registry", "scale.pubkeys", "scale.hierarchy",
-                "scale.smoke", "bench.epoch_replay"):
+                "scale.smoke", "bench.epoch_replay", "serve.worker",
+                "serve.fleet", "serve.fleet_smoke", "scale.routing",
+                "obs.snapshot", "obs.fleet", "obs.slo", "obs.timeseries",
+                "obs.exposition"):
         assert "consensus_specs_tpu_torch." + mod in got["modules"], mod
     assert got["one_squared"] == 1
     assert got["hashed"] == 1
@@ -78,6 +81,35 @@ def test_port_imports_no_jax_and_no_reference_module():
     assert got["jax"] == []
     assert got["reference"] == []
     assert got["native_sha256"] == []
+
+
+def test_fleet_worker_process_imports_no_jax_and_no_reference_module():
+    """The workers are processes of their own: a port verdict worker,
+    spawned by the port's router, reports (through its snapshot) every
+    module it loaded. None is jax or of the JAX package, it never loaded
+    the CUDA build or initialized CUDA, and it runs on the router's
+    device."""
+    from consensus_specs_tpu_torch.serve.fleet import FleetRouter
+
+    router = FleetRouter(
+        workers=1, backend="verdict", device="cpu",
+        env={"CONSENSUS_SPECS_TPU_FLEET_REPORT_MODULES": "1",
+             "SERVE_MAX_WAIT_MS": "1"})
+    try:
+        assert router.submit("fast_aggregate", [b"\x01" * 48], b"m" * 32,
+                             b"\x02" * 96).result(timeout=30) is True
+        extra = router.poll_snapshots()["w0"]["extra"]
+    finally:
+        router.close()
+    mods = extra["modules"]
+    assert "consensus_specs_tpu_torch.serve.load" in mods
+    assert "consensus_specs_tpu_torch.serve.service" in mods
+    assert [m for m in mods if m == "jax" or m.startswith("jax.")] == []
+    assert [m for m in mods if m == "consensus_specs_tpu"
+            or m.startswith("consensus_specs_tpu.")] == []
+    assert "consensus_specs_tpu_torch.ops.cuda_build" not in mods
+    assert extra["cuda_initialized"] is False
+    assert extra["device"] == "cpu"
 
 
 def test_chip_smoke_imports_nothing_of_jax():

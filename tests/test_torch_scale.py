@@ -192,3 +192,52 @@ def test_verify_slot_matches_reference_plane():
     assert _accounting(got2) == _accounting(want2)
     assert got2.all_valid and got2.final_exps_per_slot == 1.0
     assert got2.pubkey_hits > 0 and got2.pubkey_misses == 0
+
+
+# -- committee-affinity routing (scale/routing.py) and the smoke's phase 4 ---
+
+
+class _RingRouter:
+    """The piece of a FleetRouter that CommitteeFleet's assignment reads:
+    ``route_label`` over one package's consistent-hash ring."""
+
+    def __init__(self, ring_cls, labels):
+        self._ring = ring_cls()
+        for label in labels:
+            self._ring.add(label)
+
+    def route_label(self, key):
+        return self._ring.route(key)
+
+
+@pytest.mark.parametrize("labels", [("w0", "w1"), ("w0", "w1", "w2")])
+def test_committee_affinity_assignment_matches_reference(labels):
+    from consensus_specs_tpu.scale import routing as jrouting
+    from consensus_specs_tpu.serve.fleet import HashRing as JRing
+    from consensus_specs_tpu_torch.scale import routing as trouting
+    from consensus_specs_tpu_torch.serve.fleet import HashRing as TRing
+
+    for ci in (0, 1, 63, 12345):
+        assert trouting.committee_key(ci) == jrouting.committee_key(ci)
+    got = trouting.CommitteeFleet(router=_RingRouter(TRing, labels))
+    want = jrouting.CommitteeFleet(router=_RingRouter(JRing, labels))
+    assign = got.assignment(range(64))
+    assert assign == want.assignment(range(64))
+    assert set(assign.values()) == set(labels)
+    got.close()  # a borrowed router is not closed
+
+
+def test_smoke_phase_4_affinity_through_a_verdict_fleet():
+    """The port's scale/smoke.py phase 4 on the CPU: the slot's committees
+    through a real 2-worker verdict fleet twice, every verdict True, the
+    assignment stable and the reference's, 0 affinity moves."""
+    from consensus_specs_tpu.scale import routing as jrouting
+    from consensus_specs_tpu.serve.fleet import HashRing as JRing
+    from consensus_specs_tpu_torch.scale import smoke
+
+    out = smoke.run_affinity(16, device="cpu")
+    want = jrouting.CommitteeFleet(
+        router=_RingRouter(JRing, ("w0", "w1"))).assignment(range(16))
+    assert out["assignment"] == want
+    assert out["committees_routed"] == 16
+    assert out["workers_covered"] == 2
