@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Drives ``consensus_specs_tpu_torch`` (never jax, never the JAX package)
-through thirteen phases, each printing one JSON line:
+through fourteen phases, each printing one JSON line:
 
   1. build   -- compile every CUDA kernel of the port from csrc/ with nvcc
                for sm_90a (one nvcc per source, all started together);
@@ -109,9 +109,31 @@ through thirteen phases, each printing one JSON line:
                within its budget, peak RSS, and a planted bad committee
                localized by bisection and checked against the oracle with
                one other committee.
-Phases 9-11 build their keys and signatures in a pool of spawned
+ 12. spec    -- the port's own executable spec (its builder, SSZ and
+               phase0/altair sources; no spec of the JAX package) with its
+               switchboard on the card. World A, BASELINE config 1: phase0
+               minimal, 2,048 validators (4 committees of 64 a slot), one
+               epoch of 8 blocks carrying ~28 full aggregates, built by the
+               port's helpers; world B, config 3: altair mainnet, 1,024
+               validators, two blocks with sync aggregates of 512 and 384
+               seats. Each world replayed three ways from its genesis:
+               replay_blocks_batched on the card, state_transition with
+               every check its own card call, and BLS off; equal
+               post-state roots after every block, every check True;
+               routes 1 and 2 cold and warm, blocks/s, signatures/s and
+               each wall split into host state transition, codec prep,
+               vm.execute and easy part. A planted check in each world
+               (an aggregate over another message; a sync bit cleared with
+               the signature kept) flagged alone, the oracle agreeing.
+               Then world A's epoch through HeadService over a
+               VerificationService on the card, differential on: two
+               early aggregates deferred then applied, two BAD_SIGNATURE
+               attestations dropped, gossip->head p50/p99. Aggregates are
+               signed as Sign(sum sk), shown equal on one committee of
+               each world to the helpers' member-by-member Aggregate.
+Phases 9-12 build their keys and signatures in a pool of spawned
 processes (utils/keygen.py).
- 12. fleet   -- the serve fleet on the card: FleetRouter with 2 bls worker
+ 13. fleet   -- the serve fleet on the card: FleetRouter with 2 bls worker
                processes (each its own CUDA context). (a) the port's
                serve/fleet_smoke.main: verdict identity fleet ==
                single process == oracle over every input class, every
@@ -128,8 +150,8 @@ processes (utils/keygen.py).
                assignment, 0 affinity moves; (c) one worker armed to fail
                until the router sheds or drains it (falls back on
                purpose). The workers' launch counts are summed and their
-               launch shapes (from their snapshots) join phase 13.
- 13. kernels -- every program and row count that phases 9-12 launched the
+               launch shapes (from their snapshots) join phase 14.
+ 14. kernels -- every program and row count that phases 9-13 launched the
                step kernel at (noted during those phases) and that no
                earlier phase checked: the first 256 steps on random
                canonical inputs limb for limb against the plain version,
@@ -2264,7 +2286,591 @@ def phase_mainnet(torch, pool, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 12: the serve fleet
+# phase 12: the port's own executable spec on the card
+# ---------------------------------------------------------------------------
+
+# BASELINE config 1: phase0 minimal, 2,048 validators at 32 ETH, so 4
+# committees of 64 a slot; one epoch of 8 blocks
+SPEC_WORLD_A = {"fork": "phase0", "preset": "minimal", "validators": 2048}
+# BASELINE config 3: altair mainnet, 1,024 validators, a sync committee of
+# 512 seats drawn from them; two blocks, all seats and 3/4 of them signing
+SPEC_WORLD_B = {"fork": "altair", "preset": "mainnet", "validators": 1024,
+                "participation": (1.0, 0.75)}
+HEAD_GOSSIP_BATCH = 8
+HEAD_SINGLES = 64  # single-member attestations of the last slot
+
+
+def _spec_world(pool, fork, preset, n):
+    """The port's spec (its own builder) and a genesis of ``n`` validators
+    from the port's helpers, whose key cache is filled from ``pool``
+    (exact derivations in spawned processes)."""
+    from consensus_specs_tpu_torch import builder
+    from consensus_specs_tpu_torch.test.helpers import keys
+    from consensus_specs_tpu_torch.test.helpers.genesis import (
+        create_genesis_state,
+    )
+
+    spec = builder.build_spec_module(fork, preset)
+    _check(spec.__name__ == f"consensus_specs_tpu_torch.{fork}.{preset}",
+           f"spec module {spec.__name__}")
+    missing = [i for i in range(n) if i not in keys.pubkeys._cache]
+    for i, pk in zip(missing, pool.sk_to_pk([keys.privkeys[i]
+                                             for i in missing])):
+        keys.pubkeys._cache[i] = pk
+    t0 = time.perf_counter()
+    genesis = create_genesis_state(spec, [spec.MAX_EFFECTIVE_BALANCE] * n,
+                                   spec.MAX_EFFECTIVE_BALANCE)
+    return spec, genesis, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _pool_signatures(pool, pairs):
+    """The switchboard's Sign answered from ``pool`` for ``pairs`` (sk,
+    msg): the same bytes, derived in spawned processes, so a helper that
+    signs member by member runs its own code at pool speed."""
+    from consensus_specs_tpu_torch.utils import bls
+
+    pairs = [(int(sk), bytes(m)) for sk, m in pairs]
+    table = dict(zip(pairs, pool.sign(pairs)))
+
+    def wrap(fn):
+        def sign(sk, msg):
+            hit = table.get((int(sk), bytes(msg)))
+            return hit if hit is not None else fn(sk, msg)
+        return sign
+    with _patched(bls, "Sign", wrap):
+        yield
+
+
+def _aggregate_sig(spec, state, att):
+    """(signing root, member privkeys) of an attestation: an aggregate is
+    signed as Sign(sum sk mod r, root), the identity bench/epoch_replay
+    uses."""
+    from consensus_specs_tpu_torch.test.helpers.keys import privkeys
+
+    root = bytes(spec.compute_signing_root(att.data, spec.get_domain(
+        state, spec.DOMAIN_BEACON_ATTESTER, att.data.target.epoch)))
+    members = sorted(spec.get_attesting_indices(state, att.data,
+                                                att.aggregation_bits))
+    return root, [privkeys[i] for i in members]
+
+
+def _signed_aggregates(pool, spec, state, slot):
+    """Every committee's full aggregate for ``slot`` (the port's helpers,
+    unsigned), signed in one pool call."""
+    from consensus_specs_tpu_torch.test.helpers.attestations import (
+        get_valid_attestation,
+    )
+    from consensus_specs_tpu_torch.utils.bls12_381 import R
+
+    epoch = spec.compute_epoch_at_slot(slot)
+    atts = [get_valid_attestation(spec, state, slot, index=i, signed=False)
+            for i in range(int(spec.get_committee_count_per_slot(state,
+                                                                 epoch)))]
+    roots = [_aggregate_sig(spec, state, a) for a in atts]
+    sigs = pool.sign([(sum(sks) % R, root) for root, sks in roots])
+    for att, sig in zip(atts, sigs):
+        att.signature = spec.BLSSignature(sig)
+    return atts
+
+
+def _seal(spec, state, block):
+    """state_transition_and_sign_block with the block's own checks
+    collected and dropped: sealing is set-up, the routes verify."""
+    from consensus_specs_tpu_torch.batch_verify import SignatureCollector
+    from consensus_specs_tpu_torch.test.helpers.state import (
+        state_transition_and_sign_block,
+    )
+
+    with SignatureCollector(spec):
+        return state_transition_and_sign_block(spec, state, block)
+
+
+def _world_a_blocks(pool, spec, genesis):
+    """One epoch of 8 blocks, each carrying the full aggregates of the
+    slot before, and the last slot's aggregates (for gossip):
+    (blocks, {slot: aggregates})."""
+    from consensus_specs_tpu_torch.test.helpers.block import (
+        build_empty_block_for_next_slot,
+    )
+
+    state = genesis.copy()
+    blocks, aggregates = [], {}
+    for _ in range(int(spec.SLOTS_PER_EPOCH)):
+        block = build_empty_block_for_next_slot(spec, state)
+        if state.slot >= spec.MIN_ATTESTATION_INCLUSION_DELAY:
+            aggregates[int(state.slot)] = _signed_aggregates(
+                pool, spec, state, state.slot)
+            for att in aggregates[int(state.slot)]:
+                block.body.attestations.append(att)
+        blocks.append(_seal(spec, state, block))
+    aggregates[int(state.slot)] = _signed_aggregates(pool, spec, state,
+                                                     state.slot)
+    return blocks, aggregates, state
+
+
+def _world_b_blocks(pool, spec, genesis, participation, rng):
+    """One block a slot after genesis, block i with a sync aggregate of
+    ``participation[i]`` of the 512 seats (chosen with ``rng``), signed as
+    Sign(sum over set seats of sk mod r): a duplicate member counts once
+    per seat. Returns (blocks, [(pre-state, set seats, signing root)])."""
+    from consensus_specs_tpu_torch.test.helpers.block import (
+        build_empty_block_for_next_slot,
+    )
+    from consensus_specs_tpu_torch.test.helpers.keys import privkeys
+    from consensus_specs_tpu_torch.test.helpers.sync_committee import (
+        compute_sync_committee_signing_root, get_committee_indices,
+    )
+    from consensus_specs_tpu_torch.utils.bls12_381 import R
+
+    state = genesis.copy()
+    seats = get_committee_indices(spec, state)
+    blocks, signed_over = [], []
+    for share in participation:
+        block = build_empty_block_for_next_slot(spec, state)
+        n_set = int(round(share * len(seats)))
+        chosen = set(rng.choice(len(seats), n_set, replace=False).tolist())
+        bits = [i in chosen for i in range(len(seats))]
+        root = bytes(compute_sync_committee_signing_root(spec, state,
+                                                         block.slot))
+        sk = sum(privkeys[seats[i]] for i in chosen) % R
+        block.body.sync_aggregate = spec.SyncAggregate(
+            sync_committee_bits=bits,
+            sync_committee_signature=pool.sign([(sk, root)])[0])
+        signed_over.append((state.copy(), [seats[i] for i in sorted(chosen)],
+                            root, block.slot))
+        blocks.append(_seal(spec, state, block))
+    return blocks, signed_over
+
+
+def _same_as_member_by_member(pool, spec, got_sig, participants, root,
+                              helper):
+    """The shortcut Sign(sum sk) gives the bytes of the helpers' own
+    member-by-member Aggregate (their Sign answered from the pool)."""
+    from consensus_specs_tpu_torch.test.helpers.keys import privkeys
+
+    t0 = time.perf_counter()
+    with _pool_signatures(pool, [(privkeys[i], root) for i in participants]):
+        want = bytes(helper())
+    _check(want == bytes(got_sig),
+           f"{spec.__name__}: Sign(sum sk) differs from the member-by-member "
+           f"Aggregate over {len(participants)} keys")
+    return {"keys": len(participants), "equal_bytes": True,
+            "s": time.perf_counter() - t0}
+
+
+def _check_summary(col_checks):
+    """{"kind k<bucket>": [checks, signatures]} of collected checks."""
+    from consensus_specs_tpu_torch.ops import bls_backend
+
+    out = {}
+    for c in col_checks:
+        key = f"{c.kind} k{bls_backend._k_bucket(max(1, len(c.pubkeys)))}"
+        n = out.setdefault(key, [0, 0])
+        n[0] += 1
+        n[1] += len(c.pubkeys)
+    return out
+
+
+def _replay_route(torch, route, spec, base, blocks):
+    """One replay of ``blocks`` from ``base``: ``batched`` (the collector
+    through replay_blocks_batched), ``sequential`` (state_transition with
+    the switchboard on the card, a call a check) or ``no_bls``. Returns
+    (roots after every block, verdicts or None, split). The host state
+    transition is the time inside state_transition less the time inside
+    the switchboard's verify calls (none on the batched route, whose
+    collector records the checks)."""
+    from consensus_specs_tpu_torch import batch_verify
+    from consensus_specs_tpu_torch.utils import bls
+
+    roots, stf, flushes, verifies = [], [], [], []
+
+    def record_roots(fn):
+        def transition(state, signed_block, *args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(state, signed_block, *args, **kwargs)
+            stf.append(time.perf_counter() - t0)
+            roots.append(bytes(state.hash_tree_root()))
+            return out
+        return transition
+
+    def record_flush(fn):
+        def flush(col, *args, **kwargs):
+            flushes.append(_check_summary(col.checks))
+            t0 = time.perf_counter()
+            try:
+                return fn(col, *args, **kwargs)
+            finally:
+                flushes.append(time.perf_counter() - t0)
+        return flush
+
+    state = base.copy()
+    was, bls.bls_active = bls.bls_active, route != "no_bls"
+    try:
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(_patched(spec, "state_transition",
+                                         record_roots))
+            stack.enter_context(_patched(batch_verify.SignatureCollector,
+                                         "flush", record_flush))
+            for name in ("FastAggregateVerify", "AggregateVerify", "Verify"):
+                stack.enter_context(_patched(bls, name,
+                                             _host_timer(verifies)))
+            if route == "batched":
+                got, split = _split_run(torch, lambda: (
+                    batch_verify.replay_blocks_batched(spec, state, blocks)))
+                got = [bool(g) for g in got]
+            else:
+                def sequential():
+                    for signed in blocks:
+                        spec.state_transition(state, signed)
+                _, split = _split_run(torch, sequential)
+                got = None
+    finally:
+        bls.bls_active = was
+    split["state_transition_s"] = sum(stf)
+    split["verify_calls"], split["verify_s"] = len(verifies), sum(verifies)
+    split["host_state_transition_s"] = sum(stf) - sum(verifies)
+    if route == "batched":
+        split["checks_by_bucket"], split["flush_s"] = flushes
+    split["blocks_per_s"] = len(blocks) / split["wall_s"]
+    return roots, got, split
+
+
+def _three_routes(torch, label, spec, base, blocks):
+    """Routes 1 and 2 cold then warm, route 3 once; equal roots after
+    every block, every check True. Returns (runs, checks, signatures)."""
+    runs, want_roots, n_checks = {}, None, None
+    for route, tags in (("batched", ("cold", "warm")),
+                        ("sequential", ("cold", "warm")),
+                        ("no_bls", ("once",))):
+        for tag in tags:
+            roots, got, split = _replay_route(torch, route, spec, base,
+                                              blocks)
+            want_roots = roots if want_roots is None else want_roots
+            differ = [i for i, (a, b) in enumerate(zip(roots, want_roots))
+                      if a != b]
+            _check(len(roots) == len(want_roots) and not differ,
+                   f"{label} {route} {tag}: post-state roots differ after "
+                   f"blocks {differ}")
+            if got is not None:
+                _check(all(got), f"{label} {route} {tag}: checks "
+                       f"{[i for i, g in enumerate(got) if not g]} False")
+                n_checks = len(got)
+                n_sigs = sum(n for _, n in
+                             split["checks_by_bucket"].values())
+            ladder = _ladder_records()
+            _check(not any(ladder.values()),
+                   f"{label} {route} {tag}: ladder records {ladder}")
+            runs[f"{route}_{tag}"] = split
+    for key, split in runs.items():
+        if not key.startswith("no_bls"):
+            split["signatures_per_s"] = n_sigs / split["wall_s"]
+    return runs, n_checks, n_sigs, want_roots
+
+
+def _planted_block(spec, base, blocks, k, mutate):
+    """blocks[:k] and a copy of blocks[k] changed by ``mutate(block,
+    pre-state)``, re-sealed (state root from a BLS-off transition) and
+    re-signed by its proposer: the prefix to replay."""
+    from consensus_specs_tpu_torch.test.helpers.block import sign_block
+    from consensus_specs_tpu_torch.utils import bls
+
+    pre = _post_state(spec, base, blocks[:k])
+    bad = blocks[k].message.copy()
+    mutate(bad, pre)
+    scratch = pre.copy()
+    was, bls.bls_active = bls.bls_active, False
+    try:
+        spec.process_slots(scratch, bad.slot)
+        spec.process_block(scratch, bad)
+    finally:
+        bls.bls_active = was
+    bad.state_root = spec.hash_tree_root(scratch)
+    return list(blocks[:k]) + [sign_block(spec, pre, bad)]
+
+
+def _planted_run(torch, label, spec, base, prefix, planted_kind, planted_k):
+    """Route 1 on a planted prefix: exactly one check False, of
+    ``planted_kind`` over ``planted_k`` keys, and the oracle agreeing on
+    that check and on one valid check."""
+    from consensus_specs_tpu_torch import batch_verify
+    from consensus_specs_tpu_torch.utils import bls
+
+    state = base.copy()
+    with batch_verify.SignatureCollector(spec) as col:
+        for signed in prefix:
+            spec.state_transition(state, signed)
+    got, split = _split_run(torch, col.flush)
+    got = [bool(g) for g in got]
+    bad = [i for i, g in enumerate(got) if not g]
+    _check(len(bad) == 1 and col.checks[bad[0]].kind == planted_kind
+           and len(col.checks[bad[0]].pubkeys) == planted_k,
+           f"{label}: flagged checks {bad}, want one {planted_kind} over "
+           f"{planted_k} keys")
+    good = got.index(True)
+    oracle = {}
+    for i in (bad[0], good):
+        c = col.checks[i]
+        t0 = time.perf_counter()
+        v = bls.oracle_fast_aggregate_verify(c.pubkeys, c.messages,
+                                             c.signature)
+        _check(v == got[i], f"{label}: oracle {v} on check {i}, card {got[i]}")
+        oracle[str(i)] = {"verdict": v, "k": len(c.pubkeys),
+                          "oracle_s": time.perf_counter() - t0}
+    return {"checks": len(got), "flagged": bad, "oracle": oracle,
+            "wall_s": split["wall_s"],
+            **{k: split[k] for k in ("step_kernel_launches",
+                                     "step_kernel_steps",
+                                     "mont_mul_kernel_launches")}}
+
+
+def _head_service_run(torch, spec, genesis, blocks, aggregates, pool):
+    """World A's epoch through HeadService over a VerificationService on
+    the card, differential on: two early aggregates defer until their
+    block, the 8 blocks through on_block, then the aggregates, the last
+    slot's single-member attestations and two BAD_SIGNATURE copies as
+    gossip in batches of 8. Returns the line's dict and the split."""
+    from consensus_specs_tpu_torch.chain import HeadService
+    from consensus_specs_tpu_torch.obs import latency
+    from consensus_specs_tpu_torch.ops import profiling
+    from consensus_specs_tpu_torch.serve import VerificationService
+    from consensus_specs_tpu_torch.serve.load import BAD_SIGNATURE
+    from consensus_specs_tpu_torch.test.helpers.attestations import (
+        get_valid_attestation,
+    )
+    from consensus_specs_tpu_torch.test.helpers.keys import privkeys
+
+    last_slot = int(blocks[-1].message.slot)
+    # the last slot's singles: committee 0's members, each alone
+    post = _post_state(spec, genesis, blocks)
+    members = list(spec.get_beacon_committee(post, last_slot, 0))[
+        :HEAD_SINGLES]
+    singles = [get_valid_attestation(spec, post, last_slot, index=0,
+                                     filter_participant_set=(
+                                         lambda _c, m=member: {m}))
+               for member in members]
+    roots = [_aggregate_sig(spec, post, a)[0] for a in singles]
+    sigs = pool.sign([(privkeys[m], r) for m, r in zip(members, roots)])
+    for att, sig in zip(singles, sigs):
+        att.signature = spec.BLSSignature(sig)
+    bad = [a.copy() for a in singles[:2]]
+    for att in bad:
+        att.signature = spec.BLSSignature(BAD_SIGNATURE)
+    early = aggregates[1][:2]
+    gossip = singles + bad + [a for s in sorted(aggregates)
+                              for a in aggregates[s]]
+
+    profiling.reset()
+    heads = []  # each new head root, in order
+    seconds_per_slot = int(spec.config.SECONDS_PER_SLOT)
+
+    def note_head(head):
+        root = bytes(head.get_head()).hex()[:16]
+        if not heads or heads[-1] != root:
+            heads.append(root)
+
+    def run():
+        svc = VerificationService()
+        try:
+            anchor = spec.BeaconBlock(state_root=genesis.hash_tree_root())
+            head = HeadService(spec, genesis.copy(), anchor, service=svc,
+                               differential=True)
+            store = head.store
+
+            def tick(slot):
+                head.on_tick(store.genesis_time + slot * seconds_per_slot)
+
+            tick(2)
+            head.on_attestations(early,
+                                 births=[latency.birth() for _ in early])
+            _check(head.deferred_count == 2,
+                   f"head: {head.deferred_count} deferred, want 2")
+            for signed in blocks:
+                tick(max(2, int(signed.message.slot)))
+                head.on_block(signed)
+                note_head(head)
+            tick(last_slot + 1)
+            for i in range(0, len(gossip), HEAD_GOSSIP_BATCH):
+                batch = gossip[i:i + HEAD_GOSSIP_BATCH]
+                head.on_attestations(
+                    batch, births=[latency.birth() for _ in batch])
+                note_head(head)
+            _check(bytes(head.get_head()) == bytes(spec.get_head(store)),
+                   "head: proto-array head differs from spec.get_head")
+            return head, svc.metrics.snapshot()
+        finally:
+            svc.close(timeout=120)
+
+    (head, svc_snap), split = _split_run(torch, run)
+    snap = head.metrics.snapshot()
+    _check(snap["dropped"] == 2, f"head: {snap['dropped']} dropped, want 2")
+    _check(snap["deferred"] == 2 and snap["resolved"] == 2,
+           f"head: deferred {snap['deferred']}, resolved {snap['resolved']}")
+    for key in ("fallback_items", "backend_retries", "mesh_fallbacks"):
+        _check(svc_snap[key] == 0, f"head: service {key} = {svc_snap[key]}")
+    ladder = _ladder_records()
+    _check(not any(ladder.values()), f"head: ladder records {ladder}")
+    g2h = profiling.latency_histograms().get(latency.GOSSIP_TO_HEAD_LABEL)
+    _check(g2h is not None and g2h.count > 0, "head: no gossip->head sample")
+    line = {
+        "blocks": len(blocks), "gossip": len(gossip) + len(early),
+        "batches": snap["batches"], "heads": heads,
+        "head_changes": snap["head_changes"], "reorgs": snap["reorgs"],
+        "applied": snap["applied"], "stale": snap["stale"],
+        "dropped": snap["dropped"], "deferred": snap["deferred"],
+        "resolved": snap["resolved"], "differential": True,
+        "gossip_to_head_p50_ms": 1e3 * g2h.percentile(50.0),
+        "gossip_to_head_p99_ms": 1e3 * g2h.percentile(99.0),
+        "gossip_to_head_n": g2h.count,
+        "service": {k: svc_snap[k] for k in (
+            "submits", "batches", "device_flushes", "cache_hits",
+            "fallback_items", "backend_retries", "mesh_fallbacks",
+            "ladder_rung", "prep_ms_per_flush", "device_ms_per_flush")},
+        "ladder": ladder, **{k: split[k] for k in (
+            "wall_s", "vm_execute_s", "step_kernel_ms",
+            "step_kernel_launches", "mont_mul_kernel_launches")}}
+    return line, split
+
+
+def _post_state(spec, genesis, blocks):
+    """The state after ``blocks``, replayed with BLS off."""
+    from consensus_specs_tpu_torch.utils import bls
+
+    state = genesis.copy()
+    was, bls.bls_active = bls.bls_active, False
+    try:
+        for signed in blocks:
+            spec.state_transition(state, signed)
+    finally:
+        bls.bls_active = was
+    return state
+
+
+def phase_spec(torch, pool, card):
+    """The port's own executable spec on the card: world A (BASELINE config
+    1, phase0 minimal) and world B (config 3, altair mainnet) replayed
+    three ways with equal post-state roots, a planted check flagged in
+    each, and world A's epoch through the HeadService on a card
+    VerificationService."""
+    from consensus_specs_tpu_torch.test.helpers.attestations import (
+        sign_aggregate_attestation,
+    )
+    from consensus_specs_tpu_torch.test.helpers.sync_committee import (
+        compute_aggregate_sync_committee_signature,
+    )
+    from consensus_specs_tpu_torch.utils import bls
+    from consensus_specs_tpu_torch.utils.bls12_381 import R
+
+    was = (bls.bls_active, bls._backend)
+    bls.use_gpu()
+    bls.bls_active = True
+    launches, out = {}, {"phase": "spec"}
+    try:
+        # -- world A ------------------------------------------------------
+        wa = SPEC_WORLD_A
+        t0 = time.perf_counter()
+        spec, genesis, genesis_s = _spec_world(pool, wa["fork"],
+                                               wa["preset"], wa["validators"])
+        blocks, aggregates, _ = _world_a_blocks(pool, spec, genesis)
+        setup_s = time.perf_counter() - t0
+        # the identity on one committee: the helpers' member-by-member sum
+        one = aggregates[1][0]
+        pre1 = _post_state(spec, genesis, blocks[:1])
+        root, _ = _aggregate_sig(spec, pre1, one)
+        members = sorted(spec.get_attesting_indices(pre1, one.data,
+                                                    one.aggregation_bits))
+        ident_a = _same_as_member_by_member(
+            pool, spec, one.signature, members, root,
+            lambda: sign_aggregate_attestation(spec, pre1, one.data,
+                                               members))
+        runs, n_checks, n_sigs, roots = _three_routes(torch, "world A", spec,
+                                                      genesis, blocks)
+        for split in runs.values():
+            _add_counts(launches, split)
+        # planted: one aggregate of block 5 signs another message
+        k = min(4, len(blocks) - 1)
+
+        def wrong_message(block, pre):
+            att = block.body.attestations[0]
+            root, sks = _aggregate_sig(spec, pre, att)
+            att.signature = spec.BLSSignature(pool.sign(
+                [(sum(sks) % R, bytes([root[0] ^ 0xff]) + root[1:])])[0])
+        prefix = _planted_block(spec, genesis, blocks, k, wrong_message)
+        planted_a = _planted_run(
+            torch, "world A planted", spec, genesis, prefix,
+            "fast_aggregate", len(blocks[k].message.body.attestations[0]
+                                  .aggregation_bits))
+        _add_counts(launches, planted_a)
+        head_line, head_split = _head_service_run(torch, spec, genesis,
+                                                  blocks, aggregates, pool)
+        _add_counts(launches, head_split)
+        out["world_a"] = {
+            "config": "BASELINE config 1", **wa,
+            "committees_per_slot": int(spec.get_committee_count_per_slot(
+                genesis, 0)),
+            "committee_size": len(spec.get_beacon_committee(genesis, 1, 0)),
+            "blocks": len(blocks),
+            "attestations": sum(len(b.message.body.attestations)
+                                for b in blocks),
+            "checks": n_checks, "signatures": n_sigs,
+            "genesis_s": genesis_s, "setup_s": setup_s,
+            "member_by_member": ident_a, "roots_equal": True,
+            "final_root": roots[-1].hex()[:16], "routes": runs,
+            "planted": planted_a, "head_service": head_line}
+
+        # -- world B ------------------------------------------------------
+        wb = SPEC_WORLD_B
+        t0 = time.perf_counter()
+        spec_b, genesis_b, genesis_b_s = _spec_world(
+            pool, wb["fork"], wb["preset"], wb["validators"])
+        blocks_b, signed_over = _world_b_blocks(
+            pool, spec_b, genesis_b, wb["participation"],
+            np.random.default_rng(SEED))
+        setup_b_s = time.perf_counter() - t0
+        pre, participants, root, slot = signed_over[-1]
+        ident_b = _same_as_member_by_member(
+            pool, spec_b,
+            blocks_b[-1].message.body.sync_aggregate.sync_committee_signature,
+            participants, root,
+            lambda: compute_aggregate_sync_committee_signature(
+                spec_b, pre, slot, participants))
+        runs_b, n_checks_b, n_sigs_b, roots_b = _three_routes(
+            torch, "world B", spec_b, genesis_b, blocks_b)
+        for split in runs_b.values():
+            _add_counts(launches, split)
+
+        def cleared_bit(block, _pre):
+            bits = block.body.sync_aggregate.sync_committee_bits
+            bits[next(i for i in range(len(bits)) if bits[i])] = False
+        prefix_b = _planted_block(spec_b, genesis_b, blocks_b, 0,
+                                  cleared_bit)
+        n_set = sum(bool(b) for b in
+                    blocks_b[0].message.body.sync_aggregate
+                    .sync_committee_bits)
+        planted_b = _planted_run(torch, "world B planted", spec_b,
+                                 genesis_b, prefix_b, "fast_aggregate",
+                                 n_set - 1)
+        _add_counts(launches, planted_b)
+        out["world_b"] = {
+            "config": "BASELINE config 3", **wb,
+            "sync_committee_size": int(spec_b.SYNC_COMMITTEE_SIZE),
+            "distinct_sync_members": len(set(
+                bytes(pk) for pk in genesis_b.current_sync_committee.pubkeys)),
+            "sync_bits_set": [sum(bool(b) for b in
+                                  blk.message.body.sync_aggregate
+                                  .sync_committee_bits) for blk in blocks_b],
+            "blocks": len(blocks_b), "checks": n_checks_b,
+            "signatures": n_sigs_b, "genesis_s": genesis_b_s,
+            "setup_s": setup_b_s, "member_by_member": ident_b,
+            "roots_equal": True, "final_root": roots_b[-1].hex()[:16],
+            "routes": runs_b, "planted": planted_b}
+    finally:
+        bls.bls_active, bls._backend = was
+    return {**out, "launches": dict(launches), **card}, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the serve fleet
 # ---------------------------------------------------------------------------
 
 FLEET_WORKERS = 2  # the JAX package's fleet smoke count
@@ -2653,13 +3259,15 @@ def main():
         path_launches, path_shapes = {}, {}
         with KeyPool() as pool:
             for path, phase in (("wide", phase_wide), ("epoch", phase_epoch),
-                                ("mainnet", phase_mainnet)):
+                                ("mainnet", phase_mainnet),
+                                ("spec", phase_spec)):
                 shapes = path_shapes[path] = {}
                 program_wrap, execute_wrap = _recording_launch_shapes(shapes)
                 with _patched(bls_backend, "_program", program_wrap), \
                         _patched(vm, "execute", execute_wrap):
                     line, path_launches[path] = phase(torch, pool, card)
-                mainnet_slot = line.pop("_fleet_slot", None)
+                if "_fleet_slot" in line:
+                    mainnet_slot = line.pop("_fleet_slot")
                 _emit({**line, "elapsed_s": time.perf_counter() - t0})
 
         # the serve fleet: worker processes on the card; their launch
@@ -2695,7 +3303,8 @@ def main():
                        "vm_step_steps": run["step_kernel_steps"],
                        "mont_mul": run["mont_mul_kernel_launches"]}
     total = {k: sum(p[k] for p in paths.values()) for k in paths["slice"]}
-    idle = [f"{path} {k}" for path in ("wide", "epoch", "mainnet", "fleet")
+    idle = [f"{path} {k}" for path in ("wide", "epoch", "mainnet", "spec",
+                                       "fleet")
             for k in ("vm_step", "mont_mul") if paths[path][k] == 0]
     if idle:
         print(f"chip_smoke: FAILED: kernels never launched on {idle}",

@@ -1,6 +1,5 @@
-"""Per-stage latency plane of the serve pipeline (the port's copy of
-consensus_specs_tpu/obs/latency.py, without the chain plane's
-gossip-to-head number).
+"""Per-stage latency plane of the serve pipeline and the chain plane (the
+port's copy of consensus_specs_tpu/obs/latency.py).
 
 - **births**: a gossip item may carry a ``Birth`` (monotone trace id +
   perf-counter timestamp) into ``VerificationService.submit(birth_s=...)``;
@@ -8,6 +7,9 @@ gossip-to-head number).
 - **per-stage histograms**: each pipeline stage records its duration into
   the ``latency[<stage>]`` dynamic family, the same mergeable log-bucket
   histograms (``obs/hist.py``) every other latency number uses.
+- **the end-to-end number**: ``latency.gossip_to_head``, birth to the
+  ``HeadService`` head update that reflects the item's vote
+  (``chain/head_service.py``).
 - **the control input**: ``downstream_p99_s()`` reads the live p99 of the
   stages a queued item still has ahead of it (prep, device, finalize):
   what the serve plane's deadline-aware flush subtracts from the remaining
@@ -25,11 +27,17 @@ from typing import Dict, Optional, Tuple
 
 from ..ops import profiling
 
-# per-stage dynamic family latency[<stage>]: the serve pipeline's stages
-# and the ingress hop (birth -> submit accepted), fixed so the label
-# cardinality is bounded by construction
+# the end-to-end family (registered in obs/registry.py LATENCIES)
+GOSSIP_TO_HEAD_LABEL = "latency.gossip_to_head"
+
+# per-stage dynamic family latency[<stage>]: the serve pipeline's stages,
+# the chain batch stages, the ingress hop (birth -> submit accepted) and
+# every ssz_impl.hash_tree_root, fixed so the label cardinality is bounded
+# by construction
 STAGES: Tuple[str, ...] = (
     "ingress", "queue_wait", "prep", "device", "combine", "finalize",
+    "validate", "sig_wait", "apply", "sweep", "head",
+    "merkle_root",
 )
 
 # what a QUEUED serve item still has ahead of it: the stages whose
@@ -66,6 +74,12 @@ def note_stage(stage: str, seconds: float) -> None:
     """One stage-duration observation into the mergeable per-stage
     histogram family (``latency[<stage>]``)."""
     profiling.record_latency(stage_label(stage), seconds)
+
+
+def note_gossip_to_head(seconds: float) -> None:
+    """One end-to-end observation: gossip birth -> the head update that
+    reflects the item's vote."""
+    profiling.record_latency(GOSSIP_TO_HEAD_LABEL, seconds)
 
 
 # downstream-p99 read cache: the flush scheduler consults it on every

@@ -29,6 +29,9 @@ SPAN_STAGES: Dict[str, tuple] = {
     # the serve pipeline's five per-request stages (`combine` only on
     # RLC-routed flushes)
     "serve": ("queue_wait", "prep", "device", "combine", "finalize"),
+    # the chain plane's per-gossip-batch stages (`head` is the sweep's
+    # head refresh and the gossip->head latency recording)
+    "chain": ("validate", "sig_wait", "apply", "sweep", "head"),
     # `ingress` spans a gossip item's birth to its acceptance into the
     # serve queue, on request traces whose submit carried a birth time
     "latency": ("ingress",),
@@ -57,6 +60,54 @@ GAUGES: Dict[str, str] = {
     "serve.deadline_budget_ms": "slot budget remaining at the most "
                                 "recent deadline-driven flush (ms, after "
                                 "subtracting the downstream p99)",
+    "chain.blocks": "blocks tracked by the proto-array (post-pruning)",
+    "chain.head_slot": "slot of the maintained fork-choice head",
+    "chain.head_changes": "head pointer moves since service start",
+    "chain.reorgs": "head moves that rolled back at least one slot",
+    "chain.last_reorg_depth": "slots rolled back by the most recent reorg",
+    "chain.applied_attestations": "verified attestations that moved a "
+                                  "latest message",
+    "chain.deferred_attestations": "attestations parked for a missing "
+                                   "block / future slot (cumulative)",
+    "chain.dropped_attestations": "attestations rejected: bad signature, "
+                                  "non-viable vote, or retries exhausted",
+    "chain.deferred_pending": "deferral buffer depth right now",
+    "chain.speculative_applied": "attestations applied to the proto-array "
+                                 "BEFORE their signature verdicts "
+                                 "returned (CONSENSUS_SPECS_TPU_SPECULATE; "
+                                 "rolled back on failure)",
+    "chain.rollbacks": "speculative batches reverted because at least one "
+                       "member's signature verdict came back False "
+                       "(weight-delta reversal; the verified members "
+                       "re-apply)",
+    "merkle.native_levels": "tree levels hashed through one batched "
+                            "native sha256_hash_many call (vs per-pair "
+                            "hashlib)",
+    "merkle.cache_hits": "hash_tree_root calls answered by the "
+                         "incremental layer cache (dirty-set re-hash "
+                         "instead of a cold rebuild)",
+    "merkle.dirty_nodes": "tree nodes re-hashed by incremental "
+                          "dirty-set propagation (O(log N · changed) "
+                          "per update)",
+    "merkle.fallbacks": "Merkleization batch attempts that fell back "
+                        "to the pure-python path (native lib missing "
+                        "or dynamically-shaped elements)",
+    "health.participation_rate": "attesting balance / total balance in "
+                                 "the proto-array's tables, computed "
+                                 "once per slot (chain/health.py)",
+    "health.head_churn": "head pointer moves observed this slot",
+    "health.reorg_depth": "deepest rollback among this slot's reorgs "
+                          "(0 when the head only extended)",
+    "health.finality_lag_slots": "current slot minus the finalized "
+                                 "checkpoint epoch's start slot (a "
+                                 "healthy chain holds ~2 epochs)",
+    "health.deferral_depth": "deferral-buffer depth at the slot "
+                             "boundary (gossip ahead of its "
+                             "dependencies)",
+    "health.rollback_rate": "speculative batches reverted this slot",
+    "health.unexplained_reorgs": "cumulative reorgs observed outside "
+                                 "declared disruption windows (the "
+                                 "soak gate requires 0)",
     "fleet.workers": "live worker processes behind the fleet router "
                      "(drained workers leave the ring and this count)",
     "fleet.snapshots": "per-worker observability snapshots the fleet "
@@ -157,6 +208,14 @@ LATENCIES: Dict[str, str] = {
     "serve.submit_to_result": "submit()->Future-resolution latency "
                               "(p50/p95/p99 over a mergeable log-bucket "
                               "histogram)",
+    "chain.apply_batch": "per-gossip-batch apply latency: validate + "
+                         "signature wait + latest-message apply + sweep",
+    "latency.gossip_to_head": "END-TO-END gossip→head latency: an item's "
+                              "ingress birth to the head update that "
+                              "reflects its vote (the speculative update "
+                              "when speculation is on) — the "
+                              "gossip_to_head_p99 SLO's histogram, "
+                              "fleet-mergeable like every latency family",
 }
 
 # dynamic label families: labels built at run time with a shape or lane
@@ -177,13 +236,22 @@ DYNAMIC_PREFIXES: Dict[str, tuple] = {
                                   "proof_build/proof_verify/proof_serve "
                                   "and the Merkleization plane's "
                                   "merkle_root)"),
-    # node-labelled instances: N VerificationService instances in one
-    # process, or N fleet workers on the merged surface, export under
-    # serve[<node>].<name> via node_label()
+    # node-labelled instances: N HeadService or VerificationService
+    # instances in one process, or N fleet workers on the merged surface,
+    # export under chain[<node>].<name> / serve[<node>].<name> /
+    # health[<node>].<name> via node_label()
+    "chain[": ("chain_node", "per-node chain-plane metrics from multi-"
+                             "instance (simnet) runs, labelled "
+                             "chain[<node>].<name> — same names as the "
+                             "chain.* family"),
     "serve[": ("serve_node", "per-node serve-plane metrics from multi-"
                              "instance (simnet) runs, labelled "
                              "serve[<node>].<name> — same names as the "
                              "serve.* family"),
+    "health[": ("health_node", "per-node consensus health ledger rows "
+                               "from multi-instance (simnet) runs, "
+                               "labelled health[<node>].<name> — same "
+                               "names as the health.* family"),
     "process[": ("process_node", "per-worker process resource gauges "
                                  "on the merged fleet surface, "
                                  "labelled process[<worker>].<name> — "

@@ -34,10 +34,11 @@ from . import registry as _registry
 
 TRACE_ENV = "CONSENSUS_SPECS_TPU_TRACE"
 
-# the span stages the serve plane stamps, from the registry
+# the span stages the serve and chain planes stamp, from the registry
 # (obs/registry.py SPAN_STAGES); `ingress` rides a request trace when its
 # submit carried a birth timestamp
 STAGES = _registry.SPAN_STAGES["serve"]
+CHAIN_STAGES = _registry.SPAN_STAGES["chain"]
 LATENCY_STAGES = _registry.SPAN_STAGES["latency"]
 
 

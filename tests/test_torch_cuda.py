@@ -480,3 +480,45 @@ def test_bls_fleet_on_the_card_answers_as_the_oracle(dev):
     assert got == want
     assert len(snaps) == 2
     fleet_smoke.check_worker_devices(snaps, dev)
+
+
+def test_world_a_replay_on_the_port_spec(dev):
+    """BASELINE config 1 at 64 validators on the port's own spec (phase0
+    minimal, no JAX builder): one epoch of blocks with every committee's
+    attestation, built and signed by the port's helpers, replayed through
+    ``replay_blocks_batched`` on the card, every check True, with the
+    post-state root of the sequential replay with BLS off."""
+    from consensus_specs_tpu_torch import batch_verify, builder
+    from consensus_specs_tpu_torch.test.helpers.attestations import (
+        next_epoch_with_attestations,
+    )
+    from consensus_specs_tpu_torch.test.helpers.genesis import (
+        create_genesis_state,
+    )
+    from consensus_specs_tpu_torch.test.helpers.state import next_epoch
+    from consensus_specs_tpu_torch.utils import bls
+
+    spec = builder.build_spec_module("phase0", "minimal")
+    assert spec.bls is bls
+    was = (bls.bls_active, bls._backend)
+    try:
+        bls.bls_active = True
+        bls.use_py_ecc()  # sealing's eager checks: the oracle
+        state = create_genesis_state(spec, [spec.MAX_EFFECTIVE_BALANCE] * 64,
+                                     spec.MAX_EFFECTIVE_BALANCE)
+        next_epoch(spec, state)
+        base = state.copy()
+        with batch_verify.SignatureCollector(spec):
+            _, blocks, _ = next_epoch_with_attestations(spec, state, True,
+                                                        False)
+        bls.use_gpu()
+        replay = base.copy()
+        ok = batch_verify.replay_blocks_batched(spec, replay, blocks)
+        assert ok.all() and len(ok) > 2 * len(blocks)
+        bls.bls_active = False
+        plain = base.copy()
+        for signed in blocks:
+            spec.state_transition(plain, signed)
+        assert spec.hash_tree_root(replay) == spec.hash_tree_root(plain)
+    finally:
+        bls.bls_active, bls._backend = was

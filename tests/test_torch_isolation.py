@@ -36,8 +36,21 @@ class Oracle:
 with VerificationService(backend=Backend(), oracle=Oracle(), device="cpu",
                          max_wait_ms=1) as svc:
     served = svc.submit("fast_aggregate", [b"k"], b"m", b"ok").result(30)
+# the port's own spec, with the chain plane on top
+from consensus_specs_tpu_torch import builder
+from consensus_specs_tpu_torch.chain import HeadService
+spec = builder.build_spec_module("phase0", "minimal")
+state = spec.BeaconState(validators=[spec.Validator(
+    effective_balance=spec.MAX_EFFECTIVE_BALANCE,
+    exit_epoch=spec.FAR_FUTURE_EPOCH, withdrawable_epoch=spec.FAR_FUTURE_EPOCH)
+    for _ in range(8)], balances=[spec.MAX_EFFECTIVE_BALANCE] * 8)
+anchor = spec.BeaconBlock(state_root=spec.hash_tree_root(state))
+head = HeadService(spec, state, anchor, differential=True)
 import chip_smoke
 print(json.dumps({
+    "spec": spec.__name__,
+    "spec_bls": spec.bls.__name__,
+    "head": bytes(head.get_head()) == bytes(spec.hash_tree_root(anchor)),
     "modules": mods,
     "one_squared": fq.from_mont_limbs(out.numpy()),
     "hashed": len(hashed),
@@ -45,6 +58,7 @@ print(json.dumps({
     "switchboard": bls.backend_name(),
     "prometheus": "serve_submit_to_result" in registry.render_prometheus(),
     "native_sha256": sorted(m for m in sys.modules if "native_sha256" in m),
+    "yaml": "yaml" in sys.modules,
     "jax": sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")),
     "reference": sorted(m for m in sys.modules
                         if m == "consensus_specs_tpu"
@@ -71,16 +85,28 @@ def test_port_imports_no_jax_and_no_reference_module():
                 "scale.smoke", "bench.epoch_replay", "serve.worker",
                 "serve.fleet", "serve.fleet_smoke", "scale.routing",
                 "obs.snapshot", "obs.fleet", "obs.slo", "obs.timeseries",
-                "obs.exposition"):
+                "obs.exposition", "builder", "config.config_util",
+                "utils.ssz.ssz_typing", "utils.ssz.ssz_impl",
+                "utils.ssz.gindex", "utils.hash_function",
+                "utils.native_sha256", "merkle.levels", "merkle.cache",
+                "merkle.plane", "chain.head_service", "chain.proto_array",
+                "chain.metrics", "chain.health", "test.context",
+                "test.helpers.genesis", "test.helpers.attestations",
+                "test.helpers.sync_committee"):
         assert "consensus_specs_tpu_torch." + mod in got["modules"], mod
     assert got["one_squared"] == 1
     assert got["hashed"] == 1
     assert got["served"] is True and got["prometheus"] is True
     # the switchboard defaults to the card (resolved on first verify)
     assert got["switchboard"] == "gpu"
+    assert got["spec"] == "consensus_specs_tpu_torch.phase0.minimal"
+    assert got["spec_bls"] == "consensus_specs_tpu_torch.utils.bls"
+    assert got["head"] is True
     assert got["jax"] == []
     assert got["reference"] == []
-    assert got["native_sha256"] == []
+    # the port's own hashing binding only; built specs need no PyYAML
+    assert got["native_sha256"] == ["consensus_specs_tpu_torch.utils.native_sha256"]
+    assert got["yaml"] is False
 
 
 def test_fleet_worker_process_imports_no_jax_and_no_reference_module():
