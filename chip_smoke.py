@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Drives ``consensus_specs_tpu_torch`` (never jax, never the JAX package)
-through fourteen phases, each printing one JSON line:
+through sixteen phases, each printing one JSON line:
 
   1. build   -- compile every CUDA kernel of the port from csrc/ with nvcc
                for sm_90a (one nvcc per source, all started together);
@@ -131,9 +131,44 @@ through fourteen phases, each printing one JSON line:
                attestations dropped, gossip->head p50/p99. Aggregates are
                signed as Sign(sum sk), shown equal on one committee of
                each world to the helpers' member-by-member Aggregate.
-Phases 9-12 build their keys and signatures in a pool of spawned
-processes (utils/keygen.py).
- 13. fleet   -- the serve fleet on the card: FleetRouter with 2 bls worker
+ 13. kzg     -- BASELINE config 5 at full width: 256 KZG point proofs
+               (the sharding mainnet preset's 64 active shards x 4
+               headers: 64 polynomials of 8 coefficients, each proved at 4
+               points with the port's commit_to_poly and prove_at_point)
+               against the port's own sharding mainnet setup (16,384
+               lazy points), 8 of them false (wrong y, wrong z, another
+               polynomial's proof), a constant polynomial (its proofs
+               are the point at infinity) and a z == tau item, through
+               kzg_backend.batch_verify_point_proofs on the card (PROG A
+               aggregate_verify k2 fold 8 on 32 rows, the hard part fold
+               32 on 8 rows): cold, then twice warm, every verdict the
+               constructed truth, each wall split into host scalar prep,
+               vm.execute, step kernels, easy part and hard part; the
+               exact-int oracle agreeing on the 10 planted or edge items
+               and 16 valid ones; the z == tau item alone launching
+               nothing. Its items are oracle points, so it launches no
+               Montgomery kernel.
+ 14. forks   -- the port's merge, sharding and custody_game specs with the
+               switchboard on the card. World C: merge minimal, 1,024
+               validators, after the complete transition, one epoch of 8
+               blocks with attestations and empty execution payloads;
+               world D: sharding minimal (2 active shards), 2,048
+               validators, from the first slot of epoch 1: shard headers
+               on both shards in 4 blocks (a FastAggregateVerify over
+               [builder, proposer] and two host pairings each) and a
+               shard proposer slashing; world E: custody_game minimal, 128
+               validators walked through 31 epochs of empty slots, the 8
+               blocks of epoch 31 with attestations, the last with
+               custody key reveals (eager Verify calls) and an early
+               derived secret reveal (AggregateVerify). Each replayed
+               three ways as in phase 12, equal roots after every
+               block, and a planted check a world
+               (an aggregate over another message; a header with another
+               header's signature; a masked reveal over another message)
+               flagged alone, the oracle agreeing.
+Phases 9-14 build their keys, signatures and KZG proofs in a pool of
+spawned processes (utils/keygen.py).
+ 15. fleet   -- the serve fleet on the card: FleetRouter with 2 bls worker
                processes (each its own CUDA context). (a) the port's
                serve/fleet_smoke.main: verdict identity fleet ==
                single process == oracle over every input class, every
@@ -150,8 +185,8 @@ processes (utils/keygen.py).
                assignment, 0 affinity moves; (c) one worker armed to fail
                until the router sheds or drains it (falls back on
                purpose). The workers' launch counts are summed and their
-               launch shapes (from their snapshots) join phase 14.
- 14. kernels -- every program and row count that phases 9-13 launched the
+               launch shapes (from their snapshots) join phase 16.
+ 16. kernels -- every program and row count that phases 9-15 launched the
                step kernel at (noted during those phases) and that no
                earlier phase checked: the first 256 steps on random
                canonical inputs limb for limb against the plain version,
@@ -2386,23 +2421,27 @@ def _seal(spec, state, block):
         return state_transition_and_sign_block(spec, state, block)
 
 
-def _world_a_blocks(pool, spec, genesis):
+def _world_a_blocks(pool, spec, genesis, decorate=None):
     """One epoch of 8 blocks, each carrying the full aggregates of the
     slot before, and the last slot's aggregates (for gossip):
-    (blocks, {slot: aggregates})."""
+    (blocks, {slot: aggregates}). ``decorate(block, pre-state, last)``
+    adds a fork's own operations before a block is sealed."""
     from consensus_specs_tpu_torch.test.helpers.block import (
         build_empty_block_for_next_slot,
     )
 
     state = genesis.copy()
     blocks, aggregates = [], {}
-    for _ in range(int(spec.SLOTS_PER_EPOCH)):
+    n_blocks = int(spec.SLOTS_PER_EPOCH)
+    for i in range(n_blocks):
         block = build_empty_block_for_next_slot(spec, state)
         if state.slot >= spec.MIN_ATTESTATION_INCLUSION_DELAY:
             aggregates[int(state.slot)] = _signed_aggregates(
                 pool, spec, state, state.slot)
             for att in aggregates[int(state.slot)]:
                 block.body.attestations.append(att)
+        if decorate is not None:
+            decorate(block, state, i == n_blocks - 1)
         blocks.append(_seal(spec, state, block))
     aggregates[int(state.slot)] = _signed_aggregates(pool, spec, state,
                                                      state.slot)
@@ -2612,8 +2651,9 @@ def _planted_run(torch, label, spec, base, prefix, planted_kind, planted_k):
     for i in (bad[0], good):
         c = col.checks[i]
         t0 = time.perf_counter()
-        v = bls.oracle_fast_aggregate_verify(c.pubkeys, c.messages,
-                                             c.signature)
+        oracle_fn = (bls.oracle_aggregate_verify if c.kind == "aggregate"
+                     else bls.oracle_fast_aggregate_verify)
+        v = oracle_fn(c.pubkeys, c.messages, c.signature)
         _check(v == got[i], f"{label}: oracle {v} on check {i}, card {got[i]}")
         oracle[str(i)] = {"verdict": v, "k": len(c.pubkeys),
                           "oracle_s": time.perf_counter() - t0}
@@ -2870,7 +2910,426 @@ def phase_spec(torch, pool, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 13: the serve fleet
+# phase 13: BASELINE config 5, batched KZG point proofs on the card
+# ---------------------------------------------------------------------------
+
+# the edge and planted items among the 256, by (polynomial, point): the
+# constant polynomial 0 (every proof of it is the point at infinity) holds
+# the infinity item, the z == tau item and two wrong values
+KZG_PLANTS = {(0, 0): "infinity", (0, 1): "z_is_tau", (0, 2): "wrong_y",
+              (0, 3): "wrong_y", (1, 0): "wrong_y", (1, 1): "wrong_z",
+              (1, 2): "wrong_z", (1, 3): "wrong_z", (2, 0): "other_proof",
+              (2, 1): "other_proof"}
+KZG_ORACLE_VALID = 16  # valid items the oracle also checks
+KZG_WARM_RUNS = 2
+
+
+def _kzg_prove(job):
+    """One polynomial's commitment and proofs with the port's kzg, in a
+    spawned worker of the key pool: (tau, n, coeffs, zs) -> (commitment,
+    [(proof, y)]), oracle points."""
+    from consensus_specs_tpu_torch.utils import kzg
+
+    tau, n, coeffs, zs = job
+    setup = kzg.lazy_setup(tau, n)
+    return (kzg.commit_to_poly(setup, coeffs),
+            [kzg.prove_at_point(setup, coeffs, z) for z in zs])
+
+
+def _kzg_oracle(job):
+    """The port's exact-int verify_point_proof on one item, in a worker:
+    (tau, n, commitment, proof, z, y) -> (verdict, seconds)."""
+    from consensus_specs_tpu_torch.utils import kzg
+
+    tau, n, c, p, z, y = job
+    t0 = time.perf_counter()
+    v = kzg.verify_point_proof(kzg.lazy_setup(tau, n), c, p, z, y)
+    return v, time.perf_counter() - t0
+
+
+def _kzg_items(pool, spec, rng):
+    """One point proof for each commitment of a full mainnet slot: the
+    sharding mainnet preset's INITIAL_ACTIVE_SHARDS polynomials of
+    POINTS_PER_SAMPLE coefficients, each proved at
+    MAX_SHARD_HEADERS_PER_SHARD points with the port's commit_to_poly and
+    prove_at_point, KZG_PLANTS planted, in a seeded shuffled order.
+    Returns [(commitment, proof, z, y, truth, label)]."""
+    from consensus_specs_tpu_torch.utils import kzg
+
+    tau, n = int(spec.KZG_SETUP_TAU), int(spec.KZG_SETUP_SIZE)
+    n_polys = int(spec.INITIAL_ACTIVE_SHARDS)
+    per = int(spec.MAX_SHARD_HEADERS_PER_SHARD)
+    width = int(spec.POINTS_PER_SAMPLE)
+
+    def field():
+        return int.from_bytes(rng.bytes(32), "big") % kzg.MODULUS
+    polys = [[field() for _ in range(width)] for _ in range(n_polys)]
+    polys[0] = [field()] + [0] * (width - 1)
+    zs = [[field() for _ in range(per)] for _ in range(n_polys)]
+    zs[0][1] = tau
+    proved = pool.map(_kzg_prove, [(tau, n, c, z) for c, z in zip(polys, zs)])
+    setup = spec.KZG_SETUP
+    items = []
+    for i, (commitment, proofs) in enumerate(proved):
+        for j, (proof, y) in enumerate(proofs):
+            z, label = zs[i][j], KZG_PLANTS.get((i, j), "valid")
+            if label == "wrong_y":
+                y = (y + 1) % kzg.MODULUS
+            elif label == "wrong_z":
+                z = (z + 1) % kzg.MODULUS
+            elif label == "other_proof":
+                proof, _ = kzg.prove_at_point(setup, polys[3 + j], z)
+            truth = label not in ("wrong_y", "wrong_z", "other_proof")
+            items.append((commitment, proof, z, y, truth, label))
+    return [items[k] for k in rng.permutation(len(items))]
+
+
+def _kzg_run(torch, setup, items):
+    """One batch_verify_point_proofs call on the card, its wall split into
+    host scalar prep (the per-item G2 and G1 multiplications and staging),
+    program resolution, PROG A's vm.execute, the serial easy part and the
+    hard part, with the step kernels' CUDA-event ms and launches."""
+    from consensus_specs_tpu_torch.ops import kzg_backend, vm
+
+    layout, easy, hard, execs, first = [], [], [], [], []
+
+    def timed_in_order(fn):
+        def wrapped(*args, **kwargs):
+            t = time.perf_counter()
+            if not first:
+                first.append(t)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                execs.append(time.perf_counter() - t)
+        return wrapped
+    with _patched(kzg_backend, "_FoldLayout", _host_timer(layout)), \
+            _patched(kzg_backend, "_easy_part_flat", _host_timer(easy)), \
+            _patched(kzg_backend, "_run_hard_part", _host_timer(hard)), \
+            _patched(vm, "execute", timed_in_order):
+        t0 = time.perf_counter()
+        got, split = _split_run(torch, lambda: (
+            kzg_backend.batch_verify_point_proofs(
+                setup, *[[it[j] for it in items] for j in range(4)])))
+    prep = (first[0] if first else t0 + split["wall_s"]) - t0 - sum(layout)
+    split.update({
+        "host_scalar_prep_s": prep, "layout_s": sum(layout),
+        "easy_part_s": sum(easy), "hard_part_s": sum(hard),
+        "prog_a_vm_execute_s": execs[0] if execs else 0.0,
+        "hard_part_vm_execute_s": sum(execs[1:]),
+        "proofs_per_s": len(items) / split["wall_s"]})
+    return [bool(g) for g in got], split
+
+
+def phase_kzg(torch, pool, card):
+    """BASELINE config 5 at full width: 256 KZG point proofs (one for each
+    commitment of a full mainnet slot) against the port's own sharding
+    mainnet setup (16,384 lazy points), through
+    kzg_backend.batch_verify_point_proofs on the card: cold, then warm;
+    every verdict the constructed truth; the port's exact-int oracle
+    agreeing on the planted and edge items and on a sample of valid ones;
+    the z == tau item alone launching nothing."""
+    from consensus_specs_tpu_torch import builder
+    from consensus_specs_tpu_torch.ops import cuda_step, kzg_backend
+
+    spec = builder.build_spec_module("sharding", "mainnet")
+    setup = spec.KZG_SETUP
+    _check(int(spec.KZG_SETUP_SIZE) == 16384 and setup.n == 16384,
+           f"KZG setup of {setup.n} points")
+    rng = np.random.default_rng([SEED, 5])
+    t0 = time.perf_counter()
+    items = _kzg_items(pool, spec, rng)
+    setup_s = time.perf_counter() - t0
+    n_items = int(spec.INITIAL_ACTIVE_SHARDS) \
+        * int(spec.MAX_SHARD_HEADERS_PER_SHARD)
+    _check(len(items) == n_items == 256, f"{len(items)} KZG items")
+    want = [it[4] for it in items]
+    launches, runs = {}, {}
+    for tag in ["cold"] + [f"warm{i + 1}" for i in range(KZG_WARM_RUNS)]:
+        got, split = _kzg_run(torch, setup, items)
+        bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        _check(not bad, f"kzg {tag}: verdicts differ from the truth at "
+                        f"{[(i, items[i][5]) for i in bad]}")
+        _check(split["step_kernel_launches"] == 2,
+               f"kzg {tag}: {split['step_kernel_launches']} launches")
+        _add_counts(launches, split)
+        runs[tag] = split
+    # the oracle on every planted or edge item and on a sample of valid
+    # ones, in the pool's processes
+    edge = [i for i, it in enumerate(items) if it[5] != "valid"]
+    valid = [i for i, it in enumerate(items) if it[5] == "valid"]
+    sample = edge + sorted(rng.choice(valid, KZG_ORACLE_VALID,
+                                      replace=False).tolist())
+    tau, n = int(spec.KZG_SETUP_TAU), int(spec.KZG_SETUP_SIZE)
+    t0 = time.perf_counter()
+    oracle = pool.map(_kzg_oracle, [(tau, n) + tuple(items[i][:4])
+                                    for i in sample])
+    oracle_s = time.perf_counter() - t0
+    differ = [i for i, (v, _) in zip(sample, oracle) if v != want[i]]
+    _check(not differ, f"kzg: the oracle differs at {differ}")
+    # the z == tau item alone: answered by the oracle, nothing launched
+    tau_item = next(it for it in items if it[5] == "z_is_tau")
+    got_tau, tau_split = _split_run(torch, lambda: (
+        kzg_backend.batch_verify_point_proofs(
+            setup, *[[tau_item[j]] for j in range(4)])))
+    _check(list(got_tau) == [True] and cuda_step.LAUNCHES == 0
+           and tau_split["vm_executions"] == 0,
+           f"kzg z == tau alone: {list(got_tau)}, "
+           f"{tau_split['step_kernel_launches']} launches")
+    _add_counts(launches, tau_split)
+    return {"phase": "kzg", "config": "BASELINE config 5",
+            "setup": {"fork": "sharding", "preset": "mainnet",
+                      "points": setup.n, "lazy": True},
+            "items": n_items, "polynomials": int(spec.INITIAL_ACTIVE_SHARDS),
+            "coefficients": int(spec.POINTS_PER_SAMPLE),
+            "points_per_polynomial": int(spec.MAX_SHARD_HEADERS_PER_SHARD),
+            "planted": sorted(set(KZG_PLANTS.values())),
+            "false_items": want.count(False), "set_up_s": setup_s,
+            "verdicts_exact": True,
+            "oracle": {"items": len(sample), "edge": len(edge),
+                       "agree": True, "s": oracle_s,
+                       "item_s_max": max(s for _, s in oracle)},
+            "z_is_tau_alone": {"verdict": True, "launches": 0,
+                               "wall_s": tau_split["wall_s"]},
+            "runs": {tag: {k: split[k] for k in (
+                "wall_s", "proofs_per_s", "host_scalar_prep_s", "layout_s",
+                "assemble_s", "prog_a_vm_execute_s", "hard_part_vm_execute_s",
+                "vm_execute_s",
+                "step_kernel_ms", "easy_part_s", "hard_part_s",
+                "other_host_s", "step_kernel_launches", "step_kernel_steps",
+                "mont_mul_kernel_launches")} for tag, split in runs.items()},
+            "launches": dict(launches), **card}, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the merge, sharding and custody_game forks on the card
+# ---------------------------------------------------------------------------
+
+# world C: merge minimal, after the complete transition, at half world A's
+# size: altair-era attestation processing recomputes the total active
+# balance for every attester (get_base_reward), so a replay's host time
+# grows with the square of the registry (21.6-26.8 s at 2,048 validators
+# on the H100's host, against world A's 0.24-0.74 s)
+SPEC_WORLD_C = {"fork": "merge", "preset": "minimal", "validators": 1024}
+# world D: sharding minimal (INITIAL_ACTIVE_SHARDS 2); the base state sits
+# at the first slot of epoch 1, whose shard work the genesis epoch's
+# transition armed; 7 blocks stay inside epoch 1 (an altair-era epoch
+# transition past genesis costs the pure-Python spec about a minute at
+# 2,048 validators)
+SPEC_WORLD_D = {"fork": "sharding", "preset": "minimal", "validators": 2048,
+                "blocks": 7, "header_blocks": 4}
+# world E: custody_game minimal; a key reveal needs a custody period that
+# has ended, 31 epochs in for validator i with i % 32 == 1, which the walk
+# of empty slots reaches at a size it can afford; its 8 blocks fill epoch
+# 31 (the next epoch transition rotates the sync committee, whose
+# aggregate pubkey a BLS-off replay stubs, so its roots would differ)
+SPEC_WORLD_E = {"fork": "custody_game", "preset": "minimal",
+                "validators": 128}
+
+
+def _merge_payload(spec):
+    """World C's block decoration: an empty execution payload on the
+    state at the block's slot."""
+    from consensus_specs_tpu_torch.test.helpers.execution_payload import (
+        build_empty_execution_payload,
+    )
+
+    def decorate(block, state, last):
+        at = state.copy()
+        spec.process_slots(at, block.slot)
+        block.body.execution_payload = build_empty_execution_payload(spec, at)
+    return decorate
+
+
+def _custody_reveals(spec):
+    """World E's decoration of its last block (slot 255, epoch 31): a
+    custody key reveal of every validator i with i % 32 == 1 (whose first
+    period has ended; the draft's exit-period test overflows a uint64 for
+    i % 32 > 1) and an early derived secret reveal."""
+    from consensus_specs_tpu_torch.test.helpers.custody_game import (
+        get_valid_custody_key_reveal, get_valid_early_derived_secret_reveal,
+    )
+
+    def decorate(block, state, last):
+        if not last:
+            return
+        period = int(spec.EPOCHS_PER_CUSTODY_PERIOD)
+        for i in range(len(state.validators)):
+            if i % period == 1:
+                block.body.custody_key_reveals.append(
+                    get_valid_custody_key_reveal(spec, state,
+                                                 validator_index=i))
+        block.body.early_derived_secret_reveals.append(
+            get_valid_early_derived_secret_reveal(spec, state))
+    return decorate
+
+
+def _world_d_blocks(spec, base, n_blocks, header_blocks):
+    """World D: ``n_blocks`` blocks after ``base``; each of the first
+    ``header_blocks`` carries a shard header for the slot before on every
+    active shard (commitment, degree proof, builder and proposer
+    signatures), the last one a shard proposer slashing."""
+    from consensus_specs_tpu_torch.test.helpers.block import (
+        build_empty_block_for_next_slot,
+    )
+    from consensus_specs_tpu_torch.test.helpers.shard_blob import (
+        build_shard_blob_header, build_shard_proposer_slashing,
+    )
+
+    state = base.copy()
+    blocks, seed = [], 1
+    for i in range(n_blocks):
+        block = build_empty_block_for_next_slot(spec, state)
+        if i < header_blocks:
+            shards = int(spec.get_active_shard_count(
+                state, spec.compute_epoch_at_slot(state.slot)))
+            for shard in range(shards):
+                block.body.shard_headers.append(build_shard_blob_header(
+                    spec, state, slot=state.slot, shard=shard,
+                    data_seed=seed))
+                seed += 1
+        if i == n_blocks - 1:
+            block.body.shard_proposer_slashings.append(
+                build_shard_proposer_slashing(spec, state, slot=state.slot))
+        blocks.append(_seal(spec, state, block))
+    return blocks
+
+
+def _fork_world(torch, label, spec, base, blocks, planted_k, mutate,
+                planted_kind, planted_keys):
+    """The three routes on ``blocks`` from ``base`` and the planted run on
+    ``blocks[:planted_k]`` and a copy of ``blocks[planted_k]`` changed by
+    ``mutate``. Returns (line, launches)."""
+    launches = {}
+    runs, n_checks, n_sigs, roots = _three_routes(torch, label, spec, base,
+                                                  blocks)
+    for split in runs.values():
+        _add_counts(launches, split)
+    prefix = _planted_block(spec, base, blocks, planted_k, mutate)
+    planted = _planted_run(torch, f"{label} planted", spec, base, prefix,
+                           planted_kind, planted_keys)
+    _add_counts(launches, planted)
+    return {"blocks": len(blocks), "checks": n_checks, "signatures": n_sigs,
+            "roots_equal": True, "final_root": roots[-1].hex()[:16],
+            "routes": runs, "planted": planted}, launches
+
+
+def phase_forks(torch, pool, card):
+    """The port's merge, sharding and custody_game specs with the
+    switchboard on the card: worlds C, D and E replayed three ways with
+    equal post-state roots, and a planted check flagged in each."""
+    from consensus_specs_tpu_torch.test.helpers.execution_payload import (
+        build_state_with_complete_transition,
+    )
+    from consensus_specs_tpu_torch.test.helpers.shard_blob import (
+        build_shard_blob_header,
+    )
+    from consensus_specs_tpu_torch.test.helpers.state import transition_to
+    from consensus_specs_tpu_torch.utils import bls
+    from consensus_specs_tpu_torch.utils.bls12_381 import R
+
+    was = (bls.bls_active, bls._backend)
+    bls.use_gpu()
+    bls.bls_active = True
+    launches, out = {}, {"phase": "forks"}
+
+    def count(world_launches):
+        for k, v in world_launches.items():
+            launches[k] = launches.get(k, 0) + v
+    try:
+        # -- world C: merge ------------------------------------------------
+        wc = SPEC_WORLD_C
+        t0 = time.perf_counter()
+        spec, genesis, _ = _spec_world(pool, wc["fork"], wc["preset"],
+                                       wc["validators"])
+        build_state_with_complete_transition(spec, genesis)
+        blocks, _, _ = _world_a_blocks(pool, spec, genesis,
+                                       _merge_payload(spec))
+        setup_s = time.perf_counter() - t0
+
+        def wrong_message(block, pre):
+            att = block.body.attestations[0]
+            root, sks = _aggregate_sig(spec, pre, att)
+            att.signature = spec.BLSSignature(pool.sign(
+                [(sum(sks) % R, bytes([root[0] ^ 0xff]) + root[1:])])[0])
+        k = min(4, len(blocks) - 1)
+        line, world = _fork_world(
+            torch, "world C", spec, genesis, blocks, k, wrong_message,
+            "fast_aggregate",
+            len(blocks[k].message.body.attestations[0].aggregation_bits))
+        count(world)
+        out["world_c"] = {**wc, "setup_s": setup_s,
+                          "payloads": len(blocks), "attestations": sum(
+                              len(b.message.body.attestations)
+                              for b in blocks), **line}
+
+        # -- world D: sharding ---------------------------------------------
+        wd = SPEC_WORLD_D
+        t0 = time.perf_counter()
+        spec_d, genesis_d, _ = _spec_world(pool, wd["fork"], wd["preset"],
+                                           wd["validators"])
+        base_d = genesis_d.copy()
+        transition_to(spec_d, base_d, int(spec_d.SLOTS_PER_EPOCH))
+        blocks_d = _world_d_blocks(spec_d, base_d, wd["blocks"],
+                                   wd["header_blocks"])
+        setup_d_s = time.perf_counter() - t0
+
+        def foreign_signature(block, pre):
+            header = block.body.shard_headers[0]
+            other = build_shard_blob_header(
+                spec_d, pre, slot=header.message.slot,
+                shard=header.message.shard, data_seed=1000)
+            header.signature = other.signature
+        headers = sum(len(b.message.body.shard_headers) for b in blocks_d)
+        line, world = _fork_world(torch, "world D", spec_d, base_d, blocks_d,
+                                  2, foreign_signature, "fast_aggregate", 2)
+        count(world)
+        out["world_d"] = {
+            **wd, "active_shards": int(spec_d.get_active_shard_count(
+                base_d, spec_d.get_current_epoch(base_d))),
+            "shard_headers": headers, "shard_proposer_slashings": 1,
+            "host_pairings_per_replay": 2 * headers,
+            "setup_s": setup_d_s, **line}
+
+        # -- world E: custody_game -----------------------------------------
+        we = SPEC_WORLD_E
+        t0 = time.perf_counter()
+        spec_e, genesis_e, _ = _spec_world(pool, we["fork"], we["preset"],
+                                           we["validators"])
+        base_e = genesis_e.copy()
+        walk_epoch = int(spec_e.EPOCHS_PER_CUSTODY_PERIOD) - 1
+        transition_to(spec_e, base_e,
+                      walk_epoch * int(spec_e.SLOTS_PER_EPOCH) - 1)
+        walk_s = time.perf_counter() - t0
+        blocks_e, _, _ = _world_a_blocks(pool, spec_e, base_e,
+                                         _custody_reveals(spec_e))
+        setup_e_s = time.perf_counter() - t0
+        last = blocks_e[-1].message.body
+        _check(len(last.custody_key_reveals) > 0
+               and len(last.early_derived_secret_reveals) == 1,
+               "world E: no reveals in its last block")
+
+        def masked_wrong(block, pre):
+            reveal = block.body.early_derived_secret_reveals[0]
+            reveal.reveal = spec_e.BLSSignature(pool.sign(
+                [(int(reveal.revealed_index) + 1, b"\x5a" * 32)])[0])
+        line, world = _fork_world(torch, "world E", spec_e, base_e, blocks_e,
+                                  len(blocks_e) - 1, masked_wrong,
+                                  "aggregate", 2)
+        count(world)
+        out["world_e"] = {
+            **we, "walked_epochs": walk_epoch, "walk_s": walk_s,
+            "custody_key_reveals": len(last.custody_key_reveals),
+            "early_derived_secret_reveals": 1, "attestations": sum(
+                len(b.message.body.attestations) for b in blocks_e),
+            "setup_s": setup_e_s, **line}
+    finally:
+        bls.bls_active, bls._backend = was
+    return {**out, "launches": dict(launches), **card}, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the serve fleet
 # ---------------------------------------------------------------------------
 
 FLEET_WORKERS = 2  # the JAX package's fleet smoke count
@@ -3260,7 +3719,8 @@ def main():
         with KeyPool() as pool:
             for path, phase in (("wide", phase_wide), ("epoch", phase_epoch),
                                 ("mainnet", phase_mainnet),
-                                ("spec", phase_spec)):
+                                ("spec", phase_spec), ("kzg", phase_kzg),
+                                ("forks", phase_forks)):
                 shapes = path_shapes[path] = {}
                 program_wrap, execute_wrap = _recording_launch_shapes(shapes)
                 with _patched(bls_backend, "_program", program_wrap), \
@@ -3291,7 +3751,8 @@ def main():
     # slice (cold), the RLC slot (warm best of 3), the tower combine, the
     # fresh slot with the codec prep through each entry point, the serve
     # plane's main stream, and (summed over their runs) the wide buckets,
-    # the epoch's flush routes and the mainnet-scale plane, and the serve
+    # the epoch's flush routes, the mainnet-scale plane, the spec worlds,
+    # the KZG batch and the fork worlds, and the serve
     # fleet (the sum of its workers' own counts: each worker process
     # counts from 0)
     paths = {"slice": {"vm_step": launches["vm_step"],
@@ -3303,9 +3764,13 @@ def main():
                        "vm_step_steps": run["step_kernel_steps"],
                        "mont_mul": run["mont_mul_kernel_launches"]}
     total = {k: sum(p[k] for p in paths.values()) for k in paths["slice"]}
+    # kzg needs the step kernel only: its items are oracle points (no
+    # decode, no subgroup check, no hash to G2), so the Montgomery kernel
+    # has no work on that path
     idle = [f"{path} {k}" for path in ("wide", "epoch", "mainnet", "spec",
-                                       "fleet")
-            for k in ("vm_step", "mont_mul") if paths[path][k] == 0]
+                                       "kzg", "forks", "fleet")
+            for k in ("vm_step", "mont_mul") if paths[path][k] == 0
+            and (path, k) != ("kzg", "mont_mul")]
     if idle:
         print(f"chip_smoke: FAILED: kernels never launched on {idle}",
               file=sys.stderr)

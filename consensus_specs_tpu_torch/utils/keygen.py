@@ -14,7 +14,7 @@ import multiprocessing
 import os
 from concurrent.futures import ProcessPoolExecutor
 from functools import partial
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 # items a worker task carries: big enough to amortize the pickling, small
 # enough to spread an epoch's signatures over every worker
@@ -72,6 +72,14 @@ class KeyPool:
             raise ValueError("invalid secret key")
         chunks = [items[i:i + _CHUNK] for i in range(0, len(items), _CHUNK)]
         return [x for part in self._ex.map(fn, chunks) for x in part]
+
+    def map(self, fn: Callable, items: Sequence) -> List:
+        """``[fn(x) for x in items]``, spread over the pool's processes
+        (``fn`` must be picklable: a module-level function). Serial with no
+        pool."""
+        if self._ex is None:
+            return [fn(x) for x in items]
+        return list(self._ex.map(fn, items))
 
     def sk_to_pk(self, sks: Sequence[int]) -> List[bytes]:
         from . import bls

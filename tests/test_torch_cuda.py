@@ -522,3 +522,98 @@ def test_world_a_replay_on_the_port_spec(dev):
         assert spec.hash_tree_root(replay) == spec.hash_tree_root(plain)
     finally:
         bls.bls_active, bls._backend = was
+
+
+def test_kzg_point_proofs_on_the_card(dev):
+    """The KZG batch's cases (three valid proofs, a wrong y, a proof for
+    another point, the constant polynomial's infinity proof and a z == tau
+    query) through ``kzg_backend.batch_verify_point_proofs`` on the card:
+    the constructed truth and the port's exact-int oracle, both kernels'
+    results equal to the plain steps' verdicts."""
+    from consensus_specs_tpu_torch.ops import cuda_step, kzg_backend
+    from consensus_specs_tpu_torch.utils import kzg
+
+    tau = 0x5EED
+    setup = kzg.lazy_setup(tau, 16)
+    cases = []
+    for i in range(3):
+        coeffs = [(7 * i + j * j + 1) % kzg.MODULUS for j in range(5 + i)]
+        z = (31 * i + 2) % kzg.MODULUS
+        proof, y = kzg.prove_at_point(setup, coeffs, z)
+        cases.append((kzg.commit_to_poly(setup, coeffs), proof, z, y, True))
+    c, p, z, y, _ = cases[0]
+    cases.append((c, p, z, (y + 1) % kzg.MODULUS, False))
+    c, p, z, y, _ = cases[1]
+    cases.append((c, p, (z + 5) % kzg.MODULUS, y, False))
+    for coeffs, z in (([11], 4), ([3, 1, 4, 1, 5], tau)):
+        proof, y = kzg.prove_at_point(setup, coeffs, z)
+        cases.append((kzg.commit_to_poly(setup, coeffs), proof, z, y, True))
+    cols = [[c[j] for c in cases] for j in range(4)]
+    launches = cuda_step.LAUNCHES
+    got = kzg_backend.batch_verify_point_proofs(setup, *cols)
+    assert cuda_step.LAUNCHES - launches == 2
+    want = [c[4] for c in cases]
+    assert list(got) == want
+    assert [kzg.verify_point_proof(setup, *c[:4]) for c in cases] == want
+    assert list(kzg_backend.batch_verify_point_proofs(
+        setup, *cols, device="cpu")) == want
+
+
+def test_world_d_replay_on_the_port_spec(dev):
+    """World D at 64 validators on the port's sharding spec: from the first
+    slot of epoch 1, three blocks carrying a shard header on each active
+    shard (FastAggregateVerify over [builder, proposer] and the host
+    degree check), the last a shard proposer slashing too, replayed
+    through ``replay_blocks_batched`` on the card: every check True and
+    the post-state root of the replay with BLS off."""
+    from consensus_specs_tpu_torch import batch_verify, builder
+    from consensus_specs_tpu_torch.test.helpers.block import (
+        build_empty_block_for_next_slot,
+    )
+    from consensus_specs_tpu_torch.test.helpers.genesis import (
+        create_genesis_state,
+    )
+    from consensus_specs_tpu_torch.test.helpers.shard_blob import (
+        build_shard_blob_header, build_shard_proposer_slashing,
+    )
+    from consensus_specs_tpu_torch.test.helpers.state import (
+        state_transition_and_sign_block, transition_to,
+    )
+    from consensus_specs_tpu_torch.utils import bls
+
+    spec = builder.build_spec_module("sharding", "minimal")
+    was = (bls.bls_active, bls._backend)
+    try:
+        bls.bls_active = True
+        bls.use_py_ecc()  # sealing's eager checks: the oracle
+        state = create_genesis_state(spec, [spec.MAX_EFFECTIVE_BALANCE] * 64,
+                                     spec.MAX_EFFECTIVE_BALANCE)
+        transition_to(spec, state, int(spec.SLOTS_PER_EPOCH))
+        base = state.copy()
+        blocks = []
+        with batch_verify.SignatureCollector(spec):
+            for i in range(3):
+                block = build_empty_block_for_next_slot(spec, state)
+                for shard in range(int(spec.INITIAL_ACTIVE_SHARDS)):
+                    block.body.shard_headers.append(build_shard_blob_header(
+                        spec, state, slot=state.slot, shard=shard,
+                        data_seed=10 * i + shard + 1))
+                if i == 2:
+                    block.body.shard_proposer_slashings.append(
+                        build_shard_proposer_slashing(spec, state,
+                                                      slot=state.slot))
+                blocks.append(state_transition_and_sign_block(spec, state,
+                                                              block))
+        bls.use_gpu()
+        replay = base.copy()
+        ok = batch_verify.replay_blocks_batched(spec, replay, blocks)
+        # a proposer signature, a randao reveal and two headers a block,
+        # and the slashing's two
+        assert ok.all() and len(ok) == 4 * len(blocks) + 2
+        bls.bls_active = False
+        plain = base.copy()
+        for signed in blocks:
+            spec.state_transition(plain, signed)
+        assert spec.hash_tree_root(replay) == spec.hash_tree_root(plain)
+    finally:
+        bls.bls_active, bls._backend = was

@@ -46,10 +46,18 @@ state = spec.BeaconState(validators=[spec.Validator(
     for _ in range(8)], balances=[spec.MAX_EFFECTIVE_BALANCE] * 8)
 anchor = spec.BeaconBlock(state_root=spec.hash_tree_root(state))
 head = HeadService(spec, state, anchor, differential=True)
+# the draft-era forks over the port's own KZG plane
+sharding = builder.build_spec_module("sharding", "minimal")
+custody = builder.build_spec_module("custody_game", "mainnet")
+from consensus_specs_tpu_torch.utils import kzg
 import chip_smoke
 print(json.dumps({
     "spec": spec.__name__,
     "spec_bls": spec.bls.__name__,
+    "draft_specs": [sharding.__name__, custody.__name__],
+    "kzg_setup": sharding.KZG_SETUP is kzg.lazy_setup(
+        int(sharding.KZG_SETUP_TAU), int(sharding.KZG_SETUP_SIZE)),
+    "g1_setup_1": bytes(custody.G1_SETUP[1]).hex(),
     "head": bytes(head.get_head()) == bytes(spec.hash_tree_root(anchor)),
     "modules": mods,
     "one_squared": fq.from_mont_limbs(out.numpy()),
@@ -92,7 +100,10 @@ def test_port_imports_no_jax_and_no_reference_module():
                 "merkle.plane", "chain.head_service", "chain.proto_array",
                 "chain.metrics", "chain.health", "test.context",
                 "test.helpers.genesis", "test.helpers.attestations",
-                "test.helpers.sync_committee"):
+                "test.helpers.sync_committee", "utils.kzg", "utils.das",
+                "utils.sharding", "utils.custody", "ops.kzg_backend",
+                "test.helpers.execution_payload", "test.helpers.shard_blob",
+                "test.helpers.custody_game", "test.helpers.fork_transition"):
         assert "consensus_specs_tpu_torch." + mod in got["modules"], mod
     assert got["one_squared"] == 1
     assert got["hashed"] == 1
@@ -102,6 +113,9 @@ def test_port_imports_no_jax_and_no_reference_module():
     assert got["spec"] == "consensus_specs_tpu_torch.phase0.minimal"
     assert got["spec_bls"] == "consensus_specs_tpu_torch.utils.bls"
     assert got["head"] is True
+    assert got["draft_specs"] == ["consensus_specs_tpu_torch.sharding.minimal",
+                                  "consensus_specs_tpu_torch.custody_game.mainnet"]
+    assert got["kzg_setup"] is True and len(got["g1_setup_1"]) == 96
     assert got["jax"] == []
     assert got["reference"] == []
     # the port's own hashing binding only; built specs need no PyYAML
