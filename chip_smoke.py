@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Drives ``consensus_specs_tpu_torch`` (never jax, never the JAX package)
-through sixteen phases, each printing one JSON line:
+through eighteen phases, each printing one JSON line:
 
   1. build   -- compile every CUDA kernel of the port from csrc/ with nvcc
                for sm_90a (one nvcc per source, all started together);
@@ -166,8 +166,8 @@ through sixteen phases, each printing one JSON line:
                (an aggregate over another message; a header with another
                header's signature; a masked reveal over another message)
                flagged alone, the oracle agreeing.
-Phases 9-14 build their keys, signatures and KZG proofs in a pool of
-spawned processes (utils/keygen.py).
+Phases 9-14 and 16 build their keys, signatures and KZG proofs in a pool
+of spawned processes (utils/keygen.py).
  15. fleet   -- the serve fleet on the card: FleetRouter with 2 bls worker
                processes (each its own CUDA context). (a) the port's
                serve/fleet_smoke.main: verdict identity fleet ==
@@ -185,8 +185,34 @@ spawned processes (utils/keygen.py).
                assignment, 0 affinity moves; (c) one worker armed to fail
                until the router sheds or drains it (falls back on
                purpose). The workers' launch counts are summed and their
-               launch shapes (from their snapshots) join phase 16.
- 16. kernels -- every program and row count that phases 9-15 launched the
+               launch shapes (from their snapshots) join phase 18.
+ 16. lightclient -- the light-client proof plane on the port's altair
+               mainnet spec: a ProofWorld of the full 512-seat sync
+               committee (keys from the spawn pool, equal to SkToPk's) over
+               a registry of 300,000 validators (BASELINE.json's); 2 head
+               slots behind one ProofService whose verifier is a
+               VerificationService on the card at phase 8's knobs. Each
+               artifact built once, its sync-committee FastAggregateVerify
+               (k512) verdict True from the card service, then checked in
+               full: validate_light_client_update (the switchboard on the
+               card), the combined multiproof, and the finality branch
+               against a state re-Merkleized from a fresh decode_bytes.
+               Then 100,000 requests (the 2 builds among them) round-robin
+               from 4 threads, each paying is_valid_merkle_branch: hit
+               rate (N - R)/N, proofs served/s, p50/p99 proof_serve. An
+               update signed under a wrong key (verified False, the spec's
+               validation raises) and a flipped finality-branch byte must
+               be flagged; no fallback, retry or ladder record. Then the
+               port's proof smoke (minimal, 32 seats) on 2 bls workers on
+               the card, each launching both kernels.
+ 17. sim     -- the port's simnet, every node's service on the card over
+               the crypto-free VerdictBackend: sim/smoke.main
+               (partition_heal, 4 nodes, strict gate), every scenario of
+               the library under the strict gate with light-client
+               evidence, partition_heal replayed on 2 verdict worker
+               processes on the card (each naming the card), and
+               sim/latency_smoke.main. No kernel is launched, by design.
+ 18. kernels -- every program and row count that phases 9-16 launched the
                step kernel at (noted during those phases) and that no
                earlier phase checked: the first 256 steps on random
                canonical inputs limb for limb against the plain version,
@@ -3634,6 +3660,350 @@ def phase_fleet(torch, card, serve_input, serve_main, mainnet_slot):
             **card}, launches, shapes
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the light-client proof plane at full width
+# ---------------------------------------------------------------------------
+
+LIGHTCLIENT_VALIDATORS = 300_000  # BASELINE.json's registry
+LIGHTCLIENT_SLOTS = 2  # distinct head slots (R): the artifacts built
+LIGHTCLIENT_REQUESTS = 100_000  # client requests (N), the R builds included
+LIGHTCLIENT_THREADS = 4  # request threads, as the JAX proofs bench
+LIGHTCLIENT_SEED = SEED + 3  # the sync committee's secret keys
+
+
+def _proof_requests(spec, service, head_slots, roots, build, n, threads):
+    """``n`` client requests round-robin over ``head_slots`` from
+    ``threads`` request threads, each paying the client's finality-branch
+    check against the requested state root (bench/proofs.py's replay).
+    Returns (requests checked, seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from consensus_specs_tpu_torch.lightclient.proof_tree import (
+        floorlog2, subtree_index,
+    )
+
+    def one_request(i):
+        slot = head_slots[i % len(head_slots)]
+        artifact = service.serve(slot, roots[slot], lambda: build(slot))
+        g = artifact.finality_gindex
+        return bool(artifact.verified is True and spec.is_valid_merkle_branch(
+            spec.Root(artifact.finalized_root),
+            [spec.Bytes32(b) for b in artifact.finality_branch],
+            floorlog2(g), subtree_index(g), spec.Root(roots[slot])))
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=threads) as pool:
+        checked = sum(pool.map(one_request, range(n), chunksize=256))
+    return checked, time.perf_counter() - t0
+
+
+def phase_lightclient(torch, pool, card):
+    """The light-client proof plane on the port's own altair mainnet spec:
+    a ProofWorld of the full 512-seat sync committee (keys derived in
+    ``pool``) over a registry of 300,000 validators; 2 head slots behind
+    one ProofService whose verifier is a VerificationService on the card
+    at the serve knobs. Each artifact is built and its sync-committee
+    signature verified by the service (FastAggregateVerify k512 on the
+    card), then checked in full before the timed window: the spec's
+    validate_light_client_update (the switchboard on the card), the
+    combined multiproof, and the finality branch against a state
+    re-Merkleized from a fresh decode_bytes. Then 100,000 requests (the 2
+    builds among them) round-robin from 4 threads, each paying the
+    client's is_valid_merkle_branch. Planted controls: an artifact signed
+    under a wrong key (verified False, validate_light_client_update
+    raises) and a flipped finality-branch byte. Then the port's proof
+    smoke (minimal, 32 seats) on 2 bls workers on the card. No fallback,
+    retry or ladder record may appear."""
+    from consensus_specs_tpu_torch import builder
+    from consensus_specs_tpu_torch.lightclient import proof_smoke
+    from consensus_specs_tpu_torch.lightclient.proof_tree import (
+        ProofWorld, build_update_artifact, floorlog2, subtree_index,
+        verify_artifact,
+    )
+    from consensus_specs_tpu_torch.lightclient.serve_proofs import (
+        ProofService,
+    )
+    from consensus_specs_tpu_torch.obs import latency
+    from consensus_specs_tpu_torch.ops import (bls_backend, cuda_fq,
+                                               cuda_step, profiling)
+    from consensus_specs_tpu_torch.serve.service import VerificationService
+    from consensus_specs_tpu_torch.utils import bls
+    from consensus_specs_tpu_torch.utils.bls12_381 import R
+
+    bls.use_gpu()  # the spec's own checks on the card
+    t0 = time.perf_counter()
+    spec = builder.build_spec_module("altair", "mainnet")
+    seats = int(spec.SYNC_COMMITTEE_SIZE)
+    _check(seats == 512, f"altair mainnet sync committee of {seats} seats")
+    rng = np.random.default_rng(LIGHTCLIENT_SEED)
+    sks = [int.from_bytes(rng.bytes(32), "little") % (R - 1) + 1
+           for _ in range(seats)]
+    pks = pool.sk_to_pk(sks)
+    _check(all(bls.SkToPk(sks[i]) == pks[i] for i in (0, seats - 1)),
+           "lightclient: the key pool's pubkeys differ from SkToPk's")
+    keys_s = time.perf_counter() - t0
+    world = ProofWorld(spec, sks=sks, pubkeys=pks,
+                       validators=LIGHTCLIENT_VALIDATORS)
+    world_s = time.perf_counter() - t0 - keys_s
+    head_slots = [world.finalized_slot + 1 + i
+                  for i in range(LIGHTCLIENT_SLOTS)]
+    states = {s: world.head_state(s) for s in head_slots}
+    roots = {s: bytes(states[s].hash_tree_root()) for s in head_slots}
+    setup_s = time.perf_counter() - t0
+
+    def build(slot, sign=world.sign):
+        return build_update_artifact(
+            spec, states[slot], world.finalized_state,
+            genesis_validators_root=world.genesis_validators_root,
+            sign=sign)
+
+    def wrong_key(root):
+        return [True] * seats, bls.Sign((sum(sks) + 1) % R, bytes(root))
+
+    profiling.reset()
+    latency.reset()
+    bls_backend.reset_call_counts()
+    bls_backend.reset_prep_state()
+    cuda_step.LAUNCHES = cuda_step.STEPS = 0
+    cuda_fq.LAUNCHES = cuda_fq.CAPTURES = 0
+    step_ms = []  # every step-kernel call of the main run (CUDA events)
+    t_main = time.perf_counter()
+    with _patched(cuda_step, "run_steps", _device_timer(torch, step_ms)):
+        verifier = VerificationService(max_batch=SERVE_MAX_BATCH,
+                                       max_wait_ms=SERVE_MAX_WAIT_MS)
+        try:
+            service = ProofService(verifier=verifier)
+            slots, artifacts = [], {}
+            for s in head_slots:
+                tb = time.perf_counter()
+                artifact = service.serve(s, roots[s], lambda s=s: build(s))
+                build_s = time.perf_counter() - tb
+                artifacts[s] = artifact
+                _check(artifact.verified is True,
+                       f"lightclient slot {s}: the card service's verdict is "
+                       f"{artifact.verified!r}")
+                _check(len(artifact.participant_pubkeys) == seats,
+                       f"lightclient slot {s}: "
+                       f"{len(artifact.participant_pubkeys)} participants")
+                td = time.perf_counter()
+                fresh = spec.BeaconState.decode_bytes(states[s].encode_bytes())
+                fresh_root = bytes(fresh.hash_tree_root())
+                decode_s = time.perf_counter() - td
+                _check(fresh_root == roots[s], f"lightclient slot {s}: the "
+                       "re-Merkleized root differs from the served one")
+                del fresh
+                tv = time.perf_counter()
+                verify_artifact(spec, artifact, world.snapshot,
+                                world.genesis_validators_root,
+                                state_root=fresh_root)
+                verify_s = time.perf_counter() - tv
+                slots.append({"slot": s, "build_and_card_verdict_s": build_s,
+                              "fresh_decode_and_root_s": decode_s,
+                              "client_verify_s": verify_s,
+                              "multiproof_nodes": len(artifact.multi_proof),
+                              "finality_branch":
+                                  len(artifact.finality_branch)})
+
+            # planted controls, outside the served cache's accounting
+            controls = ProofService(verifier=verifier)
+            s = head_slots[0]
+            bad = controls.serve(s, roots[s], lambda: build(s, sign=wrong_key))
+            _check(bad.verified is False,
+                   "lightclient: an update signed under "
+                   f"a wrong key came back verified={bad.verified!r}")
+            try:
+                spec.validate_light_client_update(
+                    world.snapshot, bad.update,
+                    spec.Root(world.genesis_validators_root))
+            except AssertionError:
+                pass
+            else:
+                raise SmokeFailure("lightclient: validate_light_client_update "
+                                   "accepted an update signed under a "
+                                   "wrong key")
+            good = artifacts[s]
+            g = good.finality_gindex
+            flipped = [bytes(b) for b in good.finality_branch]
+            flipped[0] = bytes([flipped[0][0] ^ 1]) + flipped[0][1:]
+            _check(not spec.is_valid_merkle_branch(
+                spec.Root(good.finalized_root),
+                [spec.Bytes32(b) for b in flipped], floorlog2(g),
+                subtree_index(g), spec.Root(roots[s])),
+                "lightclient: a flipped finality-branch byte still verified")
+
+            window = LIGHTCLIENT_REQUESTS - LIGHTCLIENT_SLOTS
+            checked, elapsed = _proof_requests(
+                spec, service, head_slots, roots, build, window,
+                LIGHTCLIENT_THREADS)
+            _check(checked == window,
+                   f"lightclient: {window - checked} requests failed the "
+                   "check")
+            vsnap = verifier.metrics.snapshot()
+        finally:
+            verifier.close(timeout=60)
+    main_s = time.perf_counter() - t_main
+    launches = {"vm_step": cuda_step.LAUNCHES,
+                "vm_step_steps": cuda_step.STEPS,
+                "mont_mul": cuda_fq.LAUNCHES}
+    snap = service.snapshot()
+    _check(snap["served"] == LIGHTCLIENT_REQUESTS
+           and snap["builds"] == LIGHTCLIENT_SLOTS
+           and snap["cache_hits"] + snap["inflight_joins"]
+           == LIGHTCLIENT_REQUESTS - LIGHTCLIENT_SLOTS,
+           f"lightclient: cache accounting {snap}")
+    hit_rate = service.metrics.hit_rate
+    _check(hit_rate == (LIGHTCLIENT_REQUESTS - LIGHTCLIENT_SLOTS)
+           / LIGHTCLIENT_REQUESTS, f"lightclient: hit rate {hit_rate}")
+    ladder = _ladder_records()
+    for key in ("fallback_items", "backend_retries", "mesh_fallbacks"):
+        _check(vsnap[key] == 0, f"lightclient: {key} = {vsnap[key]}")
+    _check(not any(ladder.values()), f"lightclient: ladder records {ladder}")
+    _check(launches["vm_step"] > 0 and launches["mont_mul"] > 0,
+           f"lightclient: kernel launches {launches}")
+    serve_lat = latency.snapshot().get(latency.stage_label("proof_serve"), {})
+
+    # the proof smoke: 2 bls workers on the card
+    t0 = time.perf_counter()
+    smoke_report = {}
+    rc = proof_smoke.main(device="cuda", report=smoke_report)
+    _check(rc == 0, "proof smoke failed (its line above says why)")
+    smoke_s = time.perf_counter() - t0
+    snaps = smoke_report["snapshots"]
+    workers = {label: snap["extra"]["kernels"] for label, snap in
+               snaps.items()}
+    # this process's launches through the proof smoke too (its client
+    # checks on the card), then each worker's own count from 0
+    total = {"vm_step": cuda_step.LAUNCHES, "vm_step_steps": cuda_step.STEPS,
+             "mont_mul": cuda_fq.LAUNCHES}
+    for kernels in workers.values():
+        for key in total:
+            total[key] += kernels[key]
+    shapes = {}
+    _fleet_launch_shapes(snaps, shapes)
+    return {"phase": "lightclient", "fork": "altair", "preset": "mainnet",
+            "seats": seats, "validators": LIGHTCLIENT_VALIDATORS,
+            "slots": LIGHTCLIENT_SLOTS, "requests": LIGHTCLIENT_REQUESTS,
+            "threads": LIGHTCLIENT_THREADS,
+            "max_batch": SERVE_MAX_BATCH, "max_wait_ms": SERVE_MAX_WAIT_MS,
+            "setup_s": setup_s, "keys_s": keys_s, "world_s": world_s,
+            "per_slot": slots, "main_s": main_s,
+            "artifacts_verified": True, "controls_flagged": [
+                "wrong_key_signature", "flipped_finality_branch_byte"],
+            "window_requests": window, "window_s": elapsed,
+            "proofs_served_per_s": window / elapsed,
+            "hit_rate": hit_rate, "service": snap,
+            "proof_serve_p50_ms": serve_lat.get("p50_ms"),
+            "proof_serve_p99_ms": serve_lat.get("p99_ms"),
+            "proof_serve_n": serve_lat.get("n"),
+            "verifier": {key: vsnap[key] for key in (
+                "batches", "device_flushes", "fallback_items",
+                "backend_retries", "mesh_fallbacks", "rlc")},
+            "ladder_records": ladder,
+            "prep": dict(bls_backend.PREP_STATS),
+            "step_kernel_launches": launches["vm_step"],
+            "step_kernel_steps": launches["vm_step_steps"],
+            "mont_mul_kernel_launches": launches["mont_mul"],
+            "step_kernel_ms": sum(step_ms),
+            "step_kernel_busy_share": sum(step_ms) / 1e3 / main_s,
+            "proof_smoke": dict(smoke_report["result"], wall_s=smoke_s,
+                                worker_kernels=workers),
+            "path_launches": total,
+            **card}, total, shapes
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the simnet
+# ---------------------------------------------------------------------------
+
+SIM_FLEET_WORKERS = 2
+
+
+def phase_sim(torch, card):
+    """The port's simnet, every node's service on the card over the
+    crypto-free VerdictBackend: sim/smoke.main (partition_heal, 4 nodes,
+    strict gate), every scenario of the library under the strict gate,
+    partition_heal replayed on 2 verdict worker processes on the card
+    (each reporting the card as its device), and sim/latency_smoke.main.
+    It launches no kernel, by the JAX package's own design (the simnet's
+    verdicts ride in the signature bytes)."""
+    from consensus_specs_tpu_torch import sim
+    from consensus_specs_tpu_torch.ops import cuda_fq, cuda_step
+    from consensus_specs_tpu_torch.sim import latency_smoke, smoke
+    from consensus_specs_tpu_torch.sim.fleet_replay import run_fleet_replay
+
+    cuda_step.LAUNCHES = cuda_step.STEPS = 0
+    cuda_fq.LAUNCHES = cuda_fq.CAPTURES = 0
+    t0 = time.perf_counter()
+    report = {}
+    _check(smoke.main(report=report) == 0,
+           "sim smoke failed (its line above says why)")
+    smoke_run = report["scenario"]
+    smoke_s = time.perf_counter() - t0
+
+    def evidence(r):
+        return {"converged": r.converged, "digest": r.digest,
+                "head": r.head, "head_slot": r.head_slot,
+                "heal_to_convergence_s": r.heal_to_convergence_s,
+                "deliveries": r.deliveries,
+                "diverged_samples": r.diverged_samples,
+                "light_clients": r.light_clients,
+                "proofs_served": r.proofs_served,
+                "proofs_verified": r.proofs_verified,
+                "proof_failures": r.proof_failures,
+                "proof_cache_hit_rate": r.proof_cache_hit_rate,
+                "wall_s": r.wall_s}
+
+    spec, anchor_state, anchor_block = sim.build_world()
+    library = {}
+    for name in sim.scenario_names():
+        r = sim.run_scenario(
+            sim.get_scenario(name), spec=spec, anchor_state=anchor_state,
+            anchor_block=anchor_block, seed=7, strict=True)
+        _check(r.converged and r.proofs_verified > 0
+               and r.proof_failures == 0,
+               f"sim {name}: {r.error or 'no verified light-client proof'}")
+        library[name] = evidence(r)
+    _check(library["partition_heal"]["digest"] == smoke_run.digest,
+           "sim: the smoke's partition_heal digest differs from the "
+           "library run's at the same seed")
+
+    t0 = time.perf_counter()
+    replay = run_fleet_replay("partition_heal", workers=SIM_FLEET_WORKERS)
+    replay_s = time.perf_counter() - t0
+    per_worker = replay["fleet"]["per_worker"]
+    _check(replay["report"].converged
+           and len(per_worker) == SIM_FLEET_WORKERS
+           and sum(w["submits"] for w in per_worker.values()) > 0,
+           f"sim fleet replay: {replay['fleet']}")
+    names = {w["device_name"] for w in per_worker.values()}
+    _check({w["device"] for w in per_worker.values()} == {"cuda"}
+           and names == {torch.cuda.get_device_name(0)},
+           f"sim fleet replay: workers on {per_worker}")
+    _check(replay["report"].digest == library["partition_heal"]["digest"],
+           "sim fleet replay: its digest differs from the in-process run's")
+
+    t0 = time.perf_counter()
+    _check(latency_smoke.main() == 0,
+           "sim latency smoke failed (its line above says why)")
+    latency_s = time.perf_counter() - t0
+    launches = {"vm_step": cuda_step.LAUNCHES,
+                "vm_step_steps": cuda_step.STEPS,
+                "mont_mul": cuda_fq.LAUNCHES}
+    _check(launches == {"vm_step": 0, "vm_step_steps": 0, "mont_mul": 0},
+           f"sim: kernel launches {launches} on a crypto-free path")
+    return {"phase": "sim", "nodes": smoke_run.nodes, "seed": 7,
+            "smoke": dict(evidence(smoke_run), wall_s=smoke_s),
+            "library": library,
+            "fleet_replay": dict(evidence(replay["report"]),
+                                 wall_s=replay_s, per_worker=per_worker,
+                                 routed=replay["fleet"]["routed"]),
+            "latency_smoke_s": latency_s,
+            "kernels_note": "no kernel by design: the simnet's services "
+                            "answer through the crypto-free VerdictBackend",
+            "step_kernel_launches": 0, "mont_mul_kernel_launches": 0,
+            **card}, launches
+
+
 def main():
     import torch
 
@@ -3730,10 +4100,26 @@ def main():
                     mainnet_slot = line.pop("_fleet_slot")
                 _emit({**line, "elapsed_s": time.perf_counter() - t0})
 
-        # the serve fleet: worker processes on the card; their launch
-        # shapes come home in their snapshots
-        line, path_launches["fleet"], path_shapes["fleet"] = phase_fleet(
-            torch, card, serve_input, serve_line["main"], mainnet_slot)
+            # the serve fleet: worker processes on the card; their launch
+            # shapes come home in their snapshots
+            line, path_launches["fleet"], path_shapes["fleet"] = phase_fleet(
+                torch, card, serve_input, serve_line["main"], mainnet_slot)
+            _emit({**line, "elapsed_s": time.perf_counter() - t0})
+
+            # the light-client proof plane: its own launch shapes, and
+            # those of the proof smoke's workers (from their snapshots)
+            shapes = path_shapes["lightclient"] = {}
+            program_wrap, execute_wrap = _recording_launch_shapes(shapes)
+            with _patched(bls_backend, "_program", program_wrap), \
+                    _patched(vm, "execute", execute_wrap):
+                line, path_launches["lightclient"], smoke_shapes = \
+                    phase_lightclient(torch, pool, card)
+            for key, shape in smoke_shapes.items():
+                shapes.setdefault(key, shape)
+            _emit({**line, "elapsed_s": time.perf_counter() - t0})
+
+        # the simnet: crypto-free, no kernel launched by design
+        line, path_launches["sim"] = phase_sim(torch, card)
         _emit({**line, "elapsed_s": time.perf_counter() - t0})
 
         path_streams = phase_path_streams(torch, dev, rng, imad_rate, l2_ns,
@@ -3752,9 +4138,10 @@ def main():
     # fresh slot with the codec prep through each entry point, the serve
     # plane's main stream, and (summed over their runs) the wide buckets,
     # the epoch's flush routes, the mainnet-scale plane, the spec worlds,
-    # the KZG batch and the fork worlds, and the serve
+    # the KZG batch and the fork worlds, the serve
     # fleet (the sum of its workers' own counts: each worker process
-    # counts from 0)
+    # counts from 0), the light-client plane (its process and its proof
+    # smoke's workers) and the simnet
     paths = {"slice": {"vm_step": launches["vm_step"],
                        "vm_step_steps": launches["vm_step_steps"],
                        "mont_mul": launches["mont_mul"]},
@@ -3767,8 +4154,9 @@ def main():
     # kzg needs the step kernel only: its items are oracle points (no
     # decode, no subgroup check, no hash to G2), so the Montgomery kernel
     # has no work on that path
+    # the simnet launches none: its verdicts ride in the signature bytes
     idle = [f"{path} {k}" for path in ("wide", "epoch", "mainnet", "spec",
-                                       "kzg", "forks", "fleet")
+                                       "kzg", "forks", "fleet", "lightclient")
             for k in ("vm_step", "mont_mul") if paths[path][k] == 0
             and (path, k) != ("kzg", "mont_mul")]
     if idle:

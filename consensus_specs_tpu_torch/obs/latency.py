@@ -31,12 +31,15 @@ from ..ops import profiling
 GOSSIP_TO_HEAD_LABEL = "latency.gossip_to_head"
 
 # per-stage dynamic family latency[<stage>]: the serve pipeline's stages,
-# the chain batch stages, the ingress hop (birth -> submit accepted) and
-# every ssz_impl.hash_tree_root, fixed so the label cardinality is bounded
-# by construction
+# the chain batch stages, the ingress hop (birth -> submit accepted), the
+# proof plane's stages and every ssz_impl.hash_tree_root, fixed so the
+# label cardinality is bounded by construction
 STAGES: Tuple[str, ...] = (
     "ingress", "queue_wait", "prep", "device", "combine", "finalize",
     "validate", "sig_wait", "apply", "sweep", "head",
+    # the light-client proof plane: artifact build, signature verdict
+    # wait, and the whole serve() request (hit or build)
+    "proof_build", "proof_verify", "proof_serve",
     "merkle_root",
 )
 

@@ -151,6 +151,24 @@ GAUGES: Dict[str, str] = {
     "slo.worst_burn_rate": "highest burn rate across objectives and "
                            "windows (1.0 = consuming error budget exactly "
                            "at the sustainable rate)",
+    "lightclient.proofs_served": "proof requests answered by the "
+                                 "ProofService (hit, in-flight join, or "
+                                 "fresh build)",
+    "lightclient.proof_builds": "per-slot proof artifacts actually "
+                                "materialized (cache misses that owned "
+                                "the build)",
+    "lightclient.cache_hit_rate": "share of served proofs answered "
+                                  "without a rebuild (cache hits + "
+                                  "in-flight joins) / served",
+    "lightclient.inflight_joins": "proof requests that joined a "
+                                  "concurrent in-flight build instead of "
+                                  "duplicating it",
+    "lightclient.updates_verified": "sync-committee signatures on served "
+                                    "updates verified True through the "
+                                    "VerificationService fast path",
+    "lightclient.verify_failures": "sync-committee signature verdicts "
+                                   "that came back False (the artifact "
+                                   "is still served, flagged unverified)",
     "timeseries.samples": "fixed-interval samples the time-series "
                           "store has recorded since process start",
     "timeseries.points": "points currently retained across every "
@@ -239,7 +257,7 @@ DYNAMIC_PREFIXES: Dict[str, tuple] = {
     # node-labelled instances: N HeadService or VerificationService
     # instances in one process, or N fleet workers on the merged surface,
     # export under chain[<node>].<name> / serve[<node>].<name> /
-    # health[<node>].<name> via node_label()
+    # lightclient[<node>].<name> / health[<node>].<name> via node_label()
     "chain[": ("chain_node", "per-node chain-plane metrics from multi-"
                              "instance (simnet) runs, labelled "
                              "chain[<node>].<name> — same names as the "
@@ -248,6 +266,12 @@ DYNAMIC_PREFIXES: Dict[str, tuple] = {
                              "instance (simnet) runs, labelled "
                              "serve[<node>].<name> — same names as the "
                              "serve.* family"),
+    "lightclient[": ("lightclient_node", "per-node light-client proof-"
+                                         "plane metrics from multi-"
+                                         "instance (simnet) runs, "
+                                         "labelled lightclient[<node>]."
+                                         "<name> — same names as the "
+                                         "lightclient.* family"),
     "health[": ("health_node", "per-node consensus health ledger rows "
                                "from multi-instance (simnet) runs, "
                                "labelled health[<node>].<name> — same "

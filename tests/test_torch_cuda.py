@@ -617,3 +617,44 @@ def test_world_d_replay_on_the_port_spec(dev):
         assert spec.hash_tree_root(replay) == spec.hash_tree_root(plain)
     finally:
         bls.bls_active, bls._backend = was
+
+
+def test_light_client_update_verified_on_the_card(dev):
+    """An altair minimal ProofWorld's update through a ProofService whose
+    verifier is a VerificationService on the card, then the spec's
+    validate_light_client_update with the switchboard on the card; an
+    update signed under a wrong key comes back False from both."""
+    from consensus_specs_tpu_torch import builder
+    from consensus_specs_tpu_torch.lightclient import (
+        ProofService, ProofWorld, build_update_artifact, verify_artifact)
+    from consensus_specs_tpu_torch.ops import cuda_step
+    from consensus_specs_tpu_torch.serve.service import VerificationService
+    from consensus_specs_tpu_torch.utils import bls
+
+    bls.use_gpu()
+    spec = builder.build_spec_module("altair", "minimal")
+    world = ProofWorld(spec)
+    slot = world.finalized_slot + 1
+    state = world.head_state(slot)
+    root = bytes(state.hash_tree_root())
+
+    def wrong_key(signing_root):
+        return [True] * len(world.sks), bls.Sign(
+            (sum(world.sks) + 1) % bls.R, bytes(signing_root))
+
+    before = cuda_step.LAUNCHES
+    with VerificationService(max_wait_ms=5.0) as verifier:
+        good = ProofService(verifier=verifier).serve(
+            slot, root, lambda: world.build_artifact(slot))
+        bad = ProofService(verifier=verifier).serve(
+            slot, root, lambda: build_update_artifact(
+                spec, state, world.finalized_state,
+                genesis_validators_root=world.genesis_validators_root,
+                sign=wrong_key))
+    assert good.verified is True and bad.verified is False
+    assert cuda_step.LAUNCHES > before
+    verify_artifact(spec, good, world.snapshot,
+                    world.genesis_validators_root, state_root=root)
+    with pytest.raises(AssertionError):
+        verify_artifact(spec, bad, world.snapshot,
+                        world.genesis_validators_root, state_root=root)

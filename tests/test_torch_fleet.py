@@ -10,10 +10,9 @@ cases: both rings route the same keys to the same labels, a JAX worker's
 snapshot and a port worker's snapshot each merge to the same scrape in
 both aggregators, both SLO trackers and shed policies decide alike on the
 same histogram sequence, and a port ``bls`` worker on the CPU answers as
-the JAX single-process service does (exact verdicts).
-
-tests/test_fleet.py's simnet replay against the live fleet waits for the
-port's ``sim/`` plane.
+the JAX single-process service does (exact verdicts). The simnet replays
+of tests/test_fleet.py and tests/test_latency.py run a scenario on each
+package's ``sim/fleet_replay.py`` against that package's fleet.
 """
 import json
 import os
@@ -604,6 +603,56 @@ def test_port_workers_report_their_device_and_no_kernel(fleets):
         assert extra["warm_bg"] is False
         assert extra["kernels"] == {"vm_step": 0, "vm_step_steps": 0,
                                     "mont_mul": 0, "mont_mul_captures": 0}
+
+
+def _replay(pkg):
+    if pkg.name == "jax":
+        from consensus_specs_tpu.sim.fleet_replay import run_fleet_replay
+    else:
+        from consensus_specs_tpu_torch.sim.fleet_replay import (
+            run_fleet_replay)
+    return run_fleet_replay
+
+
+def test_sim_partition_heal_replayed_against_the_live_fleet(fleet, pkg):
+    """tests/test_fleet.py's simnet case: a real scenario, real worker
+    processes doing every node's verification, and the strict
+    differential convergence gate still green; the port's run gives the
+    JAX package's digest and head (the script does not depend on the
+    fleet), and its workers report the router's device."""
+    out = _replay(pkg)("partition_heal", strict=True, router=fleet)
+    assert out["report"].converged
+    assert out["fleet"]["routed"] > 0
+    submits = [w["submits"] for w in out["fleet"]["per_worker"].values()]
+    assert sum(submits) > 0 and len(submits) == 2
+    assert out["report"].digest == "32cd72ad34dcfbce"
+    if pkg.name == "torch":
+        assert {w["device"] for w in out["fleet"]["per_worker"].values()} \
+            == {"cpu"}
+
+
+def test_fleet_merged_scrape_carries_gossip_to_head(pkg):
+    """tests/test_latency.py's fleet case: router-side HeadServices consume
+    fleet-routed verdicts while the end-to-end histogram accumulates in
+    the router process; the merged fleet scrape and /healthz carry it
+    beside the worker families."""
+    router = pkg.router(workers=2, backend="verdict",
+                        env={"SERVE_MAX_WAIT_MS": "2"})
+    try:
+        out = _replay(pkg)("partition_heal", router=router, seed=7,
+                           strict=True)
+        assert out["report"].converged
+        text = router.scrape_text()
+        fam = ("consensus_specs_tpu_latency_gossip_to_head_latency_hist_"
+               "seconds_count")
+        [line] = [ln for ln in text.splitlines()
+                  if ln.startswith(fam + " ")]
+        assert int(line.rsplit(" ", 1)[1]) > 0
+        assert "consensus_specs_tpu_serve_node" in text
+        health = router.healthz()
+        assert health["slo"]["gossip_to_head_p99"]["n"] > 0
+    finally:
+        router.close()
 
 
 # -- forced fault -> burn -> shed escalation (its own fleet) ----------------

@@ -50,6 +50,13 @@ head = HeadService(spec, state, anchor, differential=True)
 sharding = builder.build_spec_module("sharding", "minimal")
 custody = builder.build_spec_module("custody_game", "mainnet")
 from consensus_specs_tpu_torch.utils import kzg
+# the light-client proof plane and the simnet on the port's own spec
+from consensus_specs_tpu_torch import sim
+from consensus_specs_tpu_torch.lightclient import build_head_proof, verify_head_proof
+proof = build_head_proof(spec, state)
+verify_head_proof(spec, proof, bytes(state.hash_tree_root()))
+sim_run = sim.run_scenario(sim.get_scenario("partition_heal"), seed=7,
+                           device="cpu")
 import chip_smoke
 print(json.dumps({
     "spec": spec.__name__,
@@ -59,6 +66,8 @@ print(json.dumps({
         int(sharding.KZG_SETUP_TAU), int(sharding.KZG_SETUP_SIZE)),
     "g1_setup_1": bytes(custody.G1_SETUP[1]).hex(),
     "head": bytes(head.get_head()) == bytes(spec.hash_tree_root(anchor)),
+    "proof_branch": len(proof.finality_branch),
+    "sim": [sim_run.converged, sim_run.digest],
     "modules": mods,
     "one_squared": fq.from_mont_limbs(out.numpy()),
     "hashed": len(hashed),
@@ -103,7 +112,13 @@ def test_port_imports_no_jax_and_no_reference_module():
                 "test.helpers.sync_committee", "utils.kzg", "utils.das",
                 "utils.sharding", "utils.custody", "ops.kzg_backend",
                 "test.helpers.execution_payload", "test.helpers.shard_blob",
-                "test.helpers.custody_game", "test.helpers.fork_transition"):
+                "test.helpers.custody_game", "test.helpers.fork_transition",
+                "utils.ssz.proofs", "lightclient.proof_tree",
+                "lightclient.serve_proofs", "lightclient.proof_smoke",
+                "bench.proofs", "sim.fabric", "sim.scenarios",
+                "sim.adversary", "sim.node", "sim.runner", "sim.smoke",
+                "sim.fleet_replay", "sim.latency_smoke",
+                "bench.sim_matrix"):
         assert "consensus_specs_tpu_torch." + mod in got["modules"], mod
     assert got["one_squared"] == 1
     assert got["hashed"] == 1
@@ -113,6 +128,9 @@ def test_port_imports_no_jax_and_no_reference_module():
     assert got["spec"] == "consensus_specs_tpu_torch.phase0.minimal"
     assert got["spec_bls"] == "consensus_specs_tpu_torch.utils.bls"
     assert got["head"] is True
+    assert got["proof_branch"] == 6
+    # the simnet's determinism pin: the JAX package's digest at seed 7
+    assert got["sim"] == [True, "32cd72ad34dcfbce"]
     assert got["draft_specs"] == ["consensus_specs_tpu_torch.sharding.minimal",
                                   "consensus_specs_tpu_torch.custody_game.mainnet"]
     assert got["kzg_setup"] is True and len(got["g1_setup_1"]) == 96

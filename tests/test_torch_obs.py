@@ -124,12 +124,15 @@ def test_registry_knows_every_label_the_port_publishes():
                   "device[host]", "latency[prep]", "flight.events",
                   "vm[steps=1,regs=2,batch=(1,),sharded=False]"):
         assert registry.known(label), label
-    # the chain plane is the port's since it has its own spec; the light
-    # client's family is not registered yet
+    # the chain plane is the port's since it has its own spec, and the
+    # light client's families since it has the proof plane
     assert registry.node_label("chain.head_slot", "n0") == \
         jregistry.node_label("chain.head_slot", "n0")
-    with pytest.raises(AssertionError):
-        registry.node_label("lightclient.updates_verified", "n0")
+    assert registry.node_label("lightclient.updates_verified", "n0") == \
+        jregistry.node_label("lightclient.updates_verified", "n0")
+    for label in ("lightclient.proofs_served", "latency[proof_serve]",
+                  "lightclient[n0].cache_hit_rate"):
+        assert registry.known(label), label
 
 
 def test_render_prometheus_histogram_lines():
