@@ -185,19 +185,19 @@ of spawned processes (utils/keygen.py).
                assignment, 0 affinity moves; (c) one worker armed to fail
                until the router sheds or drains it (falls back on
                purpose). The workers' launch counts are summed and their
-               launch shapes (from their snapshots) join phase 18.
+               launch shapes (from their snapshots) join phase 19.
  16. lightclient -- the light-client proof plane on the port's altair
                mainnet spec: a ProofWorld of the full 512-seat sync
                committee (keys from the spawn pool, equal to SkToPk's) over
-               a registry of 300,000 validators (BASELINE.json's); 2 head
-               slots behind one ProofService whose verifier is a
+               a registry of 300,000 validators (BASELINE.json's); 1 head
+               slot behind one ProofService whose verifier is a
                VerificationService on the card at phase 8's knobs. Each
                artifact built once, its sync-committee FastAggregateVerify
                (k512) verdict True from the card service, then checked in
                full: validate_light_client_update (the switchboard on the
                card), the combined multiproof, and the finality branch
                against a state re-Merkleized from a fresh decode_bytes.
-               Then 100,000 requests (the 2 builds among them) round-robin
+               Then 100,000 requests (the 1 build among them) round-robin
                from 4 threads, each paying is_valid_merkle_branch: hit
                rate (N - R)/N, proofs served/s, p50/p99 proof_serve. An
                update signed under a wrong key (verified False, the spec's
@@ -212,8 +212,20 @@ of spawned processes (utils/keygen.py).
                evidence, partition_heal replayed on 2 verdict worker
                processes on the card (each naming the card), and
                sim/latency_smoke.main. No kernel is launched, by design.
- 18. kernels -- every program and row count that phases 9-16 launched the
-               step kernel at (noted during those phases) and that no
+ 18. bench   -- the port's bench entry (bench/entry.main, as
+               ``python -m consensus_specs_tpu_torch.bench --mode M``
+               runs it) in this process, once a mode, at BENCH_MODES'
+               knobs: committee at 32 x 128 (3 reps), the epoch at the
+               mainnet shape (1 rep), codec, rlc, head, mainnet at 262,144
+               validators (1 slot, 2 fleet workers), serve, serve-fleet
+               at 1 and 2 workers, latency, soak (8 epochs), merkle,
+               proofs and sim. Each mode's line must carry no error,
+               platform gpu and the card's name, every gate flag true and
+               no ladder record (serve injects its fault on purpose);
+               committee, epoch and codec together must launch both
+               kernels. One line a mode, then the phase's summary.
+ 19. kernels -- every program and row count that phases 9-16 and 18
+               launched the step kernel at (noted during those phases) and that no
                earlier phase checked: the first 256 steps on random
                canonical inputs limb for limb against the plain version,
                then each whole stream timed, as in phase 5.
@@ -3665,7 +3677,9 @@ def phase_fleet(torch, card, serve_input, serve_main, mainnet_slot):
 # ---------------------------------------------------------------------------
 
 LIGHTCLIENT_VALIDATORS = 300_000  # BASELINE.json's registry
-LIGHTCLIENT_SLOTS = 2  # distinct head slots (R): the artifacts built
+# distinct head slots (R): the artifacts built; one since phase 18 joined
+# the smoke (each slot's fresh decode and root costs ~17-36 s)
+LIGHTCLIENT_SLOTS = 1
 LIGHTCLIENT_REQUESTS = 100_000  # client requests (N), the R builds included
 LIGHTCLIENT_THREADS = 4  # request threads, as the JAX proofs bench
 LIGHTCLIENT_SEED = SEED + 3  # the sync committee's secret keys
@@ -4004,6 +4018,215 @@ def phase_sim(torch, card):
             **card}, launches
 
 
+# phase 18's modes of the bench entry, in order, with the knobs each runs
+# at (committee and the epoch at full width; the rest cut to fit the phase)
+BENCH_MODES = (
+    ("committee", {"BENCH_N": "32", "BENCH_K": "128", "BENCH_REPS": "3"}),
+    ("epoch", {"BENCH_REPS": "1"}),  # the mainnet shape is the card default
+    ("codec", {"CODEC_ITEMS": "64"}),
+    ("rlc", {"RLC_BENCH_NS": "4,16,64"}),
+    ("head", {}),
+    # the censored simnet section at 256 validators: at its default 2,048
+    # the simnet's host fork choice took ~130 s of the mode
+    ("mainnet", {"CONSENSUS_SPECS_TPU_SCALE_VALIDATORS": "262144",
+                 "CONSENSUS_SPECS_TPU_SCALE_SLOTS": "1",
+                 "CONSENSUS_SPECS_TPU_SCALE_FLEET_WORKERS": "2",
+                 "CONSENSUS_SPECS_TPU_SCALE_SIM_VALIDATORS": "256"}),
+    ("serve", {}),
+    ("serve-fleet", {"SERVE_FLEET_WORKERS": "1,2"}),
+    ("latency", {}),
+    ("soak", {"CONSENSUS_SPECS_TPU_SOAK_EPOCHS": "8",
+              "CONSENSUS_SPECS_TPU_SOAK_WORKERS": "2"}),
+    ("merkle", {"CONSENSUS_SPECS_TPU_MERKLE_VALIDATORS": "4096"}),
+    ("proofs", {"CONSENSUS_SPECS_TPU_PROOF_CLIENTS": "10000",
+                "CONSENSUS_SPECS_TPU_PROOF_SLOTS": "2",
+                "CONSENSUS_SPECS_TPU_PROOF_VALIDATORS": "4096"}),
+    ("sim", {}),
+)
+
+
+@contextlib.contextmanager
+def _env(knobs):
+    """Set environment variables for the duration."""
+    was = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    try:
+        yield
+    finally:
+        for k, v in was.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _bench_gates(mode, line):
+    """The gate flags of one mode's line: each must be True."""
+    gates = {"no_error": "error" not in line}
+    if mode == "committee":
+        gates["verdicts"] = line.get("verdicts_ok") is True
+    elif mode == "epoch":
+        gates["verdicts"] = line.get("checks", 0) > 0
+    elif mode == "codec":
+        gates["outputs_match"] = line.get("outputs_match") is True
+    elif mode == "rlc":
+        stats = line.get("rlc_stats", {})
+        gates["no_bisection"] = stats.get("bisections", 1) == 0
+    elif mode == "head":
+        gates["heads_match"] = all(t["heads_match"]
+                                   for t in line.get("trees", [{}]))
+    elif mode in ("mainnet", "merkle"):
+        gates["ok"] = line.get("ok") is True
+    elif mode == "serve":
+        gates["verdicts"] = (line.get("lost") == 0 and line.get("wrong") == 0
+                             and line.get("fallback_items") == 0)
+    elif mode == "serve-fleet":
+        bars = line.get("bars", {})
+        gates["ok"] = bool(bars.get("gated_counts_ok")
+                           and bars.get("merge_exact_everywhere"))
+    elif mode == "latency":
+        gates["converged"] = all(r["converged"]
+                                 for r in line.get("latency", {}).values())
+        gates["ok"] = all(r["ok"] for r in line.get("latency", {}).values())
+    elif mode == "soak":
+        gates["health"] = line.get("vs_baseline") == 1.0
+        gates["converged"] = line.get("converged") is True
+    elif mode == "proofs":
+        gates["verified"] = line.get("verified") is True
+    elif mode == "sim":
+        gates["converged"] = (line.get("converged") == line.get("scenarios")
+                              and not line.get("diverged"))
+    return gates
+
+
+def _polled_snapshots(polls):
+    """Wrap for FleetRouter.poll_snapshots (see _patched) that appends
+    each (router, snapshots) it returns to ``polls``."""
+    def wrap(fn):
+        def polled(self, *args, **kwargs):
+            snaps = fn(self, *args, **kwargs)
+            polls.append((self, snaps))
+            return snaps
+        return polled
+    return wrap
+
+
+def _bench_fleet_workers(torch, line, polls, shapes):
+    """serve-fleet's bls workers, from each fleet's last snapshots (the
+    sweep polls every worker after its run): the gates that they ran on
+    the card, launched the step kernel, and left no ladder or oracle
+    record; their own launch counts summed; and every (program, rows)
+    they launched kernel 1 at noted in ``shapes``."""
+    from consensus_specs_tpu_torch.serve import fleet_smoke
+
+    last = {}
+    for router, snaps in polls:
+        last[router] = snaps  # a fleet's last poll, fleets in spawn order
+    fleets = list(last.values())
+    counts = line.get("worker_counts", [])
+    rows = [line.get("fleet", {}).get(str(n), {}) for n in counts]
+    gates = {"worker_snapshots": len(fleets) == len(counts) and all(
+        len(snaps) == n for snaps, n in zip(fleets, counts))}
+    try:
+        for snaps in fleets:
+            fleet_smoke.check_worker_devices(snaps, torch.device("cuda"))
+        gates["workers_on_card"] = bool(fleets)
+    except AssertionError as e:
+        print(f"chip_smoke: bench serve-fleet: {e}", file=sys.stderr)
+        gates["workers_on_card"] = False
+    gates["workers_launched"] = bool(rows) and all(
+        row.get("worker_kernels") and all(
+            kernels.get("vm_step", 0) > 0
+            for kernels in row["worker_kernels"].values())
+        for row in rows)
+    ladder = {label: 0 for label in _LADDER}
+    fallbacks = 0
+    launches = {"vm_step": 0, "vm_step_steps": 0, "mont_mul": 0}
+    for snaps in fleets:
+        for snap in snaps.values():
+            for label in _LADDER:
+                ladder[label] += snap["stats"].get(label, {}).get("calls", 0)
+            serve = snap["extra"].get("serve", {})
+            fallbacks += (serve.get("fallback_items", 0)
+                          + serve.get("backend_retries", 0))
+            for key in launches:
+                launches[key] += snap["extra"]["kernels"].get(key, 0)
+    gates["no_worker_ladder_record"] = not any(ladder.values()) \
+        and fallbacks == 0
+    if all(gates.values()):
+        for snaps in fleets:
+            _fleet_launch_shapes(snaps, shapes)
+    return gates, launches
+
+
+def phase_bench(torch, card, shapes):
+    """The port's bench entry (bench/entry.main) in this process, once a
+    mode, on the card, at BENCH_MODES' knobs: each mode's value, unit,
+    vs_baseline, gate flags, seconds and kernel launches. Fails on an
+    error line, a false gate, a ladder record in a mode without injected
+    faults (serve-fleet's workers included: on the card, each launching
+    the step kernel), or no launch of either kernel over committee, epoch
+    and codec together. The serve-fleet workers' launch shapes join
+    ``shapes`` (this process's are recorded by the caller)."""
+    import io
+    import tempfile
+
+    from consensus_specs_tpu_torch.bench import entry
+    from consensus_specs_tpu_torch.serve.fleet import FleetRouter
+
+    modes, launches = {}, {"vm_step": 0, "vm_step_steps": 0, "mont_mul": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode, knobs in BENCH_MODES:
+            knobs = dict(knobs)
+            if mode == "soak":
+                knobs["CONSENSUS_SPECS_TPU_SOAK_DIR"] = os.path.join(
+                    tmp, "soak")
+            buf, polls = io.StringIO(), []
+            with _env(knobs), contextlib.redirect_stdout(buf), _patched(
+                    FleetRouter, "poll_snapshots", _polled_snapshots(polls)):
+                rc = entry.main(["--mode", mode])
+            lines = buf.getvalue().strip().splitlines()
+            _check(len(lines) == 1, f"bench {mode}: {len(lines)} lines")
+            line = json.loads(lines[0])
+            _check(rc == 0 and "error" not in line,
+                   f"bench {mode}: rc {rc}, {line.get('error')}")
+            gates = _bench_gates(mode, line)
+            if mode != "serve":  # serve's stream injects a backend fault
+                ladder = _ladder_records()
+                gates["no_ladder_record"] = not any(ladder.values())
+            worker_launches = None
+            if mode == "serve-fleet":
+                worker_gates, worker_launches = _bench_fleet_workers(
+                    torch, line, polls, shapes)
+                gates.update(worker_gates)
+            _check(all(gates.values()), f"bench {mode}: gates {gates}")
+            _check(line["platform"] == "gpu"
+                   and line["device"]["name"] == card["card"],
+                   f"bench {mode}: ran on {line['platform']} {line['device']}")
+            modes[mode] = {
+                "value": line["value"], "unit": line["unit"],
+                "vs_baseline": line["vs_baseline"], "gates": gates,
+                "seconds": line["seconds"], "launches": line["launches"],
+                "knobs": knobs}
+            for k in launches:
+                launches[k] += line["launches"][k]
+            if worker_launches is not None:
+                # each worker process counts from 0: the path's launches
+                # hold them as phase fleet's do
+                modes[mode]["worker_launches"] = worker_launches
+                for k in launches:
+                    launches[k] += worker_launches[k]
+            _emit({"phase": "bench", "mode": mode, **modes[mode],
+                   "line": line, **card})
+    core = [modes[m]["launches"] for m in ("committee", "epoch", "codec")]
+    _check(sum(c["vm_step"] for c in core) > 0
+           and sum(c["mont_mul"] for c in core) > 0,
+           f"bench: committee, epoch and codec launched {core}")
+    return {"phase": "bench", "modes": modes,
+            "seconds": sum(m["seconds"] for m in modes.values()),
+            **card}, launches
+
+
 def main():
     import torch
 
@@ -4122,6 +4345,14 @@ def main():
         line, path_launches["sim"] = phase_sim(torch, card)
         _emit({**line, "elapsed_s": time.perf_counter() - t0})
 
+        # the bench entry's modes; what they launch joins the last line
+        shapes = path_shapes["bench"] = {}
+        program_wrap, execute_wrap = _recording_launch_shapes(shapes)
+        with _patched(bls_backend, "_program", program_wrap), \
+                _patched(vm, "execute", execute_wrap):
+            line, path_launches["bench"] = phase_bench(torch, card, shapes)
+        _emit({**line, "elapsed_s": time.perf_counter() - t0})
+
         path_streams = phase_path_streams(torch, dev, rng, imad_rate, l2_ns,
                                           path_shapes, streams)
         streams += path_streams
@@ -4141,7 +4372,8 @@ def main():
     # the KZG batch and the fork worlds, the serve
     # fleet (the sum of its workers' own counts: each worker process
     # counts from 0), the light-client plane (its process and its proof
-    # smoke's workers) and the simnet
+    # smoke's workers), the simnet and the bench entry's modes (this
+    # process's counts; the fleet modes' workers count their own)
     paths = {"slice": {"vm_step": launches["vm_step"],
                        "vm_step_steps": launches["vm_step_steps"],
                        "mont_mul": launches["mont_mul"]},
@@ -4156,7 +4388,8 @@ def main():
     # has no work on that path
     # the simnet launches none: its verdicts ride in the signature bytes
     idle = [f"{path} {k}" for path in ("wide", "epoch", "mainnet", "spec",
-                                       "kzg", "forks", "fleet", "lightclient")
+                                       "kzg", "forks", "fleet", "lightclient",
+                                       "bench")
             for k in ("vm_step", "mont_mul") if paths[path][k] == 0
             and (path, k) != ("kzg", "mont_mul")]
     if idle:

@@ -307,8 +307,8 @@ class ProofWorld:
         fin.slot = spec.Slot(self.finalized_slot)
         fin.current_sync_committee = self.committee
         fin.next_sync_committee = self.committee
-        # the registry's two views are built once and shared by every
-        # state of the world (_set_registry)
+        # the registry's two views are built and rooted once; every state
+        # of the world gets its own copy of them (_set_registry)
         self._registry = None
         if self.n_validators:
             fields = spec.BeaconState.fields()
@@ -329,6 +329,8 @@ class ProofWorld:
                 "balances": fields["balances"](
                     [spec.Gwei(32 * 10**9)] * self.n_validators),
             }
+            for view in self._registry.values():
+                view.hash_tree_root()  # the copies inherit warm caches
             self._set_registry(fin)
         self.finalized_state = fin
         self.finalized_state_root = bytes(fin.hash_tree_root())
@@ -341,16 +343,13 @@ class ProofWorld:
             next_sync_committee=self.committee)
 
     def _set_registry(self, state) -> None:
-        """Point ``state``'s registry fields at the world's registry views.
-        An SSZ assignment copies every element (seconds a state at a
-        mainnet registry); sharing gives the same roots, over views whose
-        merkle caches warm once. The world's states are read-only once
-        built, so nothing mutates the shared views."""
-        from ..utils.ssz.ssz_typing import _bump
-
+        """Give ``state`` the world's registry, as the JAX package's SSZ
+        assignment does: the state owns its copy, so a write to one state
+        reaches no other. The assignment copies the prebuilt views in bulk
+        (``ComplexSeries.copy``) with their warm merkle caches, not element
+        by element."""
         for name, view in self._registry.items():
-            object.__setattr__(state, name, view)
-        _bump(state)
+            setattr(state, name, view)
 
     def head_state(self, slot: int):
         """A head state at ``slot`` whose checkpoint commits to the

@@ -53,6 +53,14 @@ class LevelTree:
     def n_chunks(self) -> int:
         return len(self.layers[0])
 
+    def copy(self) -> "LevelTree":
+        """An independent tree with the same nodes (one list copy a
+        layer; the nodes are immutable bytes)."""
+        tree = LevelTree.__new__(LevelTree)
+        tree.depth = self.depth
+        tree.layers = [list(layer) for layer in self.layers]
+        return tree
+
     def set_chunk(self, i: int, chunk: bytes) -> None:
         self.update({i: chunk})
 

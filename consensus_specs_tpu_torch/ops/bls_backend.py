@@ -479,6 +479,24 @@ def _easy_part_batch(out, lay, precheck, aggz: bool):
     return g_batch, agg_nonzero
 
 
+def _finalize_per_item(fs: np.ndarray, device) -> np.ndarray:
+    """(N, 12, L) loose Miller-output rows -> (N,) bool through the
+    per-item finalization the two batch entry points use (N serial host
+    easy parts, N hard-part rows on ``device``), callable on raw f rows so
+    the RLC bench races it against the combine on the same inputs."""
+    dev = resolve_device(device)
+    n = fs.shape[0]
+    g_batch = np.zeros((n, 12, fq.NUM_LIMBS), dtype=np.uint64)
+    active = np.zeros(n, dtype=bool)
+    for i in range(n):
+        g = _easy_part_flat([fq.from_mont_limbs(fs[i, j]) for j in range(12)])
+        if g is not None:
+            g_batch[i] = np.stack([fq.to_mont_int(c) for c in g])
+            active[i] = True
+    ok = _run_hard_part(g_batch, dev)
+    return ok & active
+
+
 # hard-part program variants: all three share the g.*/res.* I/O contract,
 # so routing is purely a program-kind choice
 _HARD_PART_KINDS = {

@@ -9,20 +9,30 @@ consensus_specs_tpu/ops/profiling.py.
   family carries ``n``, its observation count.
 - ``set_gauge(...)`` publishes point-in-time values (queue depth, cache
   hit rate, batch occupancy, the ``bls.*`` counters).
-- ``summary()`` / ``snapshot()`` expose all three; ``stats_and_gauges()``
-  and ``latency_histograms()`` hand one-lock copies to the Prometheus
-  renderer (``obs/registry.py``).
+- ``summary()`` / ``snapshot()`` / ``report()`` expose all three;
+  ``stats_and_gauges()`` and ``latency_histograms()`` hand one-lock copies
+  to the Prometheus renderer (``obs/registry.py``). The bench entry
+  attaches the summary to its line when ``enabled()``
+  (CONSENSUS_SPECS_TPU_PROFILE=1).
 - ``trace(log_dir)`` wraps a block in a ``torch.profiler`` trace (CPU
   activity, and the card's kernels where there is one) written for
   TensorBoard: the counterpart of the JAX package's jax.profiler hook.
 """
 import contextlib
+import os
 import threading
 import time
 from collections import defaultdict
 from typing import Dict
 
 from ..obs import hist
+
+
+def enabled() -> bool:
+    """Whether CONSENSUS_SPECS_TPU_PROFILE=1, re-read on every call, so a
+    flip after import takes effect at once."""
+    return os.environ.get("CONSENSUS_SPECS_TPU_PROFILE") == "1"
+
 
 _stats: Dict[str, Dict[str, float]] = defaultdict(
     lambda: {"calls": 0, "total_s": 0.0, "max_s": 0.0}
@@ -119,6 +129,26 @@ def reset() -> None:
         _stats.clear()
         _lat.clear()
         _gauges.clear()
+
+
+def report() -> str:
+    """``summary()`` as text, a line a label."""
+    lines = ["device-pipeline timing:"]
+    for label, s in summary().items():
+        if "gauge" in s:
+            lines.append(f"  {label}: {s['gauge']}")
+        elif "p95_ms" in s:
+            lines.append(
+                f"  {label}: {s['count']} obs, p50 {s['p50_ms']:.1f}ms, "
+                f"p95 {s['p95_ms']:.1f}ms, p99 {s['p99_ms']:.1f}ms, "
+                f"max {s['max_ms']:.1f}ms"
+            )
+        else:
+            lines.append(
+                f"  {label}: {s['calls']} calls, mean {s['mean_s']*1e3:.1f}ms, "
+                f"max {s['max_s']*1e3:.1f}ms, total {s['total_s']:.2f}s"
+            )
+    return "\n".join(lines)
 
 
 @contextlib.contextmanager

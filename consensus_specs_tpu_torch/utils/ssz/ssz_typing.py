@@ -865,6 +865,32 @@ class ComplexSeries(View):
         self._htr_dirty = set()
         return tree.root()
 
+    def copy(self):
+        """A copy that owns its elements and carries the merkle caches.
+        Series of immutable elements, or of containers whose fields are
+        all immutable (``Validator``), copy in bulk: the element list and
+        each container's field dict, with the same mutation stamps, so the
+        copied caches stay valid. Other series deep-copy."""
+        et = self.ELEM_TYPE
+        if not _mutable_core(et):
+            elems = list(self._elems)
+        elif issubclass(et, Container) and not _container_stamp_fields(et):
+            elems = _clone_leaf_containers(self._elems)
+        else:
+            return super().copy()
+        new = object.__new__(type(self))
+        new.__dict__.update(self.__dict__)
+        new._elems = elems
+        tree = getattr(self, "_htr_tree", None)
+        if tree is not None:
+            new._htr_tree = tree.copy()
+        for name in ("_htr_dirty", "_htr_eroots", "_htr_etags"):
+            cached = getattr(self, name, None)
+            if cached is not None:
+                setattr(new, name, type(cached)(cached))
+        _bump(new)
+        return new
+
     def __contains__(self, v):
         return v in self._elems
 
@@ -1071,6 +1097,13 @@ class Container(View):
     def __hash__(self):
         return hash(self.hash_tree_root())
 
+    def copy(self):
+        """A container whose fields are all immutable (``Validator``)
+        copies its field dict; any other deep-copies."""
+        if _container_stamp_fields(type(self)):
+            return super().copy()
+        return _clone_leaf_containers([self])[0]
+
     @classmethod
     def is_fixed_byte_length(cls) -> bool:
         return all(t.is_fixed_byte_length() for t in cls._field_types.values())
@@ -1270,6 +1303,16 @@ def _container_stamp_fields(typ) -> tuple:
         )
         _STAMP_PLAN_CACHE[typ] = plan
     return plan
+
+
+def _clone_leaf_containers(elems) -> list:
+    """Copies of containers whose fields are all immutable: a new object a
+    container with the same field dict (mutation stamp included)."""
+    new = object.__new__
+    out = [new(type(e)) for e in elems]
+    for c, e in zip(out, elems):
+        c.__dict__.update(e.__dict__)
+    return out
 
 
 def _deep_stamp(v) -> int:

@@ -90,6 +90,8 @@ def test_port_imports_no_jax_and_no_reference_module():
     res = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+    # one line: importing bench/__main__ (and every module) ran no bench
+    assert len(res.stdout.strip().splitlines()) == 1, res.stdout[:2000]
     got = json.loads(res.stdout.strip().splitlines()[-1])
     assert "consensus_specs_tpu_torch.ops.bls_backend" in got["modules"]
     assert "consensus_specs_tpu_torch.ops.cuda_step" in got["modules"]
@@ -118,7 +120,11 @@ def test_port_imports_no_jax_and_no_reference_module():
                 "bench.proofs", "sim.fabric", "sim.scenarios",
                 "sim.adversary", "sim.node", "sim.runner", "sim.smoke",
                 "sim.fleet_replay", "sim.latency_smoke",
-                "bench.sim_matrix"):
+                "bench.sim_matrix", "bench.entry", "bench.__main__",
+                "bench.head_replay", "bench.codec_prep", "bench.rlc_final",
+                "bench.mainnet", "bench.latency_pipeline",
+                "bench.fleet_sweep", "bench.soak", "bench.merkle",
+                "sim.soak_smoke", "merkle.smoke"):
         assert "consensus_specs_tpu_torch." + mod in got["modules"], mod
     assert got["one_squared"] == 1
     assert got["hashed"] == 1

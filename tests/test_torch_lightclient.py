@@ -225,6 +225,37 @@ def test_world_and_artifacts_equal_by_bytes_and_roots(both):
         assert states[1].encode_bytes() == states[0].encode_bytes()
 
 
+def test_head_state_writes_reach_no_other_state_alike(both):
+    """A write to one head state's registry reaches neither the finalized
+    state, nor its root, nor a later head state: each state owns its
+    registry on both packages (sks 1..32, 8 validators)."""
+    worlds = [q.proof_tree.ProofWorld(q.spec, sks=range(1, 33),
+                                      validators=8) for q in both]
+    heads = []
+    for w in worlds:
+        h = w.head_state(w.finalized_slot + 3)
+        h.validators[0].effective_balance = 1
+        h.balances[1] = 5
+        heads.append(h)
+    for w in worlds:
+        fin = w.finalized_state
+        assert int(fin.validators[0].effective_balance) == 32 * 10**9
+        assert int(fin.balances[1]) == 32 * 10**9
+        assert bytes(fin.hash_tree_root()) == w.finalized_state_root
+    jw, tw = worlds
+    assert (tw.finalized_state.encode_bytes()
+            == jw.finalized_state.encode_bytes())
+    assert tw.finalized_state_root == jw.finalized_state_root
+    fresh = [w.head_state(w.finalized_slot + 3) for w in worlds]
+    assert int(fresh[1].validators[0].effective_balance) == 32 * 10**9
+    assert fresh[1].encode_bytes() == fresh[0].encode_bytes()
+    assert bytes(fresh[1].hash_tree_root()) == bytes(fresh[0].hash_tree_root())
+    assert heads[1].encode_bytes() == heads[0].encode_bytes()
+    assert bytes(heads[1].hash_tree_root()) == bytes(heads[0].hash_tree_root())
+    assert bytes(heads[1].hash_tree_root()) != bytes(
+        fresh[1].hash_tree_root())
+
+
 def test_verify_artifact_passes_and_tampering_fails_on_both(p):
     spec, world = p.spec, p.world
     slot = world.finalized_slot + 4

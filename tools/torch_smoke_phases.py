@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Run named phases of chip_smoke.py alone, on one NVIDIA GPU.
 
-    python3 tools/torch_smoke_phases.py lightclient sim
+    python3 tools/torch_smoke_phases.py lightclient sim bench
 
 Builds the port's kernels (chip_smoke's build), then runs each named phase
-that needs no earlier phase's output (``lightclient`` and ``sim``; the
-former with a spawn pool of its own), each printing chip_smoke's JSON line
-for it, with every (program, rows) the phase launched the step kernel at
-noted, and last the ``kernels`` line that holds each such shape's first
+that needs no earlier phase's output (``lightclient``, ``sim`` and
+``bench``; the first with a spawn pool of its own), each printing
+chip_smoke's JSON line for it, with every (program, rows) the phase
+launched the step kernel at noted, and last the ``kernels`` line that holds each such shape's first
 256 steps against the plain steps (max |err| 0 required) and times the
 whole stream, as chip_smoke's last phase does. Programs are assembled
 cold (nothing earlier ran), so a phase's first card calls take longer
@@ -34,10 +34,10 @@ def main(names):
     from consensus_specs_tpu_torch.ops import bls_backend, cuda_build, vm
     from consensus_specs_tpu_torch.utils.keygen import KeyPool
 
-    unknown = [n for n in names if n not in ("lightclient", "sim")]
+    unknown = [n for n in names if n not in ("lightclient", "sim", "bench")]
     if unknown or not names:
-        print(f"torch_smoke_phases: phases are lightclient and sim, not "
-              f"{unknown or names}", file=sys.stderr)
+        print(f"torch_smoke_phases: phases are lightclient, sim and bench, "
+              f"not {unknown or names}", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
     name, power = (s.strip() for s in
@@ -62,6 +62,13 @@ def main(names):
                 continue
             shapes = path_shapes[phase] = {}
             program_wrap, execute_wrap = cs._recording_launch_shapes(shapes)
+            if phase == "bench":
+                with cs._patched(bls_backend, "_program", program_wrap), \
+                        cs._patched(vm, "execute", execute_wrap):
+                    line, launches[phase] = cs.phase_bench(torch, card,
+                                                           shapes)
+                cs._emit({**line, "elapsed_s": time.perf_counter() - t0})
+                continue
             with KeyPool() as pool, \
                     cs._patched(bls_backend, "_program", program_wrap), \
                     cs._patched(vm, "execute", execute_wrap):
