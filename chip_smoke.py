@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Drives ``consensus_specs_tpu_torch`` (never jax, never the JAX package)
-through eighteen phases, each printing one JSON line:
+through twenty phases, each printing one JSON line:
 
   1. build   -- compile every CUDA kernel of the port from csrc/ with nvcc
                for sm_90a (one nvcc per source, all started together);
@@ -185,7 +185,7 @@ of spawned processes (utils/keygen.py).
                assignment, 0 affinity moves; (c) one worker armed to fail
                until the router sheds or drains it (falls back on
                purpose). The workers' launch counts are summed and their
-               launch shapes (from their snapshots) join phase 19.
+               launch shapes (from their snapshots) join phase 20.
  16. lightclient -- the light-client proof plane on the port's altair
                mainnet spec: a ProofWorld of the full 512-seat sync
                committee (keys from the spawn pool, equal to SkToPk's) over
@@ -212,7 +212,23 @@ of spawned processes (utils/keygen.py).
                evidence, partition_heal replayed on 2 verdict worker
                processes on the card (each naming the card), and
                sim/latency_smoke.main. No kernel is launched, by design.
- 18. bench   -- the port's bench entry (bench/entry.main, as
+ 18. spec_tests -- the 50 ``@always_bls`` cases of the port's phase0 spec
+               tests (test/phase0/, picked by the ``bls_setting`` the
+               port's decorators carry outward), on the minimal preset in
+               generator mode with the switchboard on the card
+               (``bls.use_gpu()``): every signature check they make goes
+               through ops/bls_backend's per-call verify,
+               fast_aggregate_verify or aggregate_verify. The spec's own
+               asserts are the oracle: a valid signature the card refuses
+               fails its case, an invalid one it accepts fails
+               ``expect_assertion_error``. Each card call and each
+               exception in it is counted; any exception but a decode
+               ValueError/TypeError on an input the oracle also rejects
+               fails the phase, as does any call of the oracle's verify
+               functions in the span, a case that does not pass, or
+               either kernel not launched. Seconds split into host
+               signing (Sign, Aggregate, SkToPk), card calls and the rest.
+ 19. bench   -- the port's bench entry (bench/entry.main, as
                ``python -m consensus_specs_tpu_torch.bench --mode M``
                runs it) in this process, once a mode, at BENCH_MODES'
                knobs: committee at 32 x 128 (3 reps), the epoch at the
@@ -224,7 +240,7 @@ of spawned processes (utils/keygen.py).
                no ladder record (serve injects its fault on purpose);
                committee, epoch and codec together must launch both
                kernels. One line a mode, then the phase's summary.
- 19. kernels -- every program and row count that phases 9-16 and 18
+ 20. kernels -- every program and row count that phases 9-16, 18 and 19
                launched the step kernel at (noted during those phases) and that no
                earlier phase checked: the first 256 steps on random
                canonical inputs limb for limb against the plain version,
@@ -587,6 +603,25 @@ def phase_path_streams(torch, dev, rng, imad_rate, l2_ns, shapes_by_path,
                           stream=f"{kind} k{k} fold {fold}", kind=kind, k=k,
                           fold=fold, paths=paths)
             for prog, rows, kind, k, fold, paths in todo.values()]
+
+
+def new_launch_shapes(shapes_by_path, path, checked):
+    """The (program, rows) that ``path`` launched the step kernel at and
+    that neither another path of ``shapes_by_path`` nor an earlier check
+    (``checked``: the streams' result dicts) covered, as
+    "kind k<k> fold <fold> x<rows>"; the last kernels phase holds them
+    against the plain steps."""
+    def keys(shapes):
+        return {(kind, k, fold, rows)
+                for _, rows, (kind, k, fold) in shapes.values()}
+
+    seen = {(r["kind"], r["k"], r["fold"], r["rows"]) for r in checked}
+    for other, shapes in shapes_by_path.items():
+        if other != path:
+            seen |= keys(shapes)
+    return [f"{kind} k{k} fold {fold} x{rows}"
+            for kind, k, fold, rows in sorted(keys(shapes_by_path[path]) - seen,
+                                              key=str)]
 
 
 def _bound(n_bytes, n_ops, imad_rate):
@@ -4018,7 +4053,145 @@ def phase_sim(torch, card):
             **card}, launches
 
 
-# phase 18's modes of the bench entry, in order, with the knobs each runs
+# ---------------------------------------------------------------------------
+# phase 18: the phase0 spec tests' @always_bls cases, signatures on the card
+# ---------------------------------------------------------------------------
+
+# the JAX package's @always_bls uses under consensus_specs_tpu/test/phase0
+# (tests/test_torch_spec_harness.py holds the port's pick against them)
+SPEC_TESTS_CASES = 50
+SPEC_TESTS_PRESET = "minimal"
+_CARD_CALLS = {"verify": "oracle_verify",
+               "fast_aggregate_verify": "oracle_fast_aggregate_verify",
+               "aggregate_verify": "oracle_aggregate_verify"}
+_HOST_SIGNING = ("Sign", "Aggregate", "SkToPk")
+
+
+def spec_test_cases():
+    """(module, name, function) of every ``@always_bls`` case of the
+    port's phase0 spec tests, in module order."""
+    import importlib
+    import pkgutil
+
+    from consensus_specs_tpu_torch.test import phase0
+    from consensus_specs_tpu_torch.test.harness import always_bls_names
+
+    cases = []
+    for info in pkgutil.walk_packages(phase0.__path__, phase0.__name__ + "."):
+        module = importlib.import_module(info.name)
+        rel = info.name[len(phase0.__name__) + 1:]
+        cases += [(rel, name, getattr(module, name))
+                  for name in always_bls_names(module)]
+    return cases
+
+
+def phase_spec_tests(torch, card):
+    """The ``@always_bls`` phase0 cases of the port on the card, through
+    the harness's case runner (generator mode, phase0, minimal). Counts
+    every card call of the switchboard (ops/bls_backend's verify,
+    fast_aggregate_verify, aggregate_verify) with its verdict and any
+    exception, every call of the oracle's verify functions (there must be
+    none), and the kernels' launches; times host signing and card calls.
+    Fails on a case that does not pass, an oracle call, a card exception
+    other than a decode error on an input the oracle also rejects, or a
+    kernel that was never launched."""
+    from consensus_specs_tpu_torch.ops import bls_backend, cuda_fq, cuda_step
+    from consensus_specs_tpu_torch.test.harness import run_case
+    from consensus_specs_tpu_torch.utils import bls
+
+    cases = spec_test_cases()
+    _check(len(cases) == SPEC_TESTS_CASES,
+           f"spec_tests: {len(cases)} @always_bls cases, not "
+           f"{SPEC_TESTS_CASES}")
+    calls = {f: 0 for f in _CARD_CALLS}
+    oracle_calls = {f: 0 for f in _CARD_CALLS.values()}
+    verdicts = {"true": 0, "false": 0}
+    raised, card_s, sign_s = [], [], []
+
+    def card_call(fname):
+        def wrap(fn):
+            def counted(*args, **kwargs):
+                calls[fname] += 1
+                t = time.perf_counter()
+                try:
+                    ok = fn(*args, **kwargs)
+                except Exception as exc:
+                    raised.append((fname, type(exc).__name__, str(exc), args))
+                    raise
+                finally:
+                    card_s.append(time.perf_counter() - t)
+                verdicts["true" if ok else "false"] += 1
+                return ok
+            return counted
+        return wrap
+
+    def oracle_call(fname):
+        def wrap(fn):
+            def counted(*args, **kwargs):
+                oracle_calls[fname] += 1
+                return fn(*args, **kwargs)
+            return counted
+        return wrap
+
+    saved_backend = bls._backend
+    bls.use_gpu()
+    outcomes, case_s = {}, {}
+    cuda_step.LAUNCHES = cuda_step.STEPS = 0
+    cuda_fq.LAUNCHES = cuda_fq.CAPTURES = 0
+    try:
+        with contextlib.ExitStack() as stack:
+            for fname, oname in _CARD_CALLS.items():
+                stack.enter_context(
+                    _patched(bls_backend, fname, card_call(fname)))
+                stack.enter_context(_patched(bls, oname, oracle_call(oname)))
+            for fname in _HOST_SIGNING:
+                stack.enter_context(_patched(bls, fname, _host_timer(sign_s)))
+            t0 = time.perf_counter()
+            for rel, name, fn in cases:
+                t = time.perf_counter()
+                outcomes[f"{rel}::{name}"] = run_case(
+                    fn, "phase0", SPEC_TESTS_PRESET, False)[0]
+                case_s[f"{rel}::{name}"] = time.perf_counter() - t
+            wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    finally:
+        bls._backend = saved_backend
+    launches = {"vm_step": cuda_step.LAUNCHES,
+                "vm_step_steps": cuda_step.STEPS,
+                "mont_mul": cuda_fq.LAUNCHES}
+    # after the span, so these oracle calls are not counted: a decode
+    # error passes only on an input the oracle rejects too
+    oracle = {f: getattr(bls, o) for f, o in _CARD_CALLS.items()}
+    unexpected = [(f, kind, msg) for f, kind, msg, args in raised
+                  if kind not in ("ValueError", "TypeError")
+                  or oracle[f](*args)]
+    failed = {k: v for k, v in outcomes.items() if v != "parts"}
+    _check(not failed, f"spec_tests: cases that did not pass: {failed}")
+    _check(not any(oracle_calls.values()),
+           f"spec_tests: the oracle verified on the card's path: "
+           f"{oracle_calls}")
+    _check(not unexpected,
+           f"spec_tests: card calls raised {unexpected}")
+    _check(sum(calls.values()) > 0 and launches["vm_step"] > 0
+           and launches["mont_mul"] > 0,
+           f"spec_tests: card calls {calls}, launches {launches}")
+    slowest = sorted(case_s.items(), key=lambda kv: -kv[1])[:3]
+    return {"phase": "spec_tests", "cases": len(cases),
+            "preset": SPEC_TESTS_PRESET, "passed": len(outcomes),
+            "card_calls": calls, "verdicts": verdicts,
+            "card_exceptions": [(f, kind) for f, kind, _, _ in raised],
+            "oracle_calls": oracle_calls,
+            "wall_s": wall, "host_sign_s": sum(sign_s),
+            "card_call_s": sum(card_s),
+            "other_s": wall - sum(sign_s) - sum(card_s),
+            "slowest_cases_s": slowest,
+            "step_kernel_launches": launches["vm_step"],
+            "step_kernel_steps": launches["vm_step_steps"],
+            "mont_mul_kernel_launches": launches["mont_mul"],
+            **card}, launches
+
+
+# phase 19's modes of the bench entry, in order, with the knobs each runs
 # at (committee and the epoch at full width; the rest cut to fit the phase)
 BENCH_MODES = (
     ("committee", {"BENCH_N": "32", "BENCH_K": "128", "BENCH_REPS": "3"}),
@@ -4345,6 +4518,16 @@ def main():
         line, path_launches["sim"] = phase_sim(torch, card)
         _emit({**line, "elapsed_s": time.perf_counter() - t0})
 
+        # the phase0 spec tests' @always_bls cases, signatures on the card
+        shapes = path_shapes["spec_tests"] = {}
+        program_wrap, execute_wrap = _recording_launch_shapes(shapes)
+        with _patched(bls_backend, "_program", program_wrap), \
+                _patched(vm, "execute", execute_wrap):
+            line, path_launches["spec_tests"] = phase_spec_tests(torch, card)
+        line["new_shapes"] = new_launch_shapes(path_shapes, "spec_tests",
+                                               streams)
+        _emit({**line, "elapsed_s": time.perf_counter() - t0})
+
         # the bench entry's modes; what they launch joins the last line
         shapes = path_shapes["bench"] = {}
         program_wrap, execute_wrap = _recording_launch_shapes(shapes)
@@ -4372,7 +4555,8 @@ def main():
     # the KZG batch and the fork worlds, the serve
     # fleet (the sum of its workers' own counts: each worker process
     # counts from 0), the light-client plane (its process and its proof
-    # smoke's workers), the simnet and the bench entry's modes (this
+    # smoke's workers), the simnet, the phase0 spec tests' @always_bls
+    # cases and the bench entry's modes (this
     # process's counts; the fleet modes' workers count their own)
     paths = {"slice": {"vm_step": launches["vm_step"],
                        "vm_step_steps": launches["vm_step_steps"],
@@ -4389,7 +4573,7 @@ def main():
     # the simnet launches none: its verdicts ride in the signature bytes
     idle = [f"{path} {k}" for path in ("wide", "epoch", "mainnet", "spec",
                                        "kzg", "forks", "fleet", "lightclient",
-                                       "bench")
+                                       "spec_tests", "bench")
             for k in ("vm_step", "mont_mul") if paths[path][k] == 0
             and (path, k) != ("kzg", "mont_mul")]
     if idle:

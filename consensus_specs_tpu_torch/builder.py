@@ -18,8 +18,11 @@ harness's (reference: tests/core/pyspec/eth2spec/test/context.py:53-64).
 The prelude binds `bls` to the port's switchboard (`utils/bls.py`, the card
 by default) and SSZ, hashing and config to the port's own copies.
 """
+import collections
+import copy
 import functools
 import sys
+import threading
 import types
 from pathlib import Path
 from typing import Any, Dict
@@ -221,14 +224,80 @@ def _install_prelude(ns: Dict[str, Any], preset_name: str, fork: str) -> None:
     ns["config"] = _typed_config(load_defaults(preset_name), ns)
 
 
+def _cache_this(key_fn, value_fn, lru_size):
+    """``value_fn`` memoized on ``key_fn`` of the same arguments in an LRU of
+    ``lru_size`` entries (reference: setup.py:365-380). A list or set
+    result is handed out as a shallow copy, so a caller that mutates it
+    never reaches the cache; the lock keeps the LRU whole under the
+    serve and chain planes' threads."""
+    cache = collections.OrderedDict()
+    lock = threading.Lock()
+
+    def wrapper(*args, **kw):
+        key = key_fn(*args, **kw)
+        with lock:
+            hit = key in cache
+            if hit:
+                cache.move_to_end(key)
+                value = cache[key]
+        if not hit:
+            value = value_fn(*args, **kw)
+            with lock:
+                cache[key] = value
+                if len(cache) > lru_size:
+                    cache.popitem(last=False)
+        return copy.copy(value) if isinstance(value, (list, set)) else value
+
+    wrapper.__name__ = value_fn.__name__
+    wrapper.__wrapped_raw__ = value_fn
+    return wrapper
+
+
+def _state_accessor_caches(ns: Dict[str, Any]) -> Dict[str, tuple]:
+    """Four of the reference's accessor caches (setup.py:382-423), each
+    keyed on every part of the state its function reads: the registry's
+    root (the validators' balances, activation and exit epochs), the RANDAO
+    mixes' root where a seed is read, and the epoch or slot. A warm
+    registry root still scans every validator's mutation stamp (O(n),
+    utils/ssz/ssz_typing.py), so only accessors that cost more than that
+    scan are cached: not ``get_base_reward``, whose own cost is one cached
+    ``get_total_active_balance``."""
+    def epoch_of(state):
+        return int(ns["compute_epoch_at_slot"](state.slot))
+
+    def registry(state):
+        return bytes(state.validators.hash_tree_root())
+
+    slots = int(ns["SLOTS_PER_EPOCH"])
+    return {
+        "get_total_active_balance": (
+            lambda state: (registry(state), epoch_of(state)), 10),
+        "get_committee_count_per_slot": (
+            lambda state, epoch: (registry(state), int(epoch)), slots * 3),
+        "get_active_validator_indices": (
+            lambda state, epoch: (registry(state), int(epoch)), 3),
+        "get_beacon_committee": (
+            lambda state, slot, index: (
+                registry(state), bytes(state.randao_mixes.hash_tree_root()),
+                int(slot), int(index)),
+            slots * int(ns["MAX_COMMITTEES_PER_SLOT"]) * 3),
+    }
+
+
 def _apply_optimizations(ns: Dict[str, Any]) -> None:
-    """Memoize the pure shuffling kernel — the reference injects LRU caches
-    around accessors at spec-build time (reference: setup.py:365-423)."""
+    """Memoize the pure shuffling kernel and the state accessors the spec
+    calls over and over (the committees, the active set, the total active
+    balance) — the reference injects these LRU caches at spec-build time
+    (reference: setup.py:365-423). Every cache is keyed on what its
+    function reads, so the spec's results are unchanged."""
     if "compute_shuffled_index" in ns:
         raw = ns["compute_shuffled_index"]
         cached = functools.lru_cache(maxsize=1 << 20)(raw)
         cached.__wrapped_raw__ = raw
         ns["compute_shuffled_index"] = cached
+    for name, (key_fn, lru_size) in _state_accessor_caches(ns).items():
+        if name in ns:
+            ns[name] = _cache_this(key_fn, ns[name], lru_size)
     # eth_aggregate_pubkeys fast path: swap in bls.AggregatePKs, keeping the
     # spec-text version available (reference setup.py:60-63, 484-487)
     if "eth_aggregate_pubkeys" in ns:

@@ -1,0 +1,37 @@
+"""Phase0 spec tests, deposits and voluntary exits (block_processing): each
+``test_*`` function of the JAX package's modules and its twin in the
+port run in generator mode on the phase0 fork, and their part lists must
+be equal part by part (``consensus_specs_tpu_torch/test/harness.py``)."""
+import pytest
+
+from consensus_specs_tpu.test.phase0.block_processing import (
+    test_process_deposit as jax_deposit,
+    test_process_voluntary_exit as jax_voluntary_exit,
+)
+from consensus_specs_tpu_torch.test.harness import (  # noqa: F401
+    case_names,
+    hold_case,
+    paired_cases,
+    port_harness,
+)
+from consensus_specs_tpu_torch.test.phase0.block_processing import (
+    test_process_deposit as port_deposit,
+    test_process_voluntary_exit as port_voluntary_exit,
+)
+
+MODULES = {
+    "deposit": (jax_deposit, port_deposit),
+    "voluntary_exit": (jax_voluntary_exit, port_voluntary_exit),
+}
+
+
+@pytest.mark.parametrize("key", sorted(MODULES))
+def test_same_case_names(key):
+    expected, port = MODULES[key]
+    assert case_names(port) == case_names(expected)
+
+
+@pytest.mark.parametrize("key,name", paired_cases(MODULES))
+def test_phase0_case(key, name):
+    expected, port = MODULES[key]
+    hold_case(getattr(expected, name), getattr(port, name))

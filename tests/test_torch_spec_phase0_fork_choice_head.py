@@ -1,0 +1,34 @@
+"""Phase0 spec tests, fork choice, get_head: each ``test_*`` function of
+the JAX package's modules and its twin in the port run in generator mode
+on the phase0 fork, and their part lists must be equal part by part
+(``consensus_specs_tpu_torch/test/harness.py``)."""
+import pytest
+
+from consensus_specs_tpu.test.phase0.fork_choice import (
+    test_get_head as jax_get_head,
+)
+from consensus_specs_tpu_torch.test.harness import (  # noqa: F401
+    case_names,
+    hold_case,
+    paired_cases,
+    port_harness,
+)
+from consensus_specs_tpu_torch.test.phase0.fork_choice import (
+    test_get_head as port_get_head,
+)
+
+MODULES = {
+    "get_head": (jax_get_head, port_get_head),
+}
+
+
+@pytest.mark.parametrize("key", sorted(MODULES))
+def test_same_case_names(key):
+    expected, port = MODULES[key]
+    assert case_names(port) == case_names(expected)
+
+
+@pytest.mark.parametrize("key,name", paired_cases(MODULES))
+def test_phase0_case(key, name):
+    expected, port = MODULES[key]
+    hold_case(getattr(expected, name), getattr(port, name))

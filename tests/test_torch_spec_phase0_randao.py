@@ -1,0 +1,37 @@
+"""Phase0 spec tests, RANDAO and block header (block_processing): each
+``test_*`` function of the JAX package's modules and its twin in the
+port run in generator mode on the phase0 fork, and their part lists must
+be equal part by part (``consensus_specs_tpu_torch/test/harness.py``)."""
+import pytest
+
+from consensus_specs_tpu.test.phase0.block_processing import (
+    test_process_block_header as jax_block_header,
+    test_process_randao as jax_randao,
+)
+from consensus_specs_tpu_torch.test.harness import (  # noqa: F401
+    case_names,
+    hold_case,
+    paired_cases,
+    port_harness,
+)
+from consensus_specs_tpu_torch.test.phase0.block_processing import (
+    test_process_block_header as port_block_header,
+    test_process_randao as port_randao,
+)
+
+MODULES = {
+    "block_header": (jax_block_header, port_block_header),
+    "randao": (jax_randao, port_randao),
+}
+
+
+@pytest.mark.parametrize("key", sorted(MODULES))
+def test_same_case_names(key):
+    expected, port = MODULES[key]
+    assert case_names(port) == case_names(expected)
+
+
+@pytest.mark.parametrize("key,name", paired_cases(MODULES))
+def test_phase0_case(key, name):
+    expected, port = MODULES[key]
+    hold_case(getattr(expected, name), getattr(port, name))

@@ -1,0 +1,37 @@
+"""Phase0 spec tests, random and the scenario matrix: each ``test_*``
+function of the JAX package's modules and its twin in the port run in
+generator mode on the phase0 fork, and their part lists must be equal
+part by part (``consensus_specs_tpu_torch/test/harness.py``)."""
+import pytest
+
+from consensus_specs_tpu.test.phase0.random import (
+    test_random as jax_random,
+    test_random_matrix as jax_random_matrix,
+)
+from consensus_specs_tpu_torch.test.harness import (  # noqa: F401
+    case_names,
+    hold_case,
+    paired_cases,
+    port_harness,
+)
+from consensus_specs_tpu_torch.test.phase0.random import (
+    test_random as port_random,
+    test_random_matrix as port_random_matrix,
+)
+
+MODULES = {
+    "random": (jax_random, port_random),
+    "random_matrix": (jax_random_matrix, port_random_matrix),
+}
+
+
+@pytest.mark.parametrize("key", sorted(MODULES))
+def test_same_case_names(key):
+    expected, port = MODULES[key]
+    assert case_names(port) == case_names(expected)
+
+
+@pytest.mark.parametrize("key,name", paired_cases(MODULES))
+def test_phase0_case(key, name):
+    expected, port = MODULES[key]
+    hold_case(getattr(expected, name), getattr(port, name))

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Run named phases of chip_smoke.py alone, on one NVIDIA GPU.
 
-    python3 tools/torch_smoke_phases.py lightclient sim bench
+    python3 tools/torch_smoke_phases.py lightclient sim spec_tests bench
 
 Builds the port's kernels (chip_smoke's build), then runs each named phase
-that needs no earlier phase's output (``lightclient``, ``sim`` and
-``bench``; the first with a spawn pool of its own), each printing
+that needs no earlier phase's output (``lightclient``, ``sim``,
+``spec_tests`` and ``bench``; the first with a spawn pool of its own),
+each printing
 chip_smoke's JSON line for it, with every (program, rows) the phase
 launched the step kernel at noted, and last the ``kernels`` line that holds each such shape's first
 256 steps against the plain steps (max |err| 0 required) and times the
@@ -34,9 +35,10 @@ def main(names):
     from consensus_specs_tpu_torch.ops import bls_backend, cuda_build, vm
     from consensus_specs_tpu_torch.utils.keygen import KeyPool
 
-    unknown = [n for n in names if n not in ("lightclient", "sim", "bench")]
+    phases = ("lightclient", "sim", "spec_tests", "bench")
+    unknown = [n for n in names if n not in phases]
     if unknown or not names:
-        print(f"torch_smoke_phases: phases are lightclient, sim and bench, "
+        print(f"torch_smoke_phases: phases are {', '.join(phases)}, "
               f"not {unknown or names}", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
@@ -67,6 +69,14 @@ def main(names):
                         cs._patched(vm, "execute", execute_wrap):
                     line, launches[phase] = cs.phase_bench(torch, card,
                                                            shapes)
+                cs._emit({**line, "elapsed_s": time.perf_counter() - t0})
+                continue
+            if phase == "spec_tests":
+                with cs._patched(bls_backend, "_program", program_wrap), \
+                        cs._patched(vm, "execute", execute_wrap):
+                    line, launches[phase] = cs.phase_spec_tests(torch, card)
+                line["new_shapes"] = cs.new_launch_shapes(path_shapes, phase,
+                                                          [])
                 cs._emit({**line, "elapsed_s": time.perf_counter() - t0})
                 continue
             with KeyPool() as pool, \
