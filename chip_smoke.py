@@ -212,9 +212,11 @@ of spawned processes (utils/keygen.py).
                evidence, partition_heal replayed on 2 verdict worker
                processes on the card (each naming the card), and
                sim/latency_smoke.main. No kernel is launched, by design.
- 18. spec_tests -- the 50 ``@always_bls`` cases of the port's phase0 spec
-               tests (test/phase0/, picked by the ``bls_setting`` the
-               port's decorators carry outward), on the minimal preset in
+ 18. spec_tests -- the 72 ``@always_bls`` cases of the port's spec tests,
+               50 of phase0 (test/phase0/) and 22 of altair
+               (test/altair/: sync aggregates of 32 signers), picked by
+               the ``bls_setting`` the port's decorators carry outward,
+               each on its fork, on the minimal preset in
                generator mode with the switchboard on the card
                (``bls.use_gpu()``): every signature check they make goes
                through ops/bls_backend's per-call verify,
@@ -226,8 +228,10 @@ of spawned processes (utils/keygen.py).
                ValueError/TypeError on an input the oracle also rejects
                fails the phase, as does any call of the oracle's verify
                functions in the span, a case that does not pass, or
-               either kernel not launched. Seconds split into host
-               signing (Sign, Aggregate, SkToPk), card calls and the rest.
+               either kernel not launched, or a fork with no card call.
+               Seconds split into host signing (Sign, Aggregate, SkToPk),
+               card calls and the rest; calls, verdicts and seconds also
+               by fork.
  19. bench   -- the port's bench entry (bench/entry.main, as
                ``python -m consensus_specs_tpu_torch.bench --mode M``
                runs it) in this process, once a mode, at BENCH_MODES'
@@ -4054,12 +4058,13 @@ def phase_sim(torch, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 18: the phase0 spec tests' @always_bls cases, signatures on the card
+# phase 18: the spec tests' @always_bls cases, signatures on the card
 # ---------------------------------------------------------------------------
 
-# the JAX package's @always_bls uses under consensus_specs_tpu/test/phase0
-# (tests/test_torch_spec_harness.py holds the port's pick against them)
-SPEC_TESTS_CASES = 50
+# the JAX package's @always_bls uses under consensus_specs_tpu/test/<fork>
+# (tests/test_torch_spec_harness.py holds the port's pick against them);
+# merge's spec tests have none
+SPEC_TESTS_CASES = {"phase0": 50, "altair": 22}
 SPEC_TESTS_PRESET = "minimal"
 _CARD_CALLS = {"verify": "oracle_verify",
                "fast_aggregate_verify": "oracle_fast_aggregate_verify",
@@ -4068,50 +4073,58 @@ _HOST_SIGNING = ("Sign", "Aggregate", "SkToPk")
 
 
 def spec_test_cases():
-    """(module, name, function) of every ``@always_bls`` case of the
-    port's phase0 spec tests, in module order."""
+    """(fork, module, name, function) of every ``@always_bls`` case of the
+    port's spec tests of each fork of SPEC_TESTS_CASES, in module order;
+    a case runs on the fork of its package."""
     import importlib
     import pkgutil
 
-    from consensus_specs_tpu_torch.test import phase0
     from consensus_specs_tpu_torch.test.harness import always_bls_names
 
     cases = []
-    for info in pkgutil.walk_packages(phase0.__path__, phase0.__name__ + "."):
-        module = importlib.import_module(info.name)
-        rel = info.name[len(phase0.__name__) + 1:]
-        cases += [(rel, name, getattr(module, name))
-                  for name in always_bls_names(module)]
+    for fork in SPEC_TESTS_CASES:
+        package = importlib.import_module(f"consensus_specs_tpu_torch.test.{fork}")
+        for info in pkgutil.walk_packages(package.__path__,
+                                          package.__name__ + "."):
+            module = importlib.import_module(info.name)
+            rel = info.name[len(package.__name__) + 1:]
+            cases += [(fork, rel, name, getattr(module, name))
+                      for name in always_bls_names(module)]
     return cases
 
 
 def phase_spec_tests(torch, card):
-    """The ``@always_bls`` phase0 cases of the port on the card, through
-    the harness's case runner (generator mode, phase0, minimal). Counts
-    every card call of the switchboard (ops/bls_backend's verify,
-    fast_aggregate_verify, aggregate_verify) with its verdict and any
-    exception, every call of the oracle's verify functions (there must be
-    none), and the kernels' launches; times host signing and card calls.
+    """The ``@always_bls`` phase0 and altair cases of the port on the
+    card, through the harness's case runner (generator mode, each on its
+    fork, minimal). Counts every card call of the switchboard
+    (ops/bls_backend's verify, fast_aggregate_verify, aggregate_verify)
+    with its verdict and any exception, every call of the oracle's verify
+    functions (there must be none), and the kernels' launches; times host
+    signing and card calls; splits calls, verdicts and times by fork.
     Fails on a case that does not pass, an oracle call, a card exception
-    other than a decode error on an input the oracle also rejects, or a
-    kernel that was never launched."""
+    other than a decode error on an input the oracle also rejects, a fork
+    with no card call, or a kernel that was never launched."""
     from consensus_specs_tpu_torch.ops import bls_backend, cuda_fq, cuda_step
     from consensus_specs_tpu_torch.test.harness import run_case
     from consensus_specs_tpu_torch.utils import bls
 
     cases = spec_test_cases()
-    _check(len(cases) == SPEC_TESTS_CASES,
-           f"spec_tests: {len(cases)} @always_bls cases, not "
+    found = {fork: sum(c[0] == fork for c in cases) for fork in SPEC_TESTS_CASES}
+    _check(found == SPEC_TESTS_CASES,
+           f"spec_tests: @always_bls cases by fork {found}, not "
            f"{SPEC_TESTS_CASES}")
-    calls = {f: 0 for f in _CARD_CALLS}
+    by_fork = {fork: {"calls": {f: 0 for f in _CARD_CALLS},
+                      "verdicts": {"true": 0, "false": 0},
+                      "card_s": [], "sign_s": [], "wall_s": 0.0}
+               for fork in SPEC_TESTS_CASES}
     oracle_calls = {f: 0 for f in _CARD_CALLS.values()}
-    verdicts = {"true": 0, "false": 0}
-    raised, card_s, sign_s = [], [], []
+    raised = []
+    current = {}  # the running case's fork's entry of by_fork
 
     def card_call(fname):
         def wrap(fn):
             def counted(*args, **kwargs):
-                calls[fname] += 1
+                current["calls"][fname] += 1
                 t = time.perf_counter()
                 try:
                     ok = fn(*args, **kwargs)
@@ -4119,11 +4132,20 @@ def phase_spec_tests(torch, card):
                     raised.append((fname, type(exc).__name__, str(exc), args))
                     raise
                 finally:
-                    card_s.append(time.perf_counter() - t)
-                verdicts["true" if ok else "false"] += 1
+                    current["card_s"].append(time.perf_counter() - t)
+                current["verdicts"]["true" if ok else "false"] += 1
                 return ok
             return counted
         return wrap
+
+    def sign_timer(fn):
+        def timed(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                current["sign_s"].append(time.perf_counter() - t)
+        return timed
 
     def oracle_call(fname):
         def wrap(fn):
@@ -4145,13 +4167,16 @@ def phase_spec_tests(torch, card):
                     _patched(bls_backend, fname, card_call(fname)))
                 stack.enter_context(_patched(bls, oname, oracle_call(oname)))
             for fname in _HOST_SIGNING:
-                stack.enter_context(_patched(bls, fname, _host_timer(sign_s)))
+                stack.enter_context(_patched(bls, fname, sign_timer))
             t0 = time.perf_counter()
-            for rel, name, fn in cases:
+            for fork, rel, name, fn in cases:
+                current.update(by_fork[fork])
+                key = f"{fork}.{rel}::{name}"
                 t = time.perf_counter()
-                outcomes[f"{rel}::{name}"] = run_case(
-                    fn, "phase0", SPEC_TESTS_PRESET, False)[0]
-                case_s[f"{rel}::{name}"] = time.perf_counter() - t
+                outcomes[key] = run_case(fn, fork, SPEC_TESTS_PRESET,
+                                         False)[0]
+                case_s[key] = time.perf_counter() - t
+                by_fork[fork]["wall_s"] += case_s[key]
             wall = time.perf_counter() - t0
         torch.cuda.synchronize()
     finally:
@@ -4172,18 +4197,29 @@ def phase_spec_tests(torch, card):
            f"{oracle_calls}")
     _check(not unexpected,
            f"spec_tests: card calls raised {unexpected}")
-    _check(sum(calls.values()) > 0 and launches["vm_step"] > 0
-           and launches["mont_mul"] > 0,
+    calls = {f: sum(c["calls"][f] for c in by_fork.values())
+             for f in _CARD_CALLS}
+    _check(all(sum(c["calls"].values()) > 0 for c in by_fork.values())
+           and launches["vm_step"] > 0 and launches["mont_mul"] > 0,
            f"spec_tests: card calls {calls}, launches {launches}")
+    forks = {fork: {"cases": SPEC_TESTS_CASES[fork],
+                    "card_calls": c["calls"], "verdicts": c["verdicts"],
+                    "wall_s": c["wall_s"], "host_sign_s": sum(c["sign_s"]),
+                    "card_call_s": sum(c["card_s"])}
+             for fork, c in by_fork.items()}
+    sign_s = sum(f["host_sign_s"] for f in forks.values())
+    card_s = sum(f["card_call_s"] for f in forks.values())
     slowest = sorted(case_s.items(), key=lambda kv: -kv[1])[:3]
     return {"phase": "spec_tests", "cases": len(cases),
             "preset": SPEC_TESTS_PRESET, "passed": len(outcomes),
-            "card_calls": calls, "verdicts": verdicts,
+            "card_calls": calls,
+            "verdicts": {v: sum(f["verdicts"][v] for f in forks.values())
+                         for v in ("true", "false")},
+            "by_fork": forks,
             "card_exceptions": [(f, kind) for f, kind, _, _ in raised],
             "oracle_calls": oracle_calls,
-            "wall_s": wall, "host_sign_s": sum(sign_s),
-            "card_call_s": sum(card_s),
-            "other_s": wall - sum(sign_s) - sum(card_s),
+            "wall_s": wall, "host_sign_s": sign_s, "card_call_s": card_s,
+            "other_s": wall - sign_s - card_s,
             "slowest_cases_s": slowest,
             "step_kernel_launches": launches["vm_step"],
             "step_kernel_steps": launches["vm_step_steps"],
@@ -4518,7 +4554,7 @@ def main():
         line, path_launches["sim"] = phase_sim(torch, card)
         _emit({**line, "elapsed_s": time.perf_counter() - t0})
 
-        # the phase0 spec tests' @always_bls cases, signatures on the card
+        # the spec tests' @always_bls cases, signatures on the card
         shapes = path_shapes["spec_tests"] = {}
         program_wrap, execute_wrap = _recording_launch_shapes(shapes)
         with _patched(bls_backend, "_program", program_wrap), \
@@ -4555,7 +4591,7 @@ def main():
     # the KZG batch and the fork worlds, the serve
     # fleet (the sum of its workers' own counts: each worker process
     # counts from 0), the light-client plane (its process and its proof
-    # smoke's workers), the simnet, the phase0 spec tests' @always_bls
+    # smoke's workers), the simnet, the spec tests' @always_bls
     # cases and the bench entry's modes (this
     # process's counts; the fleet modes' workers count their own)
     paths = {"slice": {"vm_step": launches["vm_step"],

@@ -80,12 +80,28 @@ def paired_cases(modules, part=0, parts=1):
     return cases[part::parts]
 
 
-def hold_case(expected_fn, port_fn):
-    """Run both functions on phase0 at the harness's preset and BLS
+def covered_forks(fn):
+    """The forks of ``context.ALL_PHASES`` a case runs on in generator mode:
+    those of the ``phases`` attribute that ``with_phases`` and
+    ``fork_transition_test`` set (on any other fork the case returns
+    ``None`` before it builds a spec)."""
+    phases = getattr(fn, "phases", ())
+    return [fork for fork in context.ALL_PHASES if fork in phases]
+
+
+def paired_runs(modules, part=0, parts=1):
+    """(key, case name, fork) for every fork each case of
+    ``paired_cases(modules)`` covers, split as ``paired_cases`` splits."""
+    runs = [(key, name, fork) for key, name in paired_cases(modules)
+            for fork in covered_forks(getattr(modules[key][0], name))]
+    return runs[part::parts]
+
+
+def hold_case(expected_fn, port_fn, fork=context.PHASE0):
+    """Run both functions on ``fork`` at the harness's preset and BLS
     default, hold the port's outcome equal to the expected one, and skip
     (with the common reason) where both skipped."""
-    args = (context.PHASE0, context.DEFAULT_TEST_PRESET,
-            context.DEFAULT_BLS_ACTIVE)
+    args = (fork, context.DEFAULT_TEST_PRESET, context.DEFAULT_BLS_ACTIVE)
     expected = run_case(expected_fn, *args)
     got = run_case(port_fn, *args)
     assert_same_outcome(expected, got)

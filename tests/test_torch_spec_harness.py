@@ -2,6 +2,7 @@
 and ``test/harness.py``) behaves as the JAX package's ``context`` does:
 each case drives both packages' decorators on the same body and holds
 the port's observations equal to the JAX package's."""
+import importlib
 import os
 import re
 
@@ -21,7 +22,7 @@ PACKAGES = {
     "port": (port_context, port_bls, port_builder),
 }
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-JAX_PHASE0 = os.path.join(REPO, "consensus_specs_tpu", "test", "phase0")
+JAX_TEST = os.path.join(REPO, "consensus_specs_tpu", "test")
 
 
 def _each_package(check):
@@ -198,29 +199,137 @@ def test_port_harness_sets_the_port_defaults(request):
     assert port_bls.backend_name() == "py_ecc"
 
 
-def test_always_bls_cases_picked_by_attribute_match_the_jax_sources():
-    """The chip smoke picks the ``@always_bls`` cases by the attribute the
-    port's decorators carry outward; the pick must be the JAX package's
-    ``@always_bls`` functions under test/phase0, name for name."""
+def _jax_sources(fork):
+    """(module path relative to the fork's package, source) of every JAX
+    spec-test module of ``fork``."""
+    top = os.path.join(JAX_TEST, fork)
+    for root, _, files in sorted(os.walk(top)):
+        for fname in sorted(files):
+            if fname.endswith(".py"):
+                path = os.path.join(root, fname)
+                rel = os.path.relpath(path, top)[:-3].replace(os.sep, ".")
+                yield rel, open(path).read()
+
+
+def _port_modules(fork):
+    """(module path relative to the fork's package, module) of every port
+    spec-test module of ``fork``."""
     import importlib
     import pkgutil
 
-    from consensus_specs_tpu_torch.test import phase0
+    package = importlib.import_module(f"consensus_specs_tpu_torch.test.{fork}")
+    for info in pkgutil.walk_packages(package.__path__, package.__name__ + "."):
+        yield info.name[len(package.__name__) + 1:], importlib.import_module(info.name)
 
-    picked = set()
-    for info in pkgutil.walk_packages(phase0.__path__, phase0.__name__ + "."):
-        module = importlib.import_module(info.name)
-        rel = info.name[len(phase0.__name__) + 1:]
-        picked.update((rel, name) for name in harness.always_bls_names(module))
-    in_sources = set()
-    for root, _, files in os.walk(JAX_PHASE0):
-        for fname in files:
-            if not fname.endswith(".py"):
-                continue
-            path = os.path.join(root, fname)
-            rel = os.path.relpath(path, JAX_PHASE0)[:-3].replace(os.sep, ".")
-            src = open(path).read()
-            for match in re.finditer(r"^@always_bls\n(?:@.*\n)*def (test_\w+)", src, re.M):
-                in_sources.add((rel, match.group(1)))
-    assert len(in_sources) == 50
+
+@pytest.mark.parametrize("fork,count", [("phase0", 50), ("altair", 22)])
+def test_always_bls_cases_picked_by_attribute_match_the_jax_sources(fork, count):
+    """The chip smoke picks the ``@always_bls`` cases by the attribute the
+    port's decorators carry outward; the pick must be the JAX package's
+    ``@always_bls`` functions under test/<fork>, name for name (72 in
+    all; merge has none)."""
+    picked = {(rel, name) for rel, module in _port_modules(fork)
+              for name in harness.always_bls_names(module)}
+    in_sources = {(rel, match.group(1)) for rel, src in _jax_sources(fork)
+                  for match in re.finditer(
+                      r"^@always_bls\n(?:@.*\n)*def (test_\w+)", src, re.M)}
+    assert len(in_sources) == count
     assert picked == in_sources
+
+
+def _decorated_forks(src):
+    """{case name: forks of context.ALL_PHASES} read from the decorators of
+    a JAX spec-test module's source: ``with_phases``' first argument (a
+    list of fork constants, or a module-level name bound to one) or
+    ``fork_transition_test``'s pre-fork."""
+    import ast
+
+    consts = {"PHASE0": "phase0", "ALTAIR": "altair", "MERGE": "merge",
+              "SHARDING": "sharding", "CUSTODY_GAME": "custody_game"}
+    tree = ast.parse(src)
+    lists = {node.targets[0].id: [consts[e.id] for e in node.value.elts]
+             for node in tree.body
+             if isinstance(node, ast.Assign) and isinstance(node.value, ast.List)
+             and len(node.targets) == 1 and isinstance(node.targets[0], ast.Name)}
+    forks = {}
+    for node in tree.body:
+        if not (isinstance(node, ast.FunctionDef) and node.name.startswith("test_")):
+            continue
+        for deco in node.decorator_list:
+            if not (isinstance(deco, ast.Call) and isinstance(deco.func, ast.Name)):
+                continue
+            if deco.func.id == "with_phases":
+                arg = deco.args[0]
+                phases = (lists[arg.id] if isinstance(arg, ast.Name)
+                          else [consts[e.id] for e in arg.elts])
+            elif deco.func.id == "fork_transition_test":
+                phases = [consts[deco.args[0].id]]
+            else:
+                continue
+            forks[node.name] = [f for f in jax_context.ALL_PHASES if f in phases]
+    return forks
+
+
+def test_enumerated_runs_match_the_jax_sources_with_phases():
+    """The (module, case, fork) runs the altair and merge comparison files
+    parametrise over (``harness.covered_forks`` of each case, on both
+    packages) equal the forks of a scan of the JAX sources' decorators:
+    233 runs, the twelve ``_ALTAIR_ON`` cases on altair and on merge."""
+    scanned, enumerated = set(), set()
+    for fork in ("altair", "merge"):
+        scanned |= {(fork, rel, name, f) for rel, src in _jax_sources(fork)
+                    for name, forks in _decorated_forks(src).items()
+                    for f in forks}
+        for rel, module in _port_modules(fork):
+            expected = importlib.import_module(
+                f"consensus_specs_tpu.test.{fork}.{rel}")
+            for name in harness.case_names(module):
+                forks = harness.covered_forks(getattr(module, name))
+                assert forks == harness.covered_forks(getattr(expected, name))
+                enumerated |= {(fork, rel, name, f) for f in forks}
+    assert len(scanned) == 233
+    assert sum(f == "merge" for fork, _, _, f in scanned if fork == "altair") == 12
+    assert enumerated == scanned
+
+
+def test_a_fork_the_case_does_not_cover_gives_none_in_both_packages():
+    """In generator mode a case returns ``None`` on a fork its
+    ``with_phases`` (or ``fork_transition_test``) does not cover."""
+    cases = [("merge.unittests.test_transition_predicates",
+              "test_is_merge_complete_tracks_header", ("phase0", "altair")),
+             ("altair.unittests.test_config_invariants", "test_weights",
+              ("phase0", "merge")),
+             ("altair.transition.test_transition",
+              "test_normal_transition_to_altair", ("altair", "merge"))]
+    for rel, name, forks in cases:
+        for package in ("consensus_specs_tpu", "consensus_specs_tpu_torch"):
+            fn = getattr(importlib.import_module(f"{package}.test.{rel}"), name)
+            for fork in forks:
+                assert fork not in harness.covered_forks(fn)
+                assert harness.run_case(fn, fork, "minimal", False) == \
+                    ("parts", None)
+
+
+def test_hold_case_runs_the_fork_it_is_given():
+    from consensus_specs_tpu.test.altair.unittests import (
+        test_config_invariants as jax_invariants,
+    )
+    from consensus_specs_tpu_torch.test.altair.unittests import (
+        test_config_invariants as port_invariants,
+    )
+
+    expected, port = jax_invariants.test_weights, port_invariants.test_weights
+    harness.hold_case(expected, port, "altair")
+    outcome = harness.run_case(port, "altair", "minimal", False)
+    assert outcome[0] == "parts" and outcome[1] is not None  # it ran
+    # on a fork it does not cover both give None, which holds too
+    harness.hold_case(expected, port, "merge")
+    # a different outcome is caught: a merge case gives None on altair
+    from consensus_specs_tpu_torch.test.merge.unittests import (
+        test_transition_predicates as port_predicates,
+    )
+
+    with pytest.raises(AssertionError):
+        harness.hold_case(expected,
+                          port_predicates.test_is_merge_complete_tracks_header,
+                          "altair")
