@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Drives ``consensus_specs_tpu_torch`` (never jax, never the JAX package)
-through twenty phases, each printing one JSON line:
+through twenty-one phases, each printing one JSON line:
 
   1. build   -- compile every CUDA kernel of the port from csrc/ with nvcc
                for sm_90a (one nvcc per source, all started together);
@@ -185,7 +185,7 @@ of spawned processes (utils/keygen.py).
                assignment, 0 affinity moves; (c) one worker armed to fail
                until the router sheds or drains it (falls back on
                purpose). The workers' launch counts are summed and their
-               launch shapes (from their snapshots) join phase 20.
+               launch shapes (from their snapshots) join phase 21.
  16. lightclient -- the light-client proof plane on the port's altair
                mainnet spec: a ProofWorld of the full 512-seat sync
                committee (keys from the spawn pool, equal to SkToPk's) over
@@ -232,7 +232,23 @@ of spawned processes (utils/keygen.py).
                Seconds split into host signing (Sign, Aggregate, SkToPk),
                card calls and the rest; calls, verdicts and seconds also
                by fork.
- 19. bench   -- the port's bench entry (bench/entry.main, as
+ 19. gen     -- the port's test-vector generators: ``bls`` (29 cases)
+               into a temporary directory with every cross-check on the
+               card (gen/generators/bls.py: expected verdicts from the
+               oracle, pinned for the run; the check through
+               ops/bls_backend's verify, fast_aggregate_verify and
+               aggregate_verify), then ``ssz_generic``, ``shuffling -l
+               minimal`` and ``merkle -l minimal`` on the card's host.
+               Fails unless all 29 cases are written (none failed or left
+               INCOMPLETE), the 15 checks equal the oracle's verdicts (12
+               card calls; the 3 the backend answers before the device,
+               two empty pubkey lists and a length mismatch, launch
+               nothing), no check raises, the oracle's verify functions
+               run 0 times inside a backend call, both kernels launch,
+               the switchboard is restored, and every tree's digest
+               equals gen/digests.PINNED (the JAX package's trees: the
+               YAML writer on a machine without PyYAML).
+ 20. bench   -- the port's bench entry (bench/entry.main, as
                ``python -m consensus_specs_tpu_torch.bench --mode M``
                runs it) in this process, once a mode, at BENCH_MODES'
                knobs: committee at 32 x 128 (3 reps), the epoch at the
@@ -244,7 +260,7 @@ of spawned processes (utils/keygen.py).
                no ladder record (serve injects its fault on purpose);
                committee, epoch and codec together must launch both
                kernels. One line a mode, then the phase's summary.
- 20. kernels -- every program and row count that phases 9-16, 18 and 19
+ 21. kernels -- every program and row count that phases 9-16 and 18-20
                launched the step kernel at (noted during those phases) and that no
                earlier phase checked: the first 256 steps on random
                canonical inputs limb for limb against the plain version,
@@ -4227,7 +4243,152 @@ def phase_spec_tests(torch, card):
             **card}, launches
 
 
-# phase 19's modes of the bench entry, in order, with the knobs each runs
+# ---------------------------------------------------------------------------
+# phase 19: the test-vector generators, the bls generator's checks on the card
+# ---------------------------------------------------------------------------
+
+GEN_BLS_CASES = 29
+GEN_CHECKS = {"verify": 6, "fast_aggregate_verify": 6, "aggregate_verify": 3}
+GEN_HOST_ANSWERED = 3  # two empty pubkey lists, one length mismatch
+# the generators run on the card's host alone, and their CLI selections
+GEN_HOST_TREES = (("ssz_generic", "ssz_generic", []),
+                  ("shuffling -l minimal", "shuffling", ["-l", "minimal"]),
+                  ("merkle -l minimal", "merkle", ["-l", "minimal"]))
+
+
+def _gen_tree(name, args, out_dir):
+    """Run one generator of the port into ``out_dir`` (its per-case prints
+    kept off stdout): (rc, its summary line, seconds)."""
+    import importlib
+    import io
+
+    gen = importlib.import_module(
+        f"consensus_specs_tpu_torch.gen.generators.{name}")
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = gen.main(["-o", out_dir] + args)
+    summary = [ln for ln in buf.getvalue().splitlines() if "collected=" in ln]
+    return rc, summary[-1] if summary else "", time.perf_counter() - t
+
+
+def phase_gen(torch, card):
+    """The port's ``bls`` generator with every cross-check on the card,
+    then the host generators; see the module docstring, phase 19."""
+    import tempfile
+
+    from consensus_specs_tpu_torch.gen import digests, gen_runner
+    from consensus_specs_tpu_torch.ops import bls_backend, cuda_fq, cuda_step
+    from consensus_specs_tpu_torch.utils import bls
+
+    calls = []  # (kind, host answered, verdict, step launches, mont launches, s)
+    raised = []
+    oracle_calls = {o: 0 for o in _CARD_CALLS.values()}
+    inside = []
+
+    def card_call(fname):
+        def wrap(fn):
+            def counted(*args, **kwargs):
+                pks = args[0]
+                host = len(pks) == 0 or (fname == "aggregate_verify"
+                                         and len(pks) != len(args[1]))
+                steps0, mont0 = cuda_step.LAUNCHES, cuda_fq.LAUNCHES
+                t = time.perf_counter()
+                inside.append(fname)
+                try:
+                    ok = fn(*args, **kwargs)
+                except Exception as exc:
+                    raised.append((fname, type(exc).__name__, str(exc)))
+                    raise
+                finally:
+                    inside.pop()
+                torch.cuda.synchronize()
+                calls.append((fname, host, bool(ok),
+                               cuda_step.LAUNCHES - steps0,
+                               cuda_fq.LAUNCHES - mont0,
+                               time.perf_counter() - t))
+                return ok
+            return counted
+        return wrap
+
+    def oracle_call(oname):
+        def wrap(fn):
+            def counted(*args, **kwargs):
+                if inside:
+                    oracle_calls[oname] += 1
+                return fn(*args, **kwargs)
+            return counted
+        return wrap
+
+    saved = (bls._backend, bls.bls_active)
+    cuda_step.LAUNCHES = cuda_step.STEPS = 0
+    cuda_fq.LAUNCHES = cuda_fq.CAPTURES = 0
+    trees = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        with contextlib.ExitStack() as stack:
+            for fname, oname in _CARD_CALLS.items():
+                stack.enter_context(
+                    _patched(bls_backend, fname, card_call(fname)))
+                stack.enter_context(_patched(bls, oname, oracle_call(oname)))
+            bls_dir = os.path.join(tmp, "bls")
+            rc, summary, wall = _gen_tree("bls", [], bls_dir)
+        torch.cuda.synchronize()
+        launches = {"vm_step": cuda_step.LAUNCHES,
+                    "vm_step_steps": cuda_step.STEPS,
+                    "mont_mul": cuda_fq.LAUNCHES}
+        restored = (bls._backend, bls.bls_active) == saved
+        cases = [d for d, _, files in os.walk(bls_dir) if "data.yaml" in files]
+        incomplete = gen_runner.detect_incomplete(bls_dir)
+        error_log = os.path.exists(os.path.join(bls_dir, gen_runner.ERROR_LOG))
+        trees["bls"] = {"rc": rc, "summary": summary, "s": wall,
+                        "digest": digests.tree_digest(bls_dir)}
+        for key, name, args in GEN_HOST_TREES:
+            out_dir = os.path.join(tmp, key.replace(" ", "_"))
+            rc_h, summary_h, s_h = _gen_tree(name, args, out_dir)
+            trees[key] = {"rc": rc_h, "summary": summary_h, "s": s_h,
+                          "digest": digests.tree_digest(out_dir)}
+
+    by_kind = {k: sum(c[0] == k for c in calls) for k in GEN_CHECKS}
+    on_card = [c for c in calls if not c[1]]
+    host = [c for c in calls if c[1]]
+    _check(rc == 0 and len(cases) == GEN_BLS_CASES and not incomplete
+           and not error_log,
+           f"gen: bls rc {rc}, {len(cases)} cases of {GEN_BLS_CASES}, "
+           f"INCOMPLETE {incomplete}, error log {error_log}: {summary}")
+    _check(by_kind == GEN_CHECKS and len(host) == GEN_HOST_ANSWERED,
+           f"gen: checks {by_kind} ({len(host)} answered on the host), not "
+           f"{GEN_CHECKS} ({GEN_HOST_ANSWERED})")
+    _check(not raised, f"gen: card calls raised {raised}")
+    _check(not any(oracle_calls.values()),
+           f"gen: the oracle verified inside the backend: {oracle_calls}")
+    _check(all(c[3] == 0 and c[4] == 0 for c in host),
+           f"gen: a call answered on the host launched a kernel: {host}")
+    _check(restored, f"gen: switchboard {(bls._backend, bls.bls_active)} "
+                     f"not restored to {saved}")
+    wrong = {k: t["digest"] for k, t in trees.items()
+             if t["rc"] != 0 or t["digest"] != digests.PINNED[k]}
+    _check(not wrong, f"gen: trees unequal to the pinned digests: {wrong}")
+    _check(launches["vm_step"] > 0 and launches["mont_mul"] > 0,
+           f"gen: launches {launches}")
+    card_s = sum(c[5] for c in on_card)
+    return {"phase": "gen", "bls_cases": len(cases),
+            "checks": by_kind, "card_calls": len(on_card),
+            "host_answered": len(host),
+            "verdicts": {"true": sum(c[2] for c in calls),
+                         "false": sum(not c[2] for c in calls)},
+            "card_exceptions": len(raised), "oracle_calls": oracle_calls,
+            "calls": [{"kind": c[0], "verdict": c[2], "vm_step": c[3],
+                       "mont_mul": c[4], "s": c[5]} for c in on_card],
+            "bls_wall_s": wall, "card_call_s": card_s,
+            "host_s": wall - card_s,
+            "trees": trees,
+            "step_kernel_launches": launches["vm_step"],
+            "step_kernel_steps": launches["vm_step_steps"],
+            "mont_mul_kernel_launches": launches["mont_mul"],
+            **card}, launches
+
+
+# phase 20's modes of the bench entry, in order, with the knobs each runs
 # at (committee and the epoch at full width; the rest cut to fit the phase)
 BENCH_MODES = (
     ("committee", {"BENCH_N": "32", "BENCH_K": "128", "BENCH_REPS": "3"}),
@@ -4564,6 +4725,15 @@ def main():
                                                streams)
         _emit({**line, "elapsed_s": time.perf_counter() - t0})
 
+        # the test-vector generators, the bls generator's checks on the card
+        shapes = path_shapes["gen"] = {}
+        program_wrap, execute_wrap = _recording_launch_shapes(shapes)
+        with _patched(bls_backend, "_program", program_wrap), \
+                _patched(vm, "execute", execute_wrap):
+            line, path_launches["gen"] = phase_gen(torch, card)
+        line["new_shapes"] = new_launch_shapes(path_shapes, "gen", streams)
+        _emit({**line, "elapsed_s": time.perf_counter() - t0})
+
         # the bench entry's modes; what they launch joins the last line
         shapes = path_shapes["bench"] = {}
         program_wrap, execute_wrap = _recording_launch_shapes(shapes)
@@ -4592,7 +4762,7 @@ def main():
     # fleet (the sum of its workers' own counts: each worker process
     # counts from 0), the light-client plane (its process and its proof
     # smoke's workers), the simnet, the spec tests' @always_bls
-    # cases and the bench entry's modes (this
+    # cases, the bls generator's checks and the bench entry's modes (this
     # process's counts; the fleet modes' workers count their own)
     paths = {"slice": {"vm_step": launches["vm_step"],
                        "vm_step_steps": launches["vm_step_steps"],
@@ -4609,7 +4779,7 @@ def main():
     # the simnet launches none: its verdicts ride in the signature bytes
     idle = [f"{path} {k}" for path in ("wide", "epoch", "mainnet", "spec",
                                        "kzg", "forks", "fleet", "lightclient",
-                                       "spec_tests", "bench")
+                                       "spec_tests", "gen", "bench")
             for k in ("vm_step", "mont_mul") if paths[path][k] == 0
             and (path, k) != ("kzg", "mont_mul")]
     if idle:

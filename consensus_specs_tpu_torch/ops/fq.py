@@ -9,7 +9,7 @@ carry pass).
 
 Limb tensors are ``torch.int64``: torch's unsigned tensors do not support
 add, shift, gather or index_put. int64 is exact here because the overflow
-audit of ``mont_mul_plain`` keeps every column below 2^62.
+audit of ``mont_mul_plain`` keeps every column below 2^61.
 
 ``mont_mul_plain`` is the plain version of the CUDA Montgomery multiply
 (csrc/mont.cuh). ``mont_mul`` goes through ops/cuda_fq.py: on a CUDA
@@ -83,42 +83,73 @@ def limbs_from_numpy(u64_array, device) -> torch.Tensor:
 
 def _carry_limbs(t: torch.Tensor, out_limbs: int = NUM_LIMBS) -> torch.Tensor:
     """Propagate carries to limbs < 2^28; the value must fit out_limbs
-    limbs (a final carry beyond them is dropped)."""
+    limbs (a final carry beyond them is dropped). The carried limbs of a
+    value are unique, so carry passes over every limb at once, repeated
+    until no limb holds a carry (two or three on the step's data), give
+    the limbs of a limb-by-limb ripple in a few torch ops."""
     n = t.shape[-1]
-    outs = []
-    c = torch.zeros(t.shape[:-1], dtype=torch.int64, device=t.device)
-    for k in range(n):
-        cur = t[..., k] + c
-        outs.append(cur & MASK)
-        c = cur >> LIMB_BITS
-    while len(outs) < out_limbs:
-        outs.append(c & MASK)
-        c = c >> LIMB_BITS
-    return torch.stack(outs[:out_limbs], dim=-1)
+    if n < out_limbs:
+        t = torch.cat([t, t.new_zeros(t.shape[:-1] + (out_limbs - n,))], -1)
+    x = t[..., :out_limbs]  # higher limbs only add multiples of 2^(28 out)
+    c = x >> LIMB_BITS
+    while True:
+        x = x & MASK  # a new tensor: the caller's is never written
+        if not bool(c.any()):
+            return x
+        x[..., 1:] += c[..., :-1]
+        c = x >> LIMB_BITS
+
+
+# -p^-1 mod 2^420: the whole-number REDC's multiplier
+N_PRIME_LIMBS = _int_to_limbs_np((-pow(P, -1, R_MONT)) % R_MONT)
+_I = np.arange(NUM_LIMBS)
+_COLUMN = (_I[:, None] + _I[None, :]).reshape(-1)  # limb i * limb j -> i + j
+# the low half's columns, the rest dropped into a spare column 15
+_LOW_COLUMN = np.where(_COLUMN < NUM_LIMBS, _COLUMN, NUM_LIMBS)
+
+
+def _columns(a: torch.Tensor, b: torch.Tensor, low: bool = False):
+    """Raw product columns of (..., 15) limbs: 30 (the low 15 with
+    ``low``), each the sum of its limb products, from one outer product."""
+    shape = a.shape[:-1]
+    prod = (a[..., :, None] * b[..., None, :]).reshape(
+        shape + (NUM_LIMBS * NUM_LIMBS,))
+    n = NUM_LIMBS + 1 if low else 2 * NUM_LIMBS
+    out = a.new_zeros(shape + (n,)).index_add_(
+        -1, _const("low_column" if low else "column", a.device), prod)
+    return out[..., :NUM_LIMBS] if low else out
 
 
 def mont_mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Montgomery product a*b*2^-420 (mod p) on (..., 15) int64 limbs;
     loose in (limbs < 2^28), loose out (< a*b/R + p). Limb for limb the
-    JAX package's ``fq.mont_mul_u64``: schoolbook columns, 15 reduction
-    rounds clearing limbs 0..14 low to high, one carry pass.
+    JAX package's ``fq.mont_mul_u64`` (schoolbook columns, 15 reduction
+    rounds clearing limbs 0..14 low to high, one carry pass), computed as
+    whole numbers in about 60 torch ops: the rounds' multipliers m_i form
+    M = T * (-p^-1) mod 2^420 (the unique M < 2^420 with T + M*p = 0 mod
+    2^420), and their output is the carried limbs of (T + M*p) / 2^420 mod
+    2^420: so is this.
 
-    Overflow audit (int64 columns): schoolbook columns take <= 15 products
-    of limbs < 2^28 (< 2^60); the reduction adds one m*p_j (< 2^56) per
-    round per column plus single-limb carries, so every column < 2^62."""
+    The carry out of the low half is exact without a ripple: every prefix
+    of the columns s_0..s_14 of T + M*p is 0 mod its 2^(28(k+1)), so the
+    carry u_12 into column 13 is both = -s_13 mod 2^28 and within 2^6 of
+    s_12 >> 28 (the carry into column 12 is < 2^34); u_13 and u_14 follow.
+
+    Overflow audit (int64 columns): a column of T or of M*p sums <= 15
+    products of limbs < 2^28 (< 2^60), so every column of T + M*p < 2^61."""
     a, b = torch.broadcast_tensors(a, b)
-    p = torch.as_tensor(P_LIMBS.astype(np.int64), device=a.device)
-    t = torch.zeros(a.shape[:-1] + (2 * NUM_LIMBS,), dtype=torch.int64,
-                    device=a.device)
-    for i in range(NUM_LIMBS):
-        t[..., i : i + NUM_LIMBS] += a[..., i : i + 1] * b
-    for i in range(NUM_LIMBS):
-        ti = t[..., i]
-        m = ((ti & MASK) * N0) & MASK
-        carry = (ti + m * int(P_LIMBS[0])) >> LIMB_BITS
-        t[..., i + 1 : i + NUM_LIMBS] += m[..., None] * p[1:]
-        t[..., i + 1] += carry
-    return _carry_limbs(t[..., NUM_LIMBS : 2 * NUM_LIMBS])
+    p = _const("p", a.device).expand_as(a)
+    t = _columns(a, b)
+    low = _carry_limbs(t[..., :NUM_LIMBS])  # T mod 2^420
+    m = _carry_limbs(_columns(low, _const("n_prime", a.device).expand_as(a),
+                              low=True))
+    s = t + _columns(m, p)
+    lo = s[..., 12] >> LIMB_BITS
+    u12 = lo + ((-s[..., 13] - lo) & MASK)
+    u14 = (s[..., 14] + ((s[..., 13] + u12) >> LIMB_BITS)) >> LIMB_BITS
+    high = s[..., NUM_LIMBS:]
+    high[..., 0] += u14
+    return _carry_limbs(high)
 
 
 def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -130,13 +161,17 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return cuda_fq.mont_mul(a, b)
 
 
-_LIMB_CONSTS = {"one": ONE_MONT, "mp": MP_LIMBS}
+_LIMB_CONSTS = {"one": ONE_MONT, "mp": MP_LIMBS,
+                "mp_plus_1": _int_to_limbs_np(MP + 1), "p": P_LIMBS,
+                "n_prime": N_PRIME_LIMBS, "column": _COLUMN,
+                "low_column": _LOW_COLUMN}
 _P_MINUS_2_BITS = [int(b) for b in bin(P - 2)[2:]]
 
 
 @functools.lru_cache(maxsize=None)
 def _const(name: str, device: torch.device) -> torch.Tensor:
-    """A (15,) int64 limb constant, uploaded once per device."""
+    """An int64 constant (15 limbs, or a product-column index map),
+    uploaded once per device."""
     return torch.from_numpy(_LIMB_CONSTS[name].astype(np.int64)).to(device)
 
 

@@ -496,18 +496,14 @@ class Program:
         return cache[key]
 
 
-# MP + 1 in limb form: the additive shift of the borrowless subtract
-_MP_PLUS_1 = fq._int_to_limbs_np(fq.MP + 1).astype(np.int64)
-
-
 def _lin_plain(la: torch.Tensor, lb: torch.Tensor,
                lsub: torch.Tensor) -> torch.Tensor:
     """LIN unit, plain version: a + (sub ? (MP+1) + (MASK - b) : b),
     carried, the 2^420 overflow limb dropped."""
-    comp = torch.as_tensor(_MP_PLUS_1, device=la.device) + (fq.MASK - lb)
+    # MP + 1: the additive shift of the borrowless subtract
+    comp = fq._const("mp_plus_1", la.device) + (fq.MASK - lb)
     rhs = torch.where(lsub.bool()[..., None], comp, lb)
-    return fq._carry_limbs(la + rhs, out_limbs=fq.NUM_LIMBS + 1)[
-        ..., : fq.NUM_LIMBS]
+    return fq._carry_limbs(la + rhs)
 
 
 def _vm_step_plain(regs: torch.Tensor, instr) -> torch.Tensor:

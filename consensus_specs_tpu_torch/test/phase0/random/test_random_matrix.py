@@ -1,7 +1,7 @@
 """Code-generated randomized scenario-matrix tests — DO NOT EDIT.
 
-Regenerate with `make generate_random_tests` (tools/gen_random_tests.py);
-the vocabulary/matrix lives in test/utils/scenario_matrix.py. Mirrors the
+Regenerate with `python tools/torch_gen_random_tests.py`; the
+vocabulary/matrix lives in test/utils/scenario_matrix.py. Mirrors the
 reference's code-generated random suites (reference
 tests/generators/random/generate.py)."""
 from ...context import PHASE0, spec_state_test, with_phases

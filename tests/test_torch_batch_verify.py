@@ -25,6 +25,9 @@ from consensus_specs_tpu.utils.bls12_381 import R
 from consensus_specs_tpu_torch import batch_verify as tbv
 from consensus_specs_tpu_torch.ops import bls_backend as tback
 from consensus_specs_tpu_torch.utils import bls as tbls
+from tests.torch_threads import one_thread
+
+one_thread()
 
 RNG = np.random.default_rng(20261017)
 

@@ -17,6 +17,9 @@ import json
 import os
 
 import numpy as np
+from tests.torch_threads import one_thread
+
+one_thread()
 
 KEYS = ("metric", "value", "unit", "vs_baseline", "mode", "platform",
         "device", "launches", "seconds")

@@ -14,6 +14,9 @@ import sys
 
 import pytest
 import torch
+from tests.torch_threads import one_thread
+
+one_thread()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KEYS = ("metric", "value", "unit", "vs_baseline", "mode", "platform",

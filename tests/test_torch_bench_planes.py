@@ -8,6 +8,9 @@ soak runs' scenario digests, gates and health verdict.
 import os
 
 from tests.test_torch_bench import _digests, _env, _port_line
+from tests.torch_threads import one_thread
+
+one_thread()
 
 
 MAINNET = {"CONSENSUS_SPECS_TPU_SCALE_VALIDATORS": "8192",
@@ -66,9 +69,13 @@ def test_soak_equal(tmp_path):
     from consensus_specs_tpu.bench import soak as jsoak
     from consensus_specs_tpu_torch.bench import soak as tsoak
 
+    # the soak arms the timeseries plane (``os.environ.setdefault`` of
+    # CONSENSUS_SPECS_TPU_TS, in both packages): set here, it is taken back
+    # after each run instead of reaching every later worker process
     knobs = {"CONSENSUS_SPECS_TPU_SOAK_EPOCHS": "4",
              "CONSENSUS_SPECS_TPU_SOAK_WORKERS": "1",
-             "CONSENSUS_SPECS_TPU_SOAK_DIR": str(tmp_path / "torch")}
+             "CONSENSUS_SPECS_TPU_SOAK_DIR": str(tmp_path / "torch"),
+             "CONSENSUS_SPECS_TPU_TS": "1"}
     with _digests(tsoak) as tseen:
         got = _port_line("soak", knobs)
     knobs["CONSENSUS_SPECS_TPU_SOAK_DIR"] = str(tmp_path / "jax")

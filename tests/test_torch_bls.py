@@ -20,6 +20,9 @@ from consensus_specs_tpu.ops import bls_backend as jbls  # noqa: E402
 from consensus_specs_tpu.utils import bls  # noqa: E402
 from consensus_specs_tpu.utils import bls12_381 as O  # noqa: E402
 from consensus_specs_tpu_torch.ops import bls_backend as tbls  # noqa: E402
+from tests.torch_threads import one_thread  # noqa: E402
+
+one_thread()
 
 SKS = [41, 42, 43, 44]
 PKS = [bls.SkToPk(sk) for sk in SKS]

@@ -27,6 +27,9 @@ from consensus_specs_tpu.ops import codec as jcodec  # noqa: E402
 from consensus_specs_tpu_torch.ops import bls_backend as tbls  # noqa: E402
 from consensus_specs_tpu_torch.ops import codec  # noqa: E402
 from consensus_specs_tpu_torch.utils import bls12_381 as O  # noqa: E402
+from tests.torch_threads import one_thread  # noqa: E402
+
+one_thread()
 
 DST = tbls.DST
 ENV = "CONSENSUS_SPECS_TPU_CODEC_DEVICE"

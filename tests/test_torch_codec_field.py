@@ -29,6 +29,9 @@ from consensus_specs_tpu.ops import fq as jfq  # noqa: E402
 from consensus_specs_tpu.ops import towers as jtowers  # noqa: E402
 from consensus_specs_tpu.utils.bls12_381 import P  # noqa: E402
 from consensus_specs_tpu_torch.ops import codec, fq, towers  # noqa: E402
+from tests.torch_threads import one_thread  # noqa: E402
+
+one_thread()
 
 L = fq.NUM_LIMBS
 

@@ -31,6 +31,9 @@ from consensus_specs_tpu.utils import bls  # noqa: E402
 from consensus_specs_tpu.utils import bls12_381 as JO  # noqa: E402
 from consensus_specs_tpu_torch.ops import bls_backend as tbls  # noqa: E402
 from consensus_specs_tpu_torch.ops import codec  # noqa: E402
+from tests.torch_threads import one_thread  # noqa: E402
+
+one_thread()
 
 SKS = [71, 72, 73, 74]
 PKS = [bls.SkToPk(sk) for sk in SKS]

@@ -10,6 +10,9 @@ full widths.)
 import numpy as np
 import pytest
 import torch
+from tests.torch_threads import one_thread
+
+one_thread()
 
 pytestmark = pytest.mark.cuda
 

@@ -46,6 +46,9 @@ from consensus_specs_tpu_torch.ops import profiling as tprofiling  # noqa: E402
 from consensus_specs_tpu_torch.serve import cache as tcache  # noqa: E402
 from consensus_specs_tpu_torch.serve import fleet as tfleet  # noqa: E402
 from consensus_specs_tpu_torch.serve import load as tload  # noqa: E402
+from tests.torch_threads import one_thread  # noqa: E402
+
+one_thread()
 
 PKGS = ("jax", "torch")
 PK = b"\x01" * 48
@@ -450,9 +453,11 @@ def fleets():
     routers = {}
     try:
         for name in PKGS:
+            # the TSDB off whatever an earlier test left in os.environ
             routers[name] = Pkg(name).router(
                 workers=2, backend="verdict",
-                env={"SERVE_MAX_WAIT_MS": "2"})
+                env={"SERVE_MAX_WAIT_MS": "2",
+                     "CONSENSUS_SPECS_TPU_TS": "0"})
         yield routers
     finally:
         for router in routers.values():

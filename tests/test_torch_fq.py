@@ -22,6 +22,9 @@ from consensus_specs_tpu.ops import fq as jfq  # noqa: E402
 from consensus_specs_tpu.ops import pallas_fq, vm as jvm  # noqa: E402
 from consensus_specs_tpu.utils.bls12_381 import P  # noqa: E402
 from consensus_specs_tpu_torch.ops import cuda_fq, fq, vm  # noqa: E402
+from tests.torch_threads import one_thread  # noqa: E402
+
+one_thread()
 
 
 def _rand_loose(rng, shape, max_bits=401):
@@ -64,18 +67,21 @@ def test_constants_match_reference():
         assert np.array_equal(mine, ref)
 
 
+@pytest.mark.parametrize("n", [4, 300])
 @pytest.mark.parametrize("pair", sorted(EDGE_PAIRS))
-def test_mont_mul_plain_edge_values(pair):
-    a, b = (_edge(x) for x in EDGE_PAIRS[pair])
+def test_mont_mul_plain_edge_values(pair, n):
+    a, b = (_edge(x, n) for x in EDGE_PAIRS[pair])
     got = fq.mont_mul_plain(_t(a), _t(b)).numpy().astype(np.uint64)
     assert np.array_equal(got, np.asarray(jfq.mont_mul_u64(a, b)))
     assert np.array_equal(got, np.asarray(pallas_fq.mont_mul(a, b)))
 
 
-@pytest.mark.parametrize("shape", [(1,), (3,), (37,), (5, 3)])
+@pytest.mark.parametrize("shape", [(1,), (3,), (37,), (5, 3), (300,),
+                                   (3, 96)])
 def test_mont_mul_plain_random_loose(shape):
     """Random loose values below 2^401, odd batch sizes (the Pallas tile
-    is 256 lanes, so all of these pad)."""
+    is 256 lanes, so all of these pad), up to a few VM rows of 96
+    products."""
     rng = random.Random(20261016 + len(shape) * 100 + shape[0])
     a = _rand_loose(rng, shape)
     b = _rand_loose(rng, shape)

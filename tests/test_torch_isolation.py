@@ -10,6 +10,9 @@ import sys
 import numpy as np
 import pytest
 import torch
+from tests.torch_threads import one_thread
+
+one_thread()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -57,8 +60,24 @@ proof = build_head_proof(spec, state)
 verify_head_proof(spec, proof, bytes(state.hash_tree_root()))
 sim_run = sim.run_scenario(sim.get_scenario("partition_heal"), seed=7,
                            device="cpu")
+# the generators, their YAML writer, the debug codecs and the deposit
+# model, driven once: a tree written without PyYAML
+import io, contextlib, tempfile
+from consensus_specs_tpu_torch.gen import digests, yaml_writer
+from consensus_specs_tpu_torch.gen.generators import ssz_generic
+from consensus_specs_tpu_torch.debug.encode import encode
+from consensus_specs_tpu_torch.deposit_contract import DepositContractModel
+with tempfile.TemporaryDirectory() as tmp, \
+        contextlib.redirect_stdout(io.StringIO()):
+    gen_rc = ssz_generic.main(["-o", tmp])
+    gen_digest = digests.tree_digest(tmp)
+deposits = DepositContractModel()
+deposits.deposit(bytes(32))
 import chip_smoke
 print(json.dumps({
+    "gen": [gen_rc, gen_digest == digests.PINNED["ssz_generic"],
+            yaml_writer.dump(encode(spec.Checkpoint(epoch=3)))],
+    "deposit_root": len(deposits.get_deposit_root()),
     "spec": spec.__name__,
     "spec_bls": spec.bls.__name__,
     "draft_specs": [sharding.__name__, custody.__name__],
@@ -124,7 +143,16 @@ def test_port_imports_no_jax_and_no_reference_module():
                 "bench.head_replay", "bench.codec_prep", "bench.rlc_final",
                 "bench.mainnet", "bench.latency_pipeline",
                 "bench.fleet_sweep", "bench.soak", "bench.merkle",
-                "sim.soak_smoke", "merkle.smoke"):
+                "sim.soak_smoke", "merkle.smoke", "utils.snappy",
+                "gen.gen_typing", "gen.gen_runner", "gen.gen_from_tests",
+                "gen.yaml_writer", "gen.digests", "debug.encode",
+                "debug.decode", "debug.random_value",
+                "deposit_contract.model") + tuple(
+                    "gen.generators." + g for g in (
+                        "bls", "epoch_processing", "finality", "fork_choice",
+                        "forks", "genesis", "merkle", "operations", "random",
+                        "rewards", "sanity", "shuffling", "ssz_generic",
+                        "ssz_static", "transition")):
         assert "consensus_specs_tpu_torch." + mod in got["modules"], mod
     assert got["one_squared"] == 1
     assert got["hashed"] == 1
@@ -142,8 +170,11 @@ def test_port_imports_no_jax_and_no_reference_module():
     assert got["kzg_setup"] is True and len(got["g1_setup_1"]) == 96
     assert got["jax"] == []
     assert got["reference"] == []
-    # the port's own hashing binding only; built specs need no PyYAML
+    # the port's own hashing binding only; built specs need no PyYAML, nor
+    # do the generators: the ssz_generic tree equals the JAX generator's
     assert got["native_sha256"] == ["consensus_specs_tpu_torch.utils.native_sha256"]
+    assert got["gen"] == [0, True, "{epoch: 3, root: '0x" + "00" * 32 + "'}\n"]
+    assert got["deposit_root"] == 32
     assert got["yaml"] is False
 
 

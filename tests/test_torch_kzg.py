@@ -26,6 +26,9 @@ from consensus_specs_tpu_torch.utils import custody as tcustody
 from consensus_specs_tpu_torch.utils import das as tdas
 from consensus_specs_tpu_torch.utils import kzg as tkzg
 from consensus_specs_tpu_torch.utils import sharding as tsharding
+from tests.torch_threads import one_thread
+
+one_thread()
 
 SEED = 20261017
 MODULUS = tkzg.MODULUS

@@ -26,6 +26,9 @@ from consensus_specs_tpu_torch.obs import devices, flight, hist, latency
 from consensus_specs_tpu_torch.obs import programs as obs_programs
 from consensus_specs_tpu_torch.obs import registry, tracing
 from consensus_specs_tpu_torch.ops import profiling
+from tests.torch_threads import one_thread
+
+one_thread()
 
 BOTH = {
     "jax": (jprofiling, jlatency, jhist),

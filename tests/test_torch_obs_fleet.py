@@ -39,6 +39,9 @@ from consensus_specs_tpu_torch.obs import tracing as ttracing  # noqa: E402
 from consensus_specs_tpu_torch.ops import profiling as tprofiling  # noqa: E402
 from consensus_specs_tpu_torch.serve import load as tload  # noqa: E402
 from consensus_specs_tpu_torch.utils import bls as tbls  # noqa: E402
+from tests.torch_threads import one_thread  # noqa: E402
+
+one_thread()
 
 PK = b"\x01" * 48
 PKGS = ("jax", "torch")

@@ -29,6 +29,9 @@ from consensus_specs_tpu.utils import bls  # noqa: E402
 from consensus_specs_tpu.utils.bls12_381 import P, R  # noqa: E402
 from consensus_specs_tpu_torch.ops import bls_backend as tbls  # noqa: E402
 from consensus_specs_tpu_torch.ops import fq, vm  # noqa: E402
+from tests.torch_threads import one_thread  # noqa: E402
+
+one_thread()
 
 CPU = torch.device("cpu")
 

@@ -21,6 +21,9 @@ from consensus_specs_tpu_torch.scale import hierarchy as thier
 from consensus_specs_tpu_torch.scale import pubkeys as tpk
 from consensus_specs_tpu_torch.scale import registry as treg
 from consensus_specs_tpu_torch.utils.keygen import KeyPool
+from tests.torch_threads import one_thread
+
+one_thread()
 
 SEED = hashlib.sha256(b"torch-scale-shuffle").digest()
 

@@ -32,6 +32,9 @@ from consensus_specs_tpu_torch import serve as tserve  # noqa: E402
 from consensus_specs_tpu_torch.ops import bls_backend as tbls  # noqa: E402
 from consensus_specs_tpu_torch.ops import profiling as tprofiling  # noqa: E402
 from consensus_specs_tpu_torch.utils import bls as tbls_api  # noqa: E402
+from tests.torch_threads import one_thread  # noqa: E402
+
+one_thread()
 
 PK = b"\x01" * 48  # plumbing tests never decode keys; any bytes serve
 PKGS = ("jax", "torch")

@@ -19,6 +19,9 @@ import pytest
 
 from consensus_specs_tpu import sim as jsim
 from consensus_specs_tpu_torch import sim as tsim
+from tests.torch_threads import one_thread
+
+one_thread()
 
 SEED = 7
 

@@ -25,6 +25,9 @@ from consensus_specs_tpu_torch import batch_verify as tbv
 from consensus_specs_tpu_torch import builder as tbuilder
 from consensus_specs_tpu_torch.config import config_util as tconfig
 from consensus_specs_tpu_torch.utils import bls as tbls
+from tests.torch_threads import one_thread
+
+one_thread()
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAT_FILES = sorted(

@@ -21,6 +21,9 @@ from consensus_specs_tpu_torch.test.altair.epoch_processing import (
     test_process_participation_flag_updates as port_participation_flag_updates,
     test_process_sync_committee_updates as port_sync_committee_updates,
 )
+from tests.torch_threads import one_thread
+
+one_thread()
 
 MODULES = {
     "participation_flag_updates": (jax_participation_flag_updates, port_participation_flag_updates),

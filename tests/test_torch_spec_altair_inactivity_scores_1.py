@@ -17,6 +17,9 @@ from consensus_specs_tpu_torch.test.harness import (  # noqa: F401
 from consensus_specs_tpu_torch.test.altair.rewards import (
     test_inactivity_scores as port_inactivity_scores,
 )
+from tests.torch_threads import one_thread
+
+one_thread()
 
 MODULES = {
     "inactivity_scores": (jax_inactivity_scores, port_inactivity_scores),

@@ -17,6 +17,9 @@ from consensus_specs_tpu_torch.test.harness import (  # noqa: F401
 from consensus_specs_tpu_torch.test.altair.random import (
     test_random_matrix as port_random_matrix,
 )
+from tests.torch_threads import one_thread
+
+one_thread()
 
 MODULES = {
     "random_matrix": (jax_random_matrix, port_random_matrix),

@@ -17,6 +17,9 @@ from consensus_specs_tpu_torch.test.harness import (  # noqa: F401
 from consensus_specs_tpu_torch.test.altair.sanity import (
     test_blocks as port_sanity_blocks,
 )
+from tests.torch_threads import one_thread
+
+one_thread()
 
 MODULES = {
     "sanity_blocks": (jax_sanity_blocks, port_sanity_blocks),

@@ -19,6 +19,9 @@ from consensus_specs_tpu_torch.test.altair.block_processing import (
     test_process_sync_aggregate as port_sync_aggregate,
     test_process_sync_aggregate_random as port_sync_aggregate_random,
 )
+from tests.torch_threads import one_thread
+
+one_thread()
 
 MODULES = {
     "sync_aggregate": (jax_sync_aggregate, port_sync_aggregate),

@@ -17,6 +17,9 @@ from consensus_specs_tpu_torch.test.harness import (  # noqa: F401
 from consensus_specs_tpu_torch.test.altair.transition import (
     test_transition as port_transition,
 )
+from tests.torch_threads import one_thread
+
+one_thread()
 
 MODULES = {
     "transition": (jax_transition, port_transition),

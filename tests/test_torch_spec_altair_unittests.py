@@ -25,6 +25,9 @@ from consensus_specs_tpu_torch.test.altair.unittests import (
     test_sync_protocol as port_sync_protocol,
     test_validator as port_validator,
 )
+from tests.torch_threads import one_thread
+
+one_thread()
 
 MODULES = {
     "config_invariants": (jax_config_invariants, port_config_invariants),

@@ -17,6 +17,9 @@ from consensus_specs_tpu_torch.test.harness import (  # noqa: F401
 from consensus_specs_tpu_torch.test.altair.fork import (
     test_upgrade_to_altair as port_upgrade_to_altair,
 )
+from tests.torch_threads import one_thread
+
+one_thread()
 
 MODULES = {
     "upgrade_to_altair": (jax_upgrade_to_altair, port_upgrade_to_altair),

@@ -16,6 +16,9 @@ from consensus_specs_tpu_torch.test import context as port_context
 from consensus_specs_tpu_torch.test import harness
 from consensus_specs_tpu_torch.test.harness import port_harness  # noqa: F401
 from consensus_specs_tpu_torch.utils import bls as port_bls
+from tests.torch_threads import one_thread
+
+one_thread()
 
 PACKAGES = {
     "jax": (jax_context, jax_bls, jax_builder),

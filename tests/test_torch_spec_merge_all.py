@@ -49,6 +49,9 @@ from consensus_specs_tpu_torch.test.merge.unittests import (
     test_terminal_validity as port_terminal_validity,
     test_transition_predicates as port_transition_predicates,
 )
+from tests.torch_threads import one_thread
+
+one_thread()
 
 MODULES = {
     "transition_predicates": (jax_transition_predicates, port_transition_predicates),

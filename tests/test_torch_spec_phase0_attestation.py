@@ -18,6 +18,9 @@ from consensus_specs_tpu_torch.test.phase0.block_processing import (
     test_process_attestation as port_attestation,
     test_process_attestation_edge as port_attestation_edge,
 )
+from tests.torch_threads import one_thread
+
+one_thread()
 
 MODULES = {
     "attestation": (jax_attestation, port_attestation),

@@ -18,6 +18,9 @@ from consensus_specs_tpu_torch.test.phase0.block_processing import (
     test_process_deposit as port_deposit,
     test_process_voluntary_exit as port_voluntary_exit,
 )
+from tests.torch_threads import one_thread
+
+one_thread()
 
 MODULES = {
     "deposit": (jax_deposit, port_deposit),

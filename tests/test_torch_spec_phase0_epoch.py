@@ -22,6 +22,9 @@ from consensus_specs_tpu_torch.test.phase0.epoch_processing import (
     test_process_registry_updates as port_registry_updates,
     test_process_slashings as port_slashings,
 )
+from tests.torch_threads import one_thread
+
+one_thread()
 
 MODULES = {
     "final_updates": (jax_final_updates, port_final_updates),

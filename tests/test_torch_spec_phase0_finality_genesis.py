@@ -22,6 +22,9 @@ from consensus_specs_tpu_torch.test.phase0.finality import (
 from consensus_specs_tpu_torch.test.phase0.genesis import (
     test_genesis as port_genesis,
 )
+from tests.torch_threads import one_thread
+
+one_thread()
 
 MODULES = {
     "finality": (jax_finality, port_finality),

@@ -15,6 +15,9 @@ from consensus_specs_tpu_torch.test.harness import (  # noqa: F401
 from consensus_specs_tpu_torch.test.phase0.fork_choice import (
     test_on_block as port_on_block,
 )
+from tests.torch_threads import one_thread
+
+one_thread()
 
 MODULES = {
     "on_block": (jax_on_block, port_on_block),

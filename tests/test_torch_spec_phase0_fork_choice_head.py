@@ -16,6 +16,9 @@ from consensus_specs_tpu_torch.test.harness import (  # noqa: F401
 from consensus_specs_tpu_torch.test.phase0.fork_choice import (
     test_get_head as port_get_head,
 )
+from tests.torch_threads import one_thread
+
+one_thread()
 
 MODULES = {
     "get_head": (jax_get_head, port_get_head),

@@ -18,6 +18,9 @@ from consensus_specs_tpu_torch.test.phase0.block_processing import (
     test_process_block_header as port_block_header,
     test_process_randao as port_randao,
 )
+from tests.torch_threads import one_thread
+
+one_thread()
 
 MODULES = {
     "block_header": (jax_block_header, port_block_header),

@@ -18,6 +18,9 @@ from consensus_specs_tpu_torch.test.phase0.random import (
     test_random as port_random,
     test_random_matrix as port_random_matrix,
 )
+from tests.torch_threads import one_thread
+
+one_thread()
 
 MODULES = {
     "random": (jax_random, port_random),

@@ -15,6 +15,9 @@ from consensus_specs_tpu_torch.test.harness import (  # noqa: F401
 from consensus_specs_tpu_torch.test.phase0.rewards import (
     test_rewards as port_rewards,
 )
+from tests.torch_threads import one_thread
+
+one_thread()
 
 MODULES = {
     "rewards": (jax_rewards, port_rewards),

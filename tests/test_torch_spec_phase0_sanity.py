@@ -18,6 +18,9 @@ from consensus_specs_tpu_torch.test.phase0.sanity import (
     test_blocks as port_blocks,
     test_slots as port_slots,
 )
+from tests.torch_threads import one_thread
+
+one_thread()
 
 MODULES = {
     "blocks": (jax_blocks, port_blocks),

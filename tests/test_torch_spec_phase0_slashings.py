@@ -19,6 +19,9 @@ from consensus_specs_tpu_torch.test.phase0.block_processing import (
     test_process_attester_slashing as port_attester_slashing,
     test_process_proposer_slashing as port_proposer_slashing,
 )
+from tests.torch_threads import one_thread
+
+one_thread()
 
 MODULES = {
     "attester_slashing": (jax_attester_slashing, port_attester_slashing),

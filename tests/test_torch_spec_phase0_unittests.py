@@ -32,6 +32,9 @@ from consensus_specs_tpu_torch.test.phase0.unittests.fork_choice import (
     test_on_attestation as port_on_attestation,
     test_on_tick as port_on_tick,
 )
+from tests.torch_threads import one_thread
+
+one_thread()
 
 MODULES = {
     "config_invariants": (jax_config_invariants, port_config_invariants),

@@ -20,6 +20,9 @@ import types
 
 import numpy as np
 import pytest
+from tests.torch_threads import one_thread
+
+one_thread()
 
 PKGS = ("jax", "torch")
 _ROOTS = {"jax": "consensus_specs_tpu", "torch": "consensus_specs_tpu_torch"}

@@ -29,6 +29,9 @@ from consensus_specs_tpu.ops import fq as jfq  # noqa: E402
 from consensus_specs_tpu.utils.bls12_381 import P  # noqa: E402
 from consensus_specs_tpu_torch.ops import (  # noqa: E402
     cuda_step, fq, vm, vmlib)
+from tests.torch_threads import one_thread
+
+one_thread()
 
 _MAXV = np.full(fq.NUM_LIMBS, fq.MASK, dtype=np.uint64)  # 2^420 - 1
 _PM1 = fq._int_to_limbs_np(P - 1)

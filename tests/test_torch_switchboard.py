@@ -11,6 +11,9 @@ from consensus_specs_tpu.utils import bls as jbls
 from consensus_specs_tpu.utils import bls12_381 as JO
 from consensus_specs_tpu_torch.utils import bls as tbls
 from consensus_specs_tpu_torch.utils import bls12_381 as TO
+from tests.torch_threads import one_thread
+
+one_thread()
 
 RNG = np.random.default_rng(20261017)
 SKS = [int(x) for x in RNG.integers(1, 1 << 62, size=3)]

@@ -28,6 +28,9 @@ from consensus_specs_tpu_torch.obs import exposition as texpo  # noqa: E402
 from consensus_specs_tpu_torch.obs import hist as thist  # noqa: E402
 from consensus_specs_tpu_torch.obs import timeseries as tts  # noqa: E402
 from consensus_specs_tpu_torch.ops import profiling as tprofiling  # noqa: E402
+from tests.torch_threads import one_thread  # noqa: E402
+
+one_thread()
 
 PKGS = ("jax", "torch")
 MODS = {"jax": (jts, jhist, jexpo), "torch": (tts, thist, texpo)}

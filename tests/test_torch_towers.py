@@ -24,6 +24,9 @@ from consensus_specs_tpu.ops import pairing as jpairing  # noqa: E402
 from consensus_specs_tpu.ops import towers as jtowers  # noqa: E402
 from consensus_specs_tpu_torch.ops import bls_backend as tbls  # noqa: E402
 from consensus_specs_tpu_torch.ops import cuda_fq, fq, pairing, towers  # noqa: E402
+from tests.torch_threads import one_thread  # noqa: E402
+
+one_thread()
 
 
 @pytest.fixture(autouse=True)

@@ -23,6 +23,9 @@ import torch  # noqa: E402
 
 from consensus_specs_tpu.ops import vm as jvm, vmlib as jvmlib  # noqa: E402
 from consensus_specs_tpu_torch.ops import cuda_step, fq, vm, vmlib  # noqa: E402
+from tests.torch_threads import one_thread  # noqa: E402
+
+one_thread()
 
 _SHAPE = dict(w_mul=96, w_lin=192, pad_steps_to=256, pad_regs_to=64)
 

@@ -1,16 +1,16 @@
 #!/usr/bin/env python3
 """Run named phases of chip_smoke.py alone, on one NVIDIA GPU.
 
-    python3 tools/torch_smoke_phases.py lightclient sim spec_tests bench
+    python3 tools/torch_smoke_phases.py lightclient sim spec_tests gen bench
 
 Builds the port's kernels (chip_smoke's build), then runs each named phase
 that needs no earlier phase's output (``lightclient``, ``sim``,
-``spec_tests`` and ``bench``; the first with a spawn pool of its own),
-each printing
-chip_smoke's JSON line for it, with every (program, rows) the phase
-launched the step kernel at noted, and last the ``kernels`` line that holds each such shape's first
-256 steps against the plain steps (max |err| 0 required) and times the
-whole stream, as chip_smoke's last phase does. Programs are assembled
+``spec_tests``, ``gen`` and ``bench``; the first with a spawn pool of its
+own), each printing chip_smoke's JSON line for it, with every (program,
+rows) the phase launched the step kernel at noted, and last the
+``kernels`` line that holds each such shape's first 256 steps against the
+plain steps (max |err| 0 required) and times the whole stream, as
+chip_smoke's last phase does. Programs are assembled
 cold (nothing earlier ran), so a phase's first card calls take longer
 than inside the whole smoke. Exit 0 when every phase passed.
 """
@@ -35,7 +35,7 @@ def main(names):
     from consensus_specs_tpu_torch.ops import bls_backend, cuda_build, vm
     from consensus_specs_tpu_torch.utils.keygen import KeyPool
 
-    phases = ("lightclient", "sim", "spec_tests", "bench")
+    phases = ("lightclient", "sim", "spec_tests", "gen", "bench")
     unknown = [n for n in names if n not in phases]
     if unknown or not names:
         print(f"torch_smoke_phases: phases are {', '.join(phases)}, "
@@ -71,10 +71,12 @@ def main(names):
                                                            shapes)
                 cs._emit({**line, "elapsed_s": time.perf_counter() - t0})
                 continue
-            if phase == "spec_tests":
+            if phase in ("spec_tests", "gen"):
+                run = cs.phase_spec_tests if phase == "spec_tests" \
+                    else cs.phase_gen
                 with cs._patched(bls_backend, "_program", program_wrap), \
                         cs._patched(vm, "execute", execute_wrap):
-                    line, launches[phase] = cs.phase_spec_tests(torch, card)
+                    line, launches[phase] = run(torch, card)
                 line["new_shapes"] = cs.new_launch_shapes(path_shapes, phase,
                                                           [])
                 cs._emit({**line, "elapsed_s": time.perf_counter() - t0})
