@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Drives ``consensus_specs_tpu_torch`` (never jax, never the JAX package)
-through twenty-one phases, each printing one JSON line:
+through twenty-two phases, each printing one JSON line:
 
   1. build   -- compile every CUDA kernel of the port from csrc/ with nvcc
                for sm_90a (one nvcc per source, all started together);
@@ -260,7 +260,24 @@ of spawned processes (utils/keygen.py).
                no ladder record (serve injects its fault on purpose);
                committee, epoch and codec together must launch both
                kernels. One line a mode, then the phase's summary.
- 21. kernels -- every program and row count that phases 9-16 and 18-20
+ 21. vmexec  -- the VM toolchain: the native scheduler (csrc/vm_sched.c,
+               built with the host C compiler) must have loaded; PROG B
+               at fold 8 (hard_part_frobenius, 429,924 IR ops) assembled
+               by it and by the pure-Python scheduler, identical, each
+               rate printed. Then the bench entry's vmexec mode at the JAX
+               bench's default cells: g2_subgroup, h2g_finish and
+               hard_part_frobenius at fold 1 on 1 and 8 rows, the
+               interpreter (the step kernel) against the fused lowering
+               (the Montgomery kernel in CUDA graphs, one a unit), outputs
+               limb for limb, warm ms per row, kernel-2 launches and graph
+               captures, the auto route picking each program's measured
+               winner; one cold child on g2_subgroup (a fresh program
+               cache: assembly, plan, captures). Each kind once more at 8
+               rows, both routes against the exact-int IR oracle, and
+               g2_subgroup's fused route on the card against the same
+               route on the CPU (the plain product). Any vm/fused_fallback
+               event fails it.
+ 22. kernels -- every program and row count that phases 9-16 and 18-20
                launched the step kernel at (noted during those phases) and that no
                earlier phase checked: the first 256 steps on random
                canonical inputs limb for limb against the plain version,
@@ -4597,6 +4614,174 @@ def phase_bench(torch, card, shapes):
             **card}, launches
 
 
+# phase 21's cells: the JAX vmexec bench's default kinds and rows
+VMEXEC_KINDS = ("g2_subgroup", "h2g_finish", "hard_part_frobenius")
+VMEXEC_ROWS = (1, 8)
+# the program the assembler's two schedulers are timed on: PROG B at the
+# fold the main path runs it (hard_part_frobenius fold 8, 429,924 ops)
+VMEXEC_RATE_PROGRAM = ("hard_part_frobenius", 0, 8)
+
+
+def _assembly_rates(vm, vmlib, bls_backend):
+    """The native scheduler loaded, and one program assembled by it and by
+    the pure-Python scheduler: both programs identical, each rate in IR
+    ops per second of ``assemble`` on this host."""
+    _check(vm.native_sched() is not None,
+           "vmexec: the native scheduler (csrc/vm_sched.c) did not build "
+           "or load")
+    kind, k, fold = VMEXEC_RATE_PROGRAM
+    t = time.perf_counter()
+    prog = vmlib.BUILDERS[kind](k, fold)
+    build_s = time.perf_counter() - t
+    shape = dict(w_mul=bls_backend.W_MUL, w_lin=bls_backend.W_LIN,
+                 pad_steps_to=bls_backend.PAD_STEPS,
+                 pad_regs_to=bls_backend._pow2(64), annotate=False)
+    t = time.perf_counter()
+    native = prog.assemble(**shape)
+    native_s = time.perf_counter() - t
+    # the pure-Python scheduler on purpose: no warning about it
+    saved = vm._NATIVE_SCHED, vm._NATIVE_WARNED
+    vm._NATIVE_SCHED, vm._NATIVE_WARNED = None, True
+    try:
+        t = time.perf_counter()
+        plain = prog.assemble(**shape)
+        plain_s = time.perf_counter() - t
+    finally:
+        vm._NATIVE_SCHED, vm._NATIVE_WARNED = saved
+    same = (native.n_regs == plain.n_regs and native.meta == plain.meta
+            and all(np.array_equal(a, b)
+                    for a, b in zip(native.instr, plain.instr)))
+    _check(same, "vmexec: native and pure-Python schedules differ")
+    n = len(prog.ops)
+    return {"program": f"{kind}[k={k},fold={fold}]", "ir_ops": n,
+            "ir_build_s": build_s, "native_s": native_s,
+            "python_s": plain_s, "native_ops_per_s": n / native_s,
+            "python_ops_per_s": n / plain_s,
+            "native_over_python": plain_s / native_s}
+
+
+def _oracle_cells(rng_seed):
+    """Each default kind at the widest row count once more: the
+    interpreter and the fused route limb for limb against the exact-int
+    IR oracle, and (one cell) the fused route on the card against the same
+    route on the CPU, where its products are the plain version."""
+    import random
+
+    from consensus_specs_tpu_torch.ops import (bls_backend, fq, vm,
+                                               vm_analysis, vmlib)
+    from consensus_specs_tpu_torch.utils import bls12_381 as O
+
+    rng = random.Random(rng_seed)
+    rows = max(VMEXEC_ROWS)
+    cells = {}
+    for kind in VMEXEC_KINDS:
+        program, _ = bls_backend._program(kind, 0, 1)
+        ir = vmlib.BUILDERS[kind](0, 1)
+        again = ir.assemble(w_mul=bls_backend.W_MUL, w_lin=bls_backend.W_LIN,
+                            pad_steps_to=bls_backend.PAD_STEPS,
+                            pad_regs_to=bls_backend._pow2(64))
+        _check(all(np.array_equal(a, b)
+                   for a, b in zip(again.instr, program.instr)),
+               f"vmexec: {kind}'s IR does not assemble to its program")
+        ints = [{n: rng.randrange(O.P) for n in program.input_names}
+                for _ in range(rows)]
+        ins = {n: np.stack([fq.to_mont_int(r[n]) for r in ints])
+               for n in program.input_names}
+        outs = {}
+        for mode, device in (("interp", None), ("fused", None),
+                             ("fused_cpu", "cpu")):
+            if mode == "fused_cpu" and kind != VMEXEC_KINDS[0]:
+                continue
+            with _env({"CONSENSUS_SPECS_TPU_VM_EXEC": mode.split("_")[0]}):
+                outs[mode] = vm.execute(program, ins, batch_shape=(rows,),
+                                        device=device)
+        wrong = 0
+        for r in range(rows):
+            want = vm_analysis.eval_ir(ir, ints[r])
+            for name, w in want.items():
+                wrong += sum(fq.limbs_to_int(outs[m][name][r]) != w
+                             for m in ("interp", "fused"))
+        err = max(int(np.abs(outs["fused"][n].astype(np.int64)
+                             - outs[m][n].astype(np.int64)).max())
+                  for m in outs for n in outs[m])
+        _check(wrong == 0 and err == 0,
+               f"vmexec: {kind} rows {rows}: {wrong} outputs off the "
+               f"oracle, max |err| {err} between routes")
+        cells[kind] = {"rows": rows, "outputs": len(program.output_names),
+                       "oracle_mismatches": wrong, "max_abs_err": err,
+                       "card_vs_cpu_fused": "fused_cpu" in outs}
+    return cells
+
+
+def phase_vmexec(torch, card):
+    """The VM toolchain on the card; see the module docstring, phase 21."""
+    import io
+
+    from consensus_specs_tpu_torch.bench import entry
+    from consensus_specs_tpu_torch.ops import (bls_backend, cuda_fq,
+                                               cuda_step, vm, vm_compile,
+                                               vmlib)
+
+    t0 = time.perf_counter()
+    rates = _assembly_rates(vm, vmlib, bls_backend)
+    fallbacks = vm_compile._COUNTERS["fallbacks"]
+    captures = vm_compile._COUNTERS["captures"]
+    cuda_step.LAUNCHES = cuda_step.STEPS = cuda_fq.LAUNCHES = 0
+    buf = io.StringIO()
+    knobs = {"VMEXEC_KINDS": ",".join(VMEXEC_KINDS),
+             "VMEXEC_ROWS": ",".join(map(str, VMEXEC_ROWS)),
+             "VMEXEC_REPS": "2", "VMEXEC_COLD": "dedup",
+             "VMEXEC_COLD_KIND": VMEXEC_KINDS[0]}
+    with _env(knobs), contextlib.redirect_stdout(buf):
+        rc = entry.main(["--mode", "vmexec"])
+    lines = buf.getvalue().strip().splitlines()
+    _check(len(lines) == 1, f"vmexec: {len(lines)} bench lines")
+    line = json.loads(lines[0])
+    _check(rc == 0 and "error" not in line and line.get("ok") is True,
+           f"vmexec: rc {rc}, line {json.dumps(line)[:600]}")
+    _check(line["platform"] == "gpu" and line["device"]["name"] == card["card"],
+           f"vmexec: ran on {line['platform']} {line['device']}")
+    bench_s = line["seconds"]
+    oracle = _oracle_cells(SEED + 5)
+    launches = {"vm_step": cuda_step.LAUNCHES,
+                "vm_step_steps": cuda_step.STEPS,
+                "mont_mul": cuda_fq.LAUNCHES}
+    fallbacks = vm_compile._COUNTERS["fallbacks"] - fallbacks
+    _check(fallbacks == 0, f"vmexec: {fallbacks} vm/fused_fallback events")
+    cells = {}
+    for key, c in line["vmexec"].items():
+        if key.startswith("cold"):
+            continue
+        kind, rows = key.split(",")
+        per_call_ms = c["fused_ms_row"] * int(rows)
+        cells[key] = {
+            "interp_ms_row": c["interp_ms_row"],
+            "fused_ms_row": c["fused_ms_row"], "speedup": c["speedup"],
+            "fused_compile_s": c["fused_compile_s"],
+            "interp_launches": c["interp_launches"],
+            "fused_launches": c["fused_launches"], "captures": c["captures"],
+            # the replay's whole time over its products: gathers and carry
+            # passes included
+            "us_per_product_node": per_call_ms * 1e3 / c["fused_launches"],
+            "auto_fused": c["auto_fused"], "auto_ok": c["auto_ok"]}
+        _check(c["fused_launches"] > 0 and c["interp_launches"] == 1,
+               f"vmexec: {key} launches {c}")
+    cold = line["vmexec"][f"cold,{VMEXEC_KINDS[0]}"]
+    _check(cold.get("native_scheduler") is True and cold.get("captures", 0) > 0,
+           f"vmexec: cold child {cold}")
+    _check(launches["vm_step"] > 0 and launches["mont_mul"] > 0,
+           f"vmexec: launches {launches}")
+    return {"phase": "vmexec", "assembly": rates, "cells": cells,
+            "cold": cold, "oracle": oracle,
+            "captures": vm_compile._COUNTERS["captures"] - captures,
+            "fused_fallbacks": fallbacks, "bench_s": bench_s,
+            "phase_s": time.perf_counter() - t0,
+            "step_kernel_launches": launches["vm_step"],
+            "step_kernel_steps": launches["vm_step_steps"],
+            "mont_mul_kernel_launches": launches["mont_mul"],
+            **card}, launches
+
+
 def main():
     import torch
 
@@ -4742,6 +4927,12 @@ def main():
             line, path_launches["bench"] = phase_bench(torch, card, shapes)
         _emit({**line, "elapsed_s": time.perf_counter() - t0})
 
+        # the VM toolchain: the native scheduler, the interpreter against
+        # the fused lowering (kernel 2 in CUDA graphs), a cold child;
+        # last, so no later phase's auto route reads its measurements
+        vmexec_line, path_launches["vmexec"] = phase_vmexec(torch, card)
+        _emit({**vmexec_line, "elapsed_s": time.perf_counter() - t0})
+
         path_streams = phase_path_streams(torch, dev, rng, imad_rate, l2_ns,
                                           path_shapes, streams)
         streams += path_streams
@@ -4762,8 +4953,9 @@ def main():
     # fleet (the sum of its workers' own counts: each worker process
     # counts from 0), the light-client plane (its process and its proof
     # smoke's workers), the simnet, the spec tests' @always_bls
-    # cases, the bls generator's checks and the bench entry's modes (this
-    # process's counts; the fleet modes' workers count their own)
+    # cases, the bls generator's checks, the bench entry's modes (this
+    # process's counts; the fleet modes' workers count their own) and the
+    # VM toolchain's cells
     paths = {"slice": {"vm_step": launches["vm_step"],
                        "vm_step_steps": launches["vm_step_steps"],
                        "mont_mul": launches["mont_mul"]},
@@ -4779,11 +4971,19 @@ def main():
     # the simnet launches none: its verdicts ride in the signature bytes
     idle = [f"{path} {k}" for path in ("wide", "epoch", "mainnet", "spec",
                                        "kzg", "forks", "fleet", "lightclient",
-                                       "spec_tests", "gen", "bench")
+                                       "spec_tests", "gen", "bench",
+                                       "vmexec")
             for k in ("vm_step", "mont_mul") if paths[path][k] == 0
             and (path, k) != ("kzg", "mont_mul")]
     if idle:
         print(f"chip_smoke: FAILED: kernels never launched on {idle}",
+              file=sys.stderr)
+        return 1
+    from consensus_specs_tpu_torch.ops import vm_compile
+
+    if vm_compile._COUNTERS["fallbacks"]:
+        print(f"chip_smoke: FAILED: {vm_compile._COUNTERS['fallbacks']} "
+              "vm/fused_fallback events in a run without injected faults",
               file=sys.stderr)
         return 1
     # vm_step's line: the checked heads of every real stream
@@ -4807,7 +5007,9 @@ def main():
          "ms": sum(r["head_ms"] for r in streams),
          "plain_ms": sum(r["head_plain_ms"] for r in streams),
          "bound_ms": step_bound["bound_ms"],
-         "bound_by": step_bound["bound_by"], "library_ms": None},
+         "bound_by": step_bound["bound_by"], "library_ms": None,
+         "vmexec_interp_ms_row": {k: c["interp_ms_row"] for k, c
+                                  in vmexec_line["cells"].items()}},
         {"name": "mont_mul", "route": "cuda",
          "source": "consensus_specs_tpu_torch/csrc/mont_mul.cu",
          "replaces": "consensus_specs_tpu/ops/pallas_fq.py:129",
@@ -4818,7 +5020,12 @@ def main():
                             + [r["max_abs_err"] for r in rlc_mont]),
          "ms": mont["ms"], "plain_ms": mont["plain_ms"],
          "bound_ms": mont["bound_ms"], "bound_by": mont["bound_by"],
-         "library_ms": None},
+         "library_ms": None,
+         # the fused lowering's graphs (phase vmexec): launches a call
+         "fused_route": {k: {"fused_ms_row": c["fused_ms_row"],
+                             "launches": c["fused_launches"],
+                             "us_per_product_node": c["us_per_product_node"]}
+                         for k, c in vmexec_line["cells"].items()}},
     ]
     print(f"{name}, {power}", flush=True)
     _emit({"kernels": kernels})

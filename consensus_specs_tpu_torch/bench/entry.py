@@ -20,15 +20,17 @@ the card and 3 on the CPU; the value is the median rep, the warm-up that
 assembles the bucket's programs is reported as ``warmup_s``), ``epoch``
 (BASELINE config 4, ``bench/epoch_replay.py``), ``head``, ``codec``,
 ``rlc``, ``mainnet``, ``latency``, ``soak``, ``merkle``, ``proofs``,
-``sim``, ``serve`` (with ``--trace`` and ``--flight``) and
-``serve-fleet``; each mode's knobs are its module's env vars. With no
+``sim``, ``serve`` (with ``--trace`` and ``--flight``), ``serve-fleet``
+and ``vmexec`` (the interpreter against the fused lowering,
+``bench/vmexec.py``, with its cold child ``bench/vmexec_cold.py``); each
+mode's knobs are its module's env vars. With no
 ``--mode`` it runs committee at 32 x 128 and then the epoch at the mainnet
 shape in one process, a line each (BENCH_MODE picks one of the two;
 it names no other mode).
 
 Without ``--device cpu`` it runs on the CUDA card, and without a card it
 prints an ``error`` line and exits 1. A mode that raises prints an
-``error`` line and exits 1. ``serve-mesh``, ``--mesh``, ``vmexec`` and
+``error`` line and exits 1. ``serve-mesh``, ``--mesh`` and
 ``finalexp`` exit 2 with an ``error`` line naming the ROADMAP item they
 wait for.
 """
@@ -47,7 +49,6 @@ DEFAULT_STAGES = ("committee", "epoch")
 UNPORTED = {
     "serve-mesh": "ROADMAP Queue 1 item 8 (multi-device)",
     "--mesh": "ROADMAP Queue 1 item 8 (multi-device)",
-    "vmexec": "ROADMAP Queue 1 item 6 (ops/vm_compile.py)",
     "finalexp": "ROADMAP Queue 1 item 7 (the jax twins)",
 }
 
@@ -232,6 +233,7 @@ MODES = {
     "sim": _module_mode("sim_matrix", "run_sim_bench"),
     "serve": run_serve,
     "serve-fleet": _module_mode("fleet_sweep", "run_fleet_bench"),
+    "vmexec": _module_mode("vmexec", "run_vmexec_bench"),
 }
 
 

@@ -8,6 +8,8 @@ consensus_specs_tpu/obs/programs.py).
 (top-level ``programRegistry`` key), and the ``bls.vm_cache_hits`` /
 ``bls.vm_cache_misses`` gauges ride ``profiling.summary()``: a cold cache
 shows as a burst of misses with seconds-scale ``assembly_s``.
+``note_analysis`` merges the static analysis of ops/vm_analysis.py onto
+the same entries.
 """
 import threading
 from typing import Dict
@@ -23,13 +25,29 @@ def note_assembly(key: str, *, n_steps: int, n_regs: int, seconds: float,
     ``seconds`` is whichever path was paid)."""
     with _lock:
         CACHE_STATS["disk_hits" if disk_cache_hit else "disk_misses"] += 1
-        PROGRAMS[key] = {
+        # merge, not replace: an analyze-then-execute order keeps the
+        # "analysis" sub-dict note_analysis attached to this key
+        PROGRAMS.setdefault(key, {}).update({
             "steps": int(n_steps),
             "regs": int(n_regs),
             "assembly_s": round(float(seconds), 4),
             "vm_cache": "hit" if disk_cache_hit else "miss",
-        }
+        })
     export_gauges()
+
+
+def note_analysis(key: str, **stats) -> None:
+    """Merge vmlint's static-analysis stats (max_live, critical_path,
+    classification, predicted runtime, error and hazard flags; see
+    ops/vm_analysis.export_to_obs) onto a program's registry entry, which
+    is created when the program was analyzed but never resolved for
+    execution in this process."""
+    with _lock:
+        entry = PROGRAMS.setdefault(key, {})
+        entry["analysis"] = {
+            k: (round(float(v), 4) if isinstance(v, float) else v)
+            for k, v in stats.items()
+        }
 
 
 def export_gauges() -> None:
@@ -48,7 +66,11 @@ def export_gauges() -> None:
 def registry_snapshot() -> Dict:
     with _lock:
         return {
-            "programs": {k: dict(v) for k, v in sorted(PROGRAMS.items())},
+            "programs": {
+                k: {kk: (dict(vv) if isinstance(vv, dict) else vv)
+                    for kk, vv in v.items()}
+                for k, v in sorted(PROGRAMS.items())
+            },
             "vm_cache": dict(CACHE_STATS),
         }
 

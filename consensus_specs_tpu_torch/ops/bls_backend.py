@@ -40,6 +40,7 @@ import functools
 import hashlib
 import os
 import pickle
+import re
 import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -64,7 +65,9 @@ W_LIN = 192
 PAD_STEPS = 256
 _K_BUCKETS = [1, 2, 4, 8, 16, 32, 64, 128, 160, 256, 512, 1024, 2048]
 
-_VM_CACHE_VERSION = 1
+# v2: per-program fingerprints, and Program.meta carries the schedule
+# metadata vm_analysis and the fused lowering read (a v1 pickle has none)
+_VM_CACHE_VERSION = 2
 
 # guards every read-modify-write of CALL_COUNTS, PREP_STATS and RLC_STATS
 _STATS_LOCK = threading.Lock()
@@ -101,6 +104,13 @@ def _fold_for(kind: str, k: int, n_items: int = 1 << 30) -> int:
     """Items folded per program row (lane folding): enough to saturate
     the lanes, capped so the register file stays modest for wide-committee
     buckets, and never more than the batch itself."""
+    from . import vm_compile
+
+    if vm_compile.exec_mode() == "fused":
+        # the straight-line lowering has no idle lanes to fill: folding
+        # only repeats the op stream, while independent items ride the
+        # batch axis, so a pinned fused mode runs fold 1 at n_items rows
+        return 1
     if kind == "hard_part":
         table = 32
     elif kind in ("hard_part_windowed", "hard_part_frobenius"):
@@ -123,10 +133,11 @@ def _fold_for(kind: str, k: int, n_items: int = 1 << 30) -> int:
 
 
 def _vm_cache_dir() -> str:
-    """Port-owned program cache beside the package (gitignored). It never
-    reads the JAX package's .vm_cache: those pickles hold the JAX
-    package's Program class."""
-    d = os.path.join(
+    """Port-owned program cache beside the package (gitignored), or
+    CONSENSUS_SPECS_TPU_VM_CACHE where set (the cold vmexec child points
+    it at a fresh directory). It never reads the JAX package's .vm_cache:
+    those pickles hold the JAX package's Program class."""
+    d = os.environ.get("CONSENSUS_SPECS_TPU_VM_CACHE") or os.path.join(
         os.path.dirname(os.path.dirname(os.path.dirname(
             os.path.abspath(__file__)))),
         ".vm_cache_torch",
@@ -136,20 +147,41 @@ def _vm_cache_dir() -> str:
 
 
 @functools.lru_cache(maxsize=1)
-def _program_fingerprint() -> str:
-    """Hash of the sources an assembled program depends on (the assembler,
-    the limb layout, the builders): any edit re-keys the whole cache."""
+def _core_fingerprint_parts() -> Tuple[bytes, bytes]:
+    """(vm+fq source bytes, shared vmlib source bytes): the cache-key
+    parts every program depends on: vm.py's scheduling semantics, fq.py's
+    limb layout and the vmlib helpers no single builder claims."""
+    core = b""
+    for mod in (vm, fq):
+        try:
+            with open(mod.__file__, "rb") as fh:
+                core += fh.read()
+        except OSError:
+            core += repr(mod).encode()
+    shared, _ = vmlib.builder_source_parts("")
+    return core, shared.encode()
+
+
+@functools.lru_cache(maxsize=None)
+def _program_fingerprint(kind: str) -> str:
+    """Per-program cache fingerprint: a hash of the builder's own source,
+    the shared vmlib source and the vm+fq sources. Editing one builder
+    re-keys only that kind's programs; editing a shared helper re-keys
+    every kind."""
+    core, shared = _core_fingerprint_parts()
+    _, local = vmlib.builder_source_parts(kind)
     h = hashlib.sha256()
-    for mod in (vm, fq, vmlib):
-        with open(mod.__file__, "rb") as fh:
-            h.update(fh.read())
+    h.update(core)
+    h.update(shared)
+    h.update(local.encode())
     return h.hexdigest()[:10]
 
 
 @functools.lru_cache(maxsize=None)
 def _program(kind: str, k: int = 0, fold: int = None) -> Tuple[vm.Program, int]:
     """Assembled program + its fold factor, disk-cached per program in
-    ``.vm_cache_torch/`` (only pickles this code wrote are read back)."""
+    ``.vm_cache_torch/`` (only pickles this code wrote are read back); a
+    hit touches its entry, so ``prune_vm_cache`` evicts by idle age."""
     if fold is None:
         fold = _fold_for(kind, k)
     builder = vmlib.BUILDERS.get(kind)
@@ -158,13 +190,18 @@ def _program(kind: str, k: int = 0, fold: int = None) -> Tuple[vm.Program, int]:
     t0 = time.perf_counter()
     path = os.path.join(
         _vm_cache_dir(),
-        f"v{_VM_CACHE_VERSION}_{_program_fingerprint()}_{kind}_k{k}_f{fold}"
-        f"_w{W_MUL}x{W_LIN}_p{PAD_STEPS}.pkl",
+        f"v{_VM_CACHE_VERSION}_{_program_fingerprint(kind)}_{kind}_k{k}"
+        f"_f{fold}_w{W_MUL}x{W_LIN}_p{PAD_STEPS}.pkl",
     )
     try:
         with open(path, "rb") as fh:
             loaded = pickle.load(fh)
-        if isinstance(loaded, vm.Program):
+        if isinstance(loaded, vm.Program) and loaded.meta:
+            try:
+                os.utime(path)
+            except OSError:
+                pass
+            _attach_fused_key(loaded, kind, k, fold)
             _note_program(kind, k, fold, loaded, time.perf_counter() - t0,
                           disk_hit=True)
             return loaded, fold
@@ -172,8 +209,9 @@ def _program(kind: str, k: int = 0, fold: int = None) -> Tuple[vm.Program, int]:
         pass  # absent or unreadable entry: assemble below
     assembled = builder(k, fold).assemble(
         w_mul=W_MUL, w_lin=W_LIN, pad_steps_to=PAD_STEPS,
-        pad_regs_to=_pow2(64),
+        pad_regs_to=_pow2(64), annotate=False,
     )
+    _attach_fused_key(assembled, kind, k, fold)
     # per thread: a service's two stages may assemble the same program
     tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
     try:
@@ -185,6 +223,143 @@ def _program(kind: str, k: int = 0, fold: int = None) -> Tuple[vm.Program, int]:
     _note_program(kind, k, fold, assembled, time.perf_counter() - t0,
                   disk_hit=False)
     return assembled, fold
+
+
+def _attach_fused_key(assembled, kind: str, k: int, fold: int) -> None:
+    """Stamp the program's cache identity onto its schedule metadata, so
+    that the fused lowering (ops/vm_compile.py) disk-caches its plan under
+    a matching key."""
+    if isinstance(assembled.meta, dict):
+        assembled.meta.setdefault(
+            "fused_key", (kind, k, fold, _program_fingerprint(kind)))
+
+
+_VM_CACHE_NAME_RE = re.compile(
+    r"^v(\d+)_([0-9a-f]+)_(.+)_k\d+_f\d+_w\d+x\d+_p\d+\.pkl$")
+_FUSED_PLAN_NAME_RE = re.compile(
+    r"^fusedplan_l(\d+)_v(\d+)_([0-9a-f]+)_(.+)_k\d+_f\d+"
+    r"_w\d+x\d+_p\d+_c\d+\.pkl$")
+_FUSED_STRUCT_NAME_RE = re.compile(r"^fusedstruct_l(\d+)_([0-9a-f]+)\.pkl$")
+
+
+def _vm_cache_entry_stale(name: str) -> bool:
+    """True when a cache entry can never hit again in this source tree:
+    its version prefix is not ``_VM_CACHE_VERSION``, or it names a known
+    program kind whose fingerprint has moved (the builder was edited).
+    Fused plans (``fusedplan_l<lowering>_v<cache>_<fp>_<kind>_...``) also
+    re-key on ``vm_compile.LOWERING_VERSION``, so a lowering change evicts
+    every fused artifact and no interpreter program; shared structure
+    bodies (``fusedstruct_l<lowering>_<hash>``) re-key on the lowering
+    version alone (whether a plan still references them is
+    ``prune_vm_cache``'s concern). Unknown kinds and names of another
+    shape are kept: age and size still bound them."""
+    from . import vm_compile
+
+    if name.startswith("fusedplan_"):
+        m = _FUSED_PLAN_NAME_RE.match(name)
+        if not m:
+            return False
+        lowering, version, fp, kind = m.groups()
+        if int(lowering) != vm_compile.LOWERING_VERSION:
+            return True
+    elif name.startswith("fusedstruct_"):
+        m = _FUSED_STRUCT_NAME_RE.match(name)
+        return bool(m) and int(m.group(1)) != vm_compile.LOWERING_VERSION
+    else:
+        m = _VM_CACHE_NAME_RE.match(name)
+        if not m:
+            return False
+        version, fp, kind = m.groups()
+    if int(version) != _VM_CACHE_VERSION:
+        return True
+    return kind in vmlib.BUILDERS and fp != _program_fingerprint(kind)
+
+
+def prune_vm_cache(max_age_days: float = None, max_bytes: int = None,
+                   cache_dir: str = None, evict_stale: bool = True) -> dict:
+    """Bound the program cache's growth (tools/torch_vm_cache_prune.py):
+
+    - entries ``_vm_cache_entry_stale`` names can never hit again and go
+      at once (``evict_stale=False`` keeps them);
+    - entries idle longer than ``max_age_days`` go (env
+      VM_CACHE_MAX_AGE_DAYS, default 30; <= 0 disables the rule;
+      ``_program`` and the fused plan loader touch an entry on every hit,
+      so its mtime is its last use);
+    - then the oldest go until the rest fits ``max_bytes`` (env
+      VM_CACHE_MAX_BYTES, default 2 GiB; <= 0 disables the rule);
+    - shared structure bodies (``fusedstruct_...``) follow the plans that
+      reference them, not the age and size rules: kept while a surviving
+      ``fusedplan_`` entry references them, evicted once orphaned (a plan
+      that cannot be read references nothing; its loader re-derives).
+
+    Crash-orphaned ``<name>.pkl.<pid>[.<thread>].tmp`` files are entries
+    too; other files are never touched. Returns {"kept", "evicted",
+    "kept_bytes", "evicted_bytes"}."""
+    if max_age_days is None:
+        max_age_days = float(os.environ.get("VM_CACHE_MAX_AGE_DAYS", "30"))
+    if max_bytes is None:
+        max_bytes = int(os.environ.get("VM_CACHE_MAX_BYTES",
+                                       str(2 * 1024 ** 3)))
+    if cache_dir is None:
+        cache_dir = _vm_cache_dir()
+    now = time.time()
+    entries = []  # (mtime, size, path)
+    structs = []  # (mtime, size, path, name): governed by references
+    evict = []
+    for name in os.listdir(cache_dir):
+        if not (name.endswith(".pkl")
+                or (".pkl." in name and name.endswith(".tmp"))):
+            continue
+        path = os.path.join(cache_dir, name)
+        try:
+            st = os.stat(path)
+        except OSError:
+            continue
+        if (evict_stale and name.endswith(".pkl")
+                and _vm_cache_entry_stale(name)):
+            evict.append((st.st_mtime, st.st_size, path))
+        elif name.startswith("fusedstruct_") and name.endswith(".pkl"):
+            structs.append((st.st_mtime, st.st_size, path, name))
+        else:
+            entries.append((st.st_mtime, st.st_size, path))
+    entries.sort()  # least recently used first
+    if max_age_days > 0:
+        cutoff = now - max_age_days * 86400.0
+        while entries and entries[0][0] < cutoff:
+            evict.append(entries.pop(0))
+    if max_bytes > 0:
+        total = sum(size for _, size, _ in entries)
+        while entries and total > max_bytes:
+            oldest = entries.pop(0)
+            total -= oldest[1]
+            evict.append(oldest)
+    referenced = set()
+    for _, _, path in entries if structs else ():
+        if os.path.basename(path).startswith("fusedplan_"):
+            try:
+                with open(path, "rb") as fh:
+                    referenced.update(pickle.load(fh).get("struct_refs") or ())
+            except Exception:
+                pass  # an unreadable plan references nothing
+    for mtime, size, path, name in structs:
+        key = name[:-len(".pkl")].rsplit("_", 1)[-1]
+        (entries if key in referenced else evict).append((mtime, size, path))
+    evicted_bytes = evicted_entries = 0
+    for _, size, path in evict:
+        try:
+            os.remove(path)
+            evicted_bytes += size
+            evicted_entries += 1
+        except OSError:
+            pass
+    profiling.set_gauge("bls.vm_cache_pruned_entries", evicted_entries)
+    profiling.set_gauge("bls.vm_cache_pruned_bytes", evicted_bytes)
+    return {
+        "kept": len(entries),
+        "evicted": evicted_entries,
+        "kept_bytes": sum(size for _, size, _ in entries),
+        "evicted_bytes": evicted_bytes,
+    }
 
 
 def _note_program(kind: str, k: int, fold: int, assembled, seconds: float,

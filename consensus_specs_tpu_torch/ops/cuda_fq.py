@@ -12,6 +12,10 @@ a call costs one graph launch of host time instead of one wrapper call per
 product (the codec's square-root and inversion chains are ~750 products
 each and launch-bound otherwise).
 
+``capture`` and ``count_replay`` are that machinery for any graph of
+kernel launches: the fused VM lowering (ops/vm_compile.py) captures its
+units with them.
+
 Threads: the counters are bumped under a lock, and a capture records its
 launches in a tally of the capturing thread (they are recorded into the
 graph, not run), so launches another thread makes meanwhile are counted
@@ -114,13 +118,48 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def capture(fn, stream: torch.cuda.Stream):
+    """Capture ``fn()`` as a CUDA graph in thread-local mode on the
+    thread's capture stream for ``stream`` (which it waits on first, so
+    that static inputs written on ``stream`` are ready). Returns (graph,
+    fn's result, the kernel launches the graph holds): a launch made
+    while capturing is recorded into the graph, not run, so it is tallied
+    for the capturing thread alone and counted at each ``count_replay``.
+    """
+    graph = torch.cuda.CUDAGraph()
+    side = _capture_stream(stream)
+    if side != stream:
+        side.wait_stream(stream)
+    tally = _THREAD.capture = [0]
+    try:
+        # capture_begin/end rather than torch.cuda.graph, whose entry
+        # synchronizes the whole device and runs the garbage collector: a
+        # capture then costs its own thread alone
+        with torch.cuda.stream(side):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                out = fn()
+            finally:
+                graph.capture_end()
+    finally:
+        _THREAD.capture = None
+    return graph, out, tally[0]
+
+
+def count_replay(launches: int) -> None:
+    """Count the kernel launches of one replay of a captured graph."""
+    global LAUNCHES
+    with _COUNT_LOCK:
+        LAUNCHES += launches
+
+
 def pow_chain(a: torch.Tensor, exp_bits) -> torch.Tensor:
     """``fq.pow_fixed_steps(a, exp_bits)`` on a CUDA tensor, limb for limb,
     as one replay of the chain's CUDA graph. The first call of a key runs
     the chain step by step (its result is returned) and then captures it;
     the capture launches nothing, so LAUNCHES counts the graph's kernel
     launches at each replay."""
-    global LAUNCHES, CAPTURES
+    global CAPTURES
     if a.device.type != "cuda":
         raise ValueError(f"pow_chain: operand on {a.device}")
     stream = torch.cuda.current_stream(a.device)
@@ -130,30 +169,14 @@ def pow_chain(a: torch.Tensor, exp_bits) -> torch.Tensor:
         if entry is None:
             out = fq.pow_fixed_steps(a, exp_bits)
             static_in = a.clone()
-            graph = torch.cuda.CUDAGraph()
-            capture = _capture_stream(stream)
-            if capture != stream:
-                capture.wait_stream(stream)  # static_in is written first
-            tally = _THREAD.capture = [0]
-            try:
-                # capture_begin/end rather than torch.cuda.graph, whose
-                # entry synchronizes the whole device and runs the garbage
-                # collector: a capture then costs its own thread alone
-                with torch.cuda.stream(capture):
-                    graph.capture_begin(capture_error_mode="thread_local")
-                    try:
-                        static_out = fq.pow_fixed_steps(static_in, exp_bits)
-                    finally:
-                        graph.capture_end()
-            finally:
-                _THREAD.capture = None
-            _CHAINS[key] = (graph, static_in, static_out, tally[0])
+            graph, static_out, n = capture(
+                lambda: fq.pow_fixed_steps(static_in, exp_bits), stream)
+            _CHAINS[key] = (graph, static_in, static_out, n)
             with _COUNT_LOCK:
                 CAPTURES += 1
             return out
         graph, static_in, static_out, n = entry
         static_in.copy_(a)
         graph.replay()
-        with _COUNT_LOCK:
-            LAUNCHES += n
+        count_replay(n)
         return static_out.clone()

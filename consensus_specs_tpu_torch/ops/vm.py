@@ -10,19 +10,33 @@ ALU and assembled into instruction tensors (``Program``):
 with the schedule — which registers each lane reads and writes at each
 step — as data. The assembler (bound tracking, the bucketed list
 scheduler, the linear-scan register allocator) is a copy of the JAX
-package's pure-Python one and emits the same tensors bit for bit.
+package's and emits the same tensors bit for bit. Scheduling and
+allocation run in the native kernel ``csrc/vm_sched.c`` (built with the
+host C compiler at first use into ``_build/``), or, where no compiler is
+found, in its pure-Python twin ``_schedule_alloc_py`` after a one-time
+warning; ``assemble_legacy`` is the reference list scheduler both are
+held to.
 
 ``execute`` runs a program on a (rows, n_regs, 15) int64 register file: on
 the CUDA card every step is one launch of the fused step kernel
 (ops/cuda_step.py, csrc/vm_step.cu); on the CPU each step runs the plain
-PyTorch version, ``_vm_step_plain``.
+PyTorch version, ``_vm_step_plain``. ``CONSENSUS_SPECS_TPU_VM_EXEC`` may
+route a call through the fused straight-line lowering instead
+(ops/vm_compile.py).
 
 Register values are loose Montgomery residues (ops/fq.py conventions). The
 assembler tracks magnitude bounds per value and auto-inserts compress
 multiplies, so lazy reduction is handled statically at assembly time.
 """
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import sys
 import time
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -39,6 +53,123 @@ _B_CAP = 1 << 420  # register capacity (15 x 28-bit limbs)
 
 _MUL, _ADD, _SUB = 0, 1, 2
 
+_PKG = Path(__file__).resolve().parents[1]
+_SCHED_SRC = _PKG / "csrc" / "vm_sched.c"
+BUILD_DIR = _PKG / "_build"
+
+_UNLOADED = object()
+# ctypes handle of the native scheduler, None where it cannot be built or
+# loaded, _UNLOADED until the first assembly asks for it
+_NATIVE_SCHED = _UNLOADED
+_NATIVE_WARNED = False
+
+
+def native_library_path() -> Path:
+    digest = hashlib.sha256(_SCHED_SRC.read_bytes()).hexdigest()[:12]
+    return BUILD_DIR / f"libvmsched_{digest}.so"
+
+
+def _build_native(so: Path) -> bool:
+    """Compile csrc/vm_sched.c with the host C compiler to a temporary
+    path, then os.replace onto the final name, so that another process
+    never loads a library half written."""
+    cc = shutil.which("cc") or shutil.which("gcc")
+    if cc is None:
+        return False
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(".so.%d.tmp" % os.getpid())
+    try:
+        subprocess.run(
+            [cc, "-O2", "-fPIC", "-shared", "-o", str(tmp), str(_SCHED_SRC)],
+            check=True, capture_output=True, timeout=120,
+        )
+        os.replace(tmp, so)
+        return True
+    except Exception:
+        tmp.unlink(missing_ok=True)
+        return False
+
+
+def _load_native_sched():
+    """ctypes handle to the native scheduling + allocation kernel, built
+    on first use, or None (no compiler, a failed build, or a library
+    without the expected symbol): the pure-Python scheduler is then used,
+    bit-identical to it."""
+    try:
+        so = native_library_path()
+        if not so.exists() and not _build_native(so):
+            return None
+        lib = ctypes.CDLL(str(so))
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        lib.vm_schedule_alloc.restype = ctypes.c_int
+        lib.vm_schedule_alloc.argtypes = [
+            ctypes.c_int64, i64p, i64p, i64p,  # n, kind, a, b
+            ctypes.c_int64, ctypes.c_int64,    # w_mul, w_lin
+            ctypes.c_int64, i64p,              # n_out, outs
+            i64p, i64p, i64p, i64p,            # step, last_use, reg, meta
+        ]
+        return lib
+    except (OSError, AttributeError):
+        return None
+
+
+def native_sched():
+    """The native scheduler's handle (built and loaded once a process),
+    or None."""
+    global _NATIVE_SCHED
+    if _NATIVE_SCHED is _UNLOADED:
+        _NATIVE_SCHED = _load_native_sched()
+    return _NATIVE_SCHED
+
+
+def _warn_native_missing() -> None:
+    """One line on stderr, once a process, when the native scheduler is
+    not available: assembly then runs the pure-Python scheduler, a few
+    times slower, never an error."""
+    global _NATIVE_WARNED
+    if native_sched() is None and not _NATIVE_WARNED:
+        _NATIVE_WARNED = True
+        print(
+            "vm: the native scheduler (consensus_specs_tpu_torch/csrc/"
+            "vm_sched.c) could not be built or loaded - assembling with "
+            "the pure-Python scheduler; a C compiler on the PATH (cc or "
+            "gcc) builds it",
+            file=sys.stderr,
+        )
+
+
+def _native_schedule_alloc(kind_arr, a_all, b_all, w_mul, w_lin, outputs):
+    """Run the native kernel over sanitized int64 IR columns. Returns
+    (step, last_use, reg, n_steps, alloc_regs), or None on any failure
+    (the caller then runs the Python loops)."""
+    lib = native_sched()
+    if lib is None:
+        return None
+    n = kind_arr.size
+    step = np.empty(n, dtype=np.int64)
+    last_use = np.empty(n, dtype=np.int64)
+    reg = np.full(n, -1, dtype=np.int64)
+    meta = np.zeros(2, dtype=np.int64)
+    outs = np.asarray(outputs, dtype=np.int64)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+
+    def p(arr):
+        return arr.ctypes.data_as(i64p)
+
+    # every buffer stays bound to a local for the duration of the call;
+    # all are freshly built C-contiguous int64 arrays
+    try:
+        rc = lib.vm_schedule_alloc(
+            n, p(kind_arr), p(a_all), p(b_all),
+            w_mul, w_lin, outs.size, p(outs),
+            p(step), p(last_use), p(reg), p(meta),
+        )
+    except Exception:
+        return None
+    if rc != 0:
+        return None
+    return step, last_use, reg, int(meta[0]), int(meta[1])
+
 
 @dataclass
 class _Op:
@@ -46,6 +177,10 @@ class _Op:
     a: int  # producing op index (const: the payload)
     b: int
     bound: int
+    # the schedule, written back by assemble (vm_analysis reads it)
+    step: int = -1
+    reg: int = -1
+    last_use_step: int = -1
 
 
 class Val:
@@ -176,6 +311,16 @@ class Prog:
         self.outputs.append(v.idx)
         self.output_names.append(name)
 
+    # -- static analysis ----------------------------------------------------
+
+    def analyze(self, name: str = "<prog>", **assemble_kwargs):
+        """vmlint entry point over the IR: assemble with the given shape
+        (annotating every op with step/reg/last-use) and run the whole
+        ops/vm_analysis.py pass. Returns the report dict."""
+        from . import vm_analysis
+
+        return vm_analysis.analyze_prog(self, name=name, **assemble_kwargs)
+
     # -- scheduling + register allocation ----------------------------------
 
     def assemble(
@@ -184,12 +329,17 @@ class Prog:
         w_lin: int = 128,
         pad_steps_to: int = 1,
         pad_regs_to: int = 1,
+        annotate: bool = True,
     ) -> "Program":
         """Schedule + allocate with the bucketed incremental scheduler:
         each ALU op lands on the first step >= max(operand steps) + 1 whose
-        unit has a free lane, lanes filled in op-creation order.
-        `pad_steps_to`/`pad_regs_to` round the step count and register-file
-        size up so distinct programs share shapes."""
+        unit has a free lane, lanes filled in op-creation order (the
+        legacy list scheduler's rule, held bit-identical to
+        ``assemble_legacy``). `pad_steps_to`/`pad_regs_to` round the step
+        count and register-file size up so distinct programs share shapes.
+        ``annotate`` writes step/last-use/reg back onto the IR ops
+        (vm_analysis reads them); the program cache skips it."""
+        _warn_native_missing()
         ops = self.ops
         n = len(ops)
         kind_l = [op.kind for op in ops]
@@ -207,9 +357,14 @@ class Prog:
         a_all = np.fromiter(a_l_safe, dtype=np.int64, count=n)
         b_all = np.fromiter(b_l, dtype=np.int64, count=n)
 
-        step_arr, last_use, reg_arr, n_steps, next_reg = (
-            self._schedule_alloc_py(kind_l, a_l, b_l, kind_arr, a_all, b_all,
-                                    w_mul, w_lin))
+        native = _native_schedule_alloc(
+            kind_arr, a_all, b_all, w_mul, w_lin, self.outputs)
+        if native is not None:
+            step_arr, last_use, reg_arr, n_steps, next_reg = native
+        else:
+            step_arr, last_use, reg_arr, n_steps, next_reg = (
+                self._schedule_alloc_py(kind_l, a_l, b_l, kind_arr, a_all,
+                                        b_all, w_mul, w_lin))
         alu_idx = np.flatnonzero(kind_arr >= 0)
         n_alu = int(alu_idx.size)
         a_arr = a_all[alu_idx]
@@ -266,6 +421,16 @@ class Prog:
             int(reg_arr[idx]): ops[idx].a for idx in self.consts.values()
         }
         n_mul = int(is_mul.sum())
+        if annotate:
+            # the schedule written back onto the IR; a fresh assemble
+            # rewrites all three, so an earlier shape cannot bleed through
+            step_l = step_arr.tolist()
+            last_l = last_use.tolist()
+            reg_l = reg_arr.tolist()
+            for i, op in enumerate(ops):
+                op.step = step_l[i]
+                op.last_use_step = last_l[i]
+                op.reg = reg_l[i]
         return Program(
             n_regs=n_regs,
             instr=(msa, msb, msd, lsa, lsb, lsub, lsd),
@@ -277,11 +442,16 @@ class Prog:
             output_names=list(self.output_names),
             const_regs=const_payload,
             n_steps=n_steps,
+            # schedule metadata: vm_analysis.program_stats and
+            # lowering_plan read it off cache-loaded programs whose IR is
+            # gone
             meta={
                 "sched_steps": sched_steps,
                 "n_mul": n_mul,
                 "n_lin": n_alu - n_mul,
                 "alloc_regs": next_reg,
+                "trash_mul": trash_mul,
+                "trash_lin": trash_lin,
                 "w_mul": w_mul,
                 "w_lin": w_lin,
             },
@@ -408,6 +578,168 @@ class Prog:
 
         reg_arr = np.fromiter(reg_l, dtype=np.int64, count=n)
         return step_arr, last_use, reg_arr, n_steps, next_reg
+
+    def assemble_legacy(
+        self,
+        w_mul: int = 128,
+        w_lin: int = 128,
+        pad_steps_to: int = 1,
+        pad_regs_to: int = 1,
+    ) -> "Program":
+        """The reference list scheduler (a copy of the JAX package's), kept
+        as the equivalence oracle: the tests hold ``assemble`` (native and
+        pure-Python) to bit-identical instruction tensors, register maps
+        and metadata for every registry program. No production path calls
+        it."""
+        ops = self.ops
+        n = len(ops)
+        is_alu = [op.kind in (_MUL, _ADD, _SUB) for op in ops]
+
+        # re-assembly must start clean: step/last-use/reg are schedule
+        # outputs, and a previous assemble at a different shape would
+        # otherwise bleed through the max() accumulation below (stale live
+        # ranges -> corrupted liveness and allocation)
+        for op in ops:
+            op.step = -1
+            op.last_use_step = -1
+            op.reg = -1
+
+        # 1) list-schedule ALU ops into steps
+        unit_of = [0 if op.kind == _MUL else 1 for op in ops]
+        width = (w_mul, w_lin)
+        fill: List[List[int]] = [[], []]  # per unit, per step lane count
+
+        for i, op in enumerate(ops):
+            if not is_alu[i]:
+                continue
+            earliest = 0
+            for src in (op.a, op.b):
+                s = ops[src].step
+                if s >= 0:
+                    earliest = max(earliest, s + 1)
+            u = unit_of[i]
+            t = earliest
+            f = fill[u]
+            while True:
+                while len(f) <= t:
+                    f.append(0)
+                if f[t] < width[u]:
+                    f[t] += 1
+                    op.step = t
+                    break
+                t += 1
+
+        n_steps = max(len(fill[0]), len(fill[1]))
+
+        # 2) liveness: last step at which each value is read
+        for i, op in enumerate(ops):
+            if not is_alu[i]:
+                continue
+            for src in (op.a, op.b):
+                ops[src].last_use_step = max(ops[src].last_use_step, op.step)
+        for idx in self.outputs:
+            ops[idx].last_use_step = n_steps + 1  # live to the end
+
+        # 3) linear-scan register allocation
+        #    reg 0 = always-zero scratch source for idle lanes
+        next_reg = 1
+        free: List[int] = []
+        # inputs and constants are defined "before step 0"
+        expiry: Dict[int, List[int]] = {}  # step -> regs to free after it
+
+        def alloc(op: _Op, def_step: int):
+            nonlocal next_reg
+            if free:
+                op.reg = free.pop()
+            else:
+                op.reg = next_reg
+                next_reg += 1
+            if op.last_use_step >= 0:
+                expiry.setdefault(op.last_use_step, []).append(op.reg)
+            else:
+                # value never used (dead code): free right away
+                expiry.setdefault(def_step, []).append(op.reg)
+
+        for i, op in enumerate(ops):
+            if op.kind in (-1, -2):
+                alloc(op, -1)
+        # walk steps in order, allocating defs and freeing after last use
+        by_step: Dict[int, List[int]] = {}
+        for i, op in enumerate(ops):
+            if is_alu[i]:
+                by_step.setdefault(op.step, []).append(i)
+        for t in range(n_steps):
+            for i in by_step.get(t, ()):
+                alloc(ops[i], t)
+            for r in expiry.get(t, ()):
+                free.append(r)
+
+        sched_steps = n_steps  # pre-padding schedule length
+        n_steps = -(-n_steps // pad_steps_to) * pad_steps_to
+        n_regs = next_reg
+        # trash registers for idle lanes
+        trash_mul = n_regs
+        trash_lin = n_regs + w_mul
+        n_regs += w_mul + w_lin
+        if n_regs < pad_regs_to:
+            n_regs = pad_regs_to
+
+        # 4) instruction arrays
+        msa = np.zeros((n_steps, w_mul), dtype=np.int32)
+        msb = np.zeros((n_steps, w_mul), dtype=np.int32)
+        msd = np.full((n_steps, w_mul), -1, dtype=np.int32)
+        lsa = np.zeros((n_steps, w_lin), dtype=np.int32)
+        lsb = np.zeros((n_steps, w_lin), dtype=np.int32)
+        lsub = np.zeros((n_steps, w_lin), dtype=bool)
+        lsd = np.full((n_steps, w_lin), -1, dtype=np.int32)
+        lane_ptr = [[0] * n_steps, [0] * n_steps]
+        for i, op in enumerate(ops):
+            if not is_alu[i]:
+                continue
+            t, u = op.step, unit_of[i]
+            lane = lane_ptr[u][t]
+            lane_ptr[u][t] = lane + 1
+            ra, rb = ops[op.a].reg, ops[op.b].reg
+            if u == 0:
+                msa[t, lane], msb[t, lane], msd[t, lane] = ra, rb, op.reg
+            else:
+                lsa[t, lane], lsb[t, lane], lsd[t, lane] = ra, rb, op.reg
+                lsub[t, lane] = op.kind == _SUB
+        # idle lanes -> trash registers (zero sources)
+        for t in range(n_steps):
+            for lane in range(lane_ptr[0][t], w_mul):
+                msd[t, lane] = trash_mul + lane
+            for lane in range(lane_ptr[1][t], w_lin):
+                lsd[t, lane] = trash_lin + lane
+
+        const_payload = {
+            op.reg: op.a for op in ops if op.kind == -2
+        }
+        input_regs = [ops[i].reg for i in self.inputs]
+        output_regs = [ops[i].reg for i in self.outputs]
+
+        n_mul = sum(1 for i, op in enumerate(ops) if is_alu[i] and unit_of[i] == 0)
+        n_lin = sum(1 for i, op in enumerate(ops) if is_alu[i] and unit_of[i] == 1)
+        return Program(
+            n_regs=n_regs,
+            instr=(msa, msb, msd, lsa, lsb, lsub, lsd),
+            input_regs=np.asarray(input_regs, dtype=np.int32),
+            input_names=list(self.input_names),
+            output_regs=np.asarray(output_regs, dtype=np.int32),
+            output_names=list(self.output_names),
+            const_regs=const_payload,
+            n_steps=n_steps,
+            meta={
+                "sched_steps": sched_steps,
+                "n_mul": n_mul,
+                "n_lin": n_lin,
+                "alloc_regs": next_reg,
+                "trash_mul": trash_mul,
+                "trash_lin": trash_lin,
+                "w_mul": w_mul,
+                "w_lin": w_lin,
+            },
+        )
 
 
 @dataclass
@@ -548,29 +880,58 @@ def execute(program: Program, inputs: Dict[str, np.ndarray], batch_shape=(),
     ``device=None`` runs on the CUDA card (every step through the fused
     step kernel); ``device="cpu"`` runs the plain PyTorch steps.
 
+    Route (CONSENSUS_SPECS_TPU_VM_EXEC, ops/vm_compile.py): ``interp``
+    runs the steps; ``fused`` the straight-line lowering (the same
+    schedule, limb-identical outputs; on the card its Montgomery products
+    are launches of the Montgomery kernel in CUDA graphs); ``auto``
+    (default) takes fused only where its units are built for this call's
+    rows and stream and its measured ms/row beats the interpreter's. A
+    failure in the fused route falls back to the interpreter with a
+    ``vm/fused_fallback`` flight event.
+
     Each call is timed under ``vm[steps=...,regs=...,batch=...,sharded=
     False]`` in ``ops/profiling``, noted on its device's lane of the
-    occupancy ledger (``obs/devices.py``) and, with tracing on, in the
-    tracer (``obs/tracing.py``). The interval ends once the outputs are on
-    the host, so it covers the card's work."""
+    occupancy ledger (``obs/devices.py``), in the route's ms/row ledger
+    and, with tracing on, in the tracer (``obs/tracing.py``). The card is
+    synchronized before the interval ends, so it covers the card's work."""
     from ..obs import devices, tracing
-    from . import profiling
+    from . import profiling, vm_compile
 
     dev = resolve_device(device)
     batch_shape = tuple(int(d) for d in batch_shape)
     rows = int(np.prod(batch_shape)) if batch_shape else 1
     label = (f"vm[steps={program.n_steps},regs={program.n_regs},"
              f"batch={batch_shape},sharded=False]")
+    path = "interp"
+    compile_inclusive = False
     t0 = time.perf_counter()
     with profiling.timed(label):
         stacked = program.stack_inputs(inputs, batch_shape).reshape(
             (rows, len(program.input_names), fq.NUM_LIMBS))
-        regs = _init_regs(program, stacked, dev)
-        cuda_step.run_steps(regs, program.device_instr(dev))
-        out_idx = torch.as_tensor(program.output_regs.astype(np.int64),
-                                  device=dev)
-        out = regs[:, out_idx, :].cpu().numpy().astype(np.uint64)
+        out = None
+        if vm_compile.use_fused(
+                program, shape_sig=vm_compile.shape_sig(batch_shape, dev)):
+            try:
+                out, compile_inclusive = vm_compile.run_fused(
+                    program, stacked, dev)
+                path = "fused"
+            except Exception as e:
+                vm_compile.note_fallback(program, e)
+                out = None
+        if out is None:
+            regs = _init_regs(program, stacked, dev)
+            cuda_step.run_steps(regs, program.device_instr(dev))
+            out_idx = torch.as_tensor(program.output_regs.astype(np.int64),
+                                      device=dev)
+            out = regs[:, out_idx, :]
+            # the route ledger below compares the two routes' times, so
+            # the interpreter's stops once the card has run it too (the
+            # fused route synchronized inside its fallback net)
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
+        out = out.cpu().numpy().astype(np.uint64)
     dt = time.perf_counter() - t0
+    vm_compile.note_execution(program, path, dt, rows, compile_inclusive)
     if tracing.trace_enabled():
         tracing.global_tracer().note_execution(
             steps=program.n_steps, regs=program.n_regs, batch=batch_shape,

@@ -1196,10 +1196,11 @@ def build_hard_part(fold: int = 1) -> Prog:
 # builder registry
 # ---------------------------------------------------------------------------
 
-# Canonical kind -> builder map, the single resolution point of
-# ops/bls_backend._program (the program cache). Every entry takes
-# (k, fold); kinds with no per-item size ignore k. The lambdas LATE-bind
-# the module-level names so a monkeypatched builder (tests) is honored.
+# Canonical kind -> builder map, the single resolution point shared by
+# ops/bls_backend._program (the program cache) and the vmlint registry
+# (ops/vm_analysis.registry_programs). Every entry takes (k, fold); kinds
+# with no per-item size ignore k. The lambdas LATE-bind the module-level
+# names so a monkeypatched builder (tests) is honored.
 BUILDERS = {
     "miller_product": lambda k, fold=1: build_miller_product(k, fold),
     "aggregate_verify": lambda k, fold=1: build_aggregate_verify_miller(k, fold),
@@ -1211,3 +1212,67 @@ BUILDERS = {
     "g2_subgroup": lambda k, fold=1: build_g2_subgroup_check(fold),
     "h2g_finish": lambda k, fold=1: build_h2g_finish(fold),
 }
+
+# Per-kind source ownership for the program cache's fingerprint split
+# (ops/bls_backend._program_fingerprint): each kind CLAIMS the functions
+# only it uses — its builder + emit body (+ kind-private helpers). Claimed
+# sources are cut OUT of the shared-module hash and hashed into their own
+# kind's key only, so editing one builder re-keys just that kind's cached
+# programs instead of the whole cache. Anything NOT claimed (the F2/Fq12
+# algebra, the Miller steps, the cyclotomic helpers) stays in the shared
+# hash — conservative by construction: an unclaimed edit re-keys
+# everything, a claimed edit can never leak into another kind's programs.
+BUILDER_LOCAL_FNS = {
+    "miller_product": (build_miller_product, _emit_miller_product),
+    "aggregate_verify": (build_aggregate_verify_miller,
+                         _emit_aggregate_verify_miller),
+    "hard_part": (build_hard_part, _emit_hard_part),
+    "hard_part_windowed": (build_hard_part_windowed,
+                           _emit_hard_part_windowed),
+    "hard_part_frobenius": (build_hard_part_frobenius,
+                            _emit_hard_part_frobenius),
+    "rlc_combine": (build_rlc_combine, _emit_rlc_combine),
+    "g1_subgroup": (build_g1_subgroup_check, _emit_g1_subgroup_check),
+    "g2_subgroup": (build_g2_subgroup_check, _emit_g2_subgroup_check),
+    "h2g_finish": (build_h2g_finish, _emit_h2g_finish, _emit_iso_map_g2,
+                   _f2_horner),
+}
+
+
+def builder_source_parts(kind: str):
+    """(shared_src, local_src) for ``kind``: the vmlib module source with
+    every claimed function body cut out, plus this kind's own claimed
+    sources. A claimed body that cannot be located in the module source
+    (decorator drift, exec'd code) falls back into shared — coarser keys,
+    never a stale hit."""
+    import inspect
+
+    global _SHARED_SRC_CACHE
+    if _SHARED_SRC_CACHE is None:
+        try:
+            with open(__file__, "r") as fh:
+                shared = fh.read()
+        except OSError:
+            # source-less deployment (pyc-only/frozen): degrade to one
+            # coarse shared key — same posture as the old whole-module
+            # fingerprint's repr fallback, never a crash on _program()
+            _SHARED_SRC_CACHE = (f"<no-source:{__name__}>", {})
+            return _SHARED_SRC_CACHE[0], ""
+        locals_src = {}
+        for k, fns in BUILDER_LOCAL_FNS.items():
+            parts = []
+            for fn in fns:
+                try:
+                    src = inspect.getsource(fn)
+                except (OSError, TypeError):
+                    continue  # not found: its text stays in shared
+                if src in shared:
+                    shared = shared.replace(src, f"<claimed:{k}:{fn.__name__}>")
+                    parts.append(src)
+            locals_src[k] = "".join(parts)
+        _SHARED_SRC_CACHE = (shared, locals_src)
+    shared, locals_src = _SHARED_SRC_CACHE
+    return shared, locals_src.get(kind, "")
+
+
+_SHARED_SRC_CACHE = None

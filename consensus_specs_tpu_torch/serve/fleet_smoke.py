@@ -28,9 +28,9 @@ processes, the port's bls backend on the card):
    a merged-scrape delta (``fleet.sheds`` / ``fleet.drains`` moved,
    merged observation counts grew).
 
-The JAX smoke's third gate (every worker reporting background program
-warming) waits for ``ops/vm_compile.py``. The merged journal dumps to
-``fleet_flight.jsonl``. Exit 0 on pass, 1 with a diagnosis.
+Between the two, every worker must report background warming of the
+fused VM lowering armed (``extra["warm_bg"]``), as the JAX smoke gates.
+The merged journal dumps to ``fleet_flight.jsonl``. Exit 0 on pass, 1 with a diagnosis.
 """
 import json
 import os
@@ -248,6 +248,13 @@ def run(device=None, report=None) -> dict:
         degraded = [e for e in router.aggregator.journal_events()
                     if e["kind"] in _DEGRADED]
         assert not degraded, f"phase 1 degraded: {degraded[:3]}"
+        # background warming armed on every worker: a fresh process builds
+        # a measured-faster fused signature off the serving path
+        warm_flags = {label: snap.get("extra", {}).get("warm_bg")
+                      for label, snap in snaps.items()}
+        assert all(warm_flags.values()), (
+            f"background VM warming not armed on every worker: "
+            f"{warm_flags}")
 
         # baseline: merge the identity-phase state and checkpoint the
         # burn windows: only fault-phase mass can burn from here

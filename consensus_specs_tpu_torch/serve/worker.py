@@ -51,9 +51,12 @@ card its name), whether this process initialized CUDA, the steps and
 registers of every program it resolved, and its kernel launch counts
 (``cuda_step.LAUNCHES`` / ``STEPS``, ``cuda_fq.LAUNCHES`` /
 ``CAPTURES``; 0 where the kernel modules were never imported), so the
-parent can show that the kernels ran in the workers. ``warm_bg`` is
-False: background program warming comes with ``ops/vm_compile.py``,
-which the port does not have. With ``CONSENSUS_SPECS_TPU_FLEET_REPORT_
+parent can show that the kernels ran in the workers, and ``warm_bg``,
+whether background warming of the fused VM lowering is armed
+(``CONSENSUS_SPECS_TPU_VM_WARM_BG``, which a worker defaults to 1, as the
+JAX workers do: its auto-routed executions then build a measured-faster
+fused signature on a thread of its own, capturing on a stream of its own,
+instead of on the serving path). With ``CONSENSUS_SPECS_TPU_FLEET_REPORT_
 MODULES=1`` it also lists every module the worker loaded.
 
 The ``fault`` op arms deterministic backend-fault injection: the next
@@ -252,10 +255,12 @@ def _device_extra(device):
     import torch
 
     from ..obs import programs
+    from ..ops import vm_compile
 
     extra = {"device": device.type,
              "cuda_initialized": bool(torch.cuda.is_initialized()),
-             "kernels": _kernel_counts(), "warm_bg": False,
+             "kernels": _kernel_counts(),
+             "warm_bg": vm_compile._bg_warm_enabled(),
              # each resolved program's shape, keyed kind[k=...,fold=...]:
              # with the vm[steps=...,regs=...,batch=...] stats it names
              # every (program, rows) the step kernel ran at
@@ -290,6 +295,9 @@ def main() -> int:
         # would otherwise oversubscribe the host N-fold
         torch.set_num_threads(len(cores))
     label = os.environ.get(WORKER_ENV, f"w{os.getpid()}")
+    # background VM warming is the fleet default; setdefault, so that an
+    # explicit "0" from the router or an operator still disarms it
+    os.environ.setdefault("CONSENSUS_SPECS_TPU_VM_WARM_BG", "1")
     device = worker_device()  # raises here when there is no card
     from ..obs import snapshot, timeseries
     from ..utils import bls

@@ -1,8 +1,8 @@
 """The port's bench entry (``python -m consensus_specs_tpu_torch.bench``,
 ``bench/entry.main``) on the CPU: each mode not held against the JAX
 package in tests/test_torch_bench.py prints one parseable line with
-``bench.py``'s keys at tiny knobs; the modes the port does not have yet
-exit 2 naming their ROADMAP item; without a card and without ``--device
+``bench.py``'s keys at tiny knobs (vmexec among them); the modes the port
+does not have yet exit 2 naming their ROADMAP item; without a card and without ``--device
 cpu`` it exits 1 with an error line; with no ``--mode`` it runs committee
 then the epoch; and ``python -m`` runs it as a module."""
 import contextlib
@@ -92,7 +92,7 @@ def test_mode_prints_one_line_with_the_bench_keys(mode, knobs, fields,
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--mode", "vmexec"], "item 6"),
+    (["--mode", "committee", "--mesh", "2"], "item 8"),
     (["--mode", "finalexp"], "item 7"),
     (["--mode", "serve-mesh"], "item 8"),
     (["--mode", "serve", "--mesh", "4"], "item 8"),
@@ -106,7 +106,7 @@ def test_unported_modes_exit_2_naming_their_roadmap_item(argv, item,
 
 
 @pytest.mark.parametrize("bench_mode,said", [
-    ("vmexec", "ROADMAP Queue 1 item 6"),
+    ("vmexec", "picks one of ['committee', 'epoch']"),
     ("head", "picks one of ['committee', 'epoch']"),
     ("nosuch", "picks one of ['committee', 'epoch']"),
 ])
@@ -116,6 +116,54 @@ def test_bench_mode_names_a_stage_of_the_no_mode_run(bench_mode, said,
                      {"BENCH_MODE": bench_mode})
     assert rc == 2 and len(lines) == 1
     assert lines[0]["mode"] == bench_mode and said in lines[0]["error"]
+
+
+VMEXEC_TINY = {"VMEXEC_KINDS": "g2_subgroup", "VMEXEC_ROWS": "1,2",
+               "VMEXEC_REPS": "1", "VMEXEC_COLD": "dedup"}
+
+
+def test_vmexec_mode_runs_on_the_cpu(monkeypatch, tmp_path):
+    """The vmexec mode on the CPU at a small size: both routes on every
+    cell, limb-identical, the auto route on the measured winner, and one
+    cold child fused-ready against a fresh program cache."""
+    from consensus_specs_tpu_torch.ops import vm_compile
+
+    knobs = dict(VMEXEC_TINY,
+                 CONSENSUS_SPECS_TPU_VM_CACHE=str(tmp_path / "cache"))
+    try:
+        rc, lines = _run(["--mode", "vmexec", "--device", "cpu"],
+                         monkeypatch, knobs)
+    finally:
+        vm_compile.reset_fused_state()
+    assert rc == 0 and len(lines) == 1
+    line = lines[0]
+    assert set(KEYS) <= set(line) and "error" not in line
+    assert line["mode"] == "vmexec" and line["platform"] == "cpu"
+    assert line["ok"] is True and line["fused_fallbacks"] == 0
+    assert set(line["vmexec"]) == {"g2_subgroup,1", "g2_subgroup,2",
+                                   "cold,g2_subgroup"}
+    for key in ("g2_subgroup,1", "g2_subgroup,2"):
+        cell = line["vmexec"][key]
+        assert cell["ok"] and cell["auto_ok"], cell
+        assert cell["interp_ms_row"] > 0 and cell["fused_ms_row"] > 0
+        assert cell["fused_launches"] == cell["interp_launches"] == 0
+    cold = line["vmexec"]["cold,g2_subgroup"]
+    assert cold["ok"] and cold["identical"] and cold["device"] == "cpu"
+    assert cold["native_scheduler"] is True
+    assert "CONSENSUS_SPECS_TPU_VM_EXEC" not in os.environ
+
+
+def test_python_dash_m_runs_vmexec(tmp_path):
+    env = dict(os.environ, PYTHONPATH=REPO, VMEXEC_COLD="0",
+               CONSENSUS_SPECS_TPU_VM_CACHE=str(tmp_path / "cache"),
+               **{k: v for k, v in VMEXEC_TINY.items() if k != "VMEXEC_COLD"})
+    res = subprocess.run(
+        [sys.executable, "-m", "consensus_specs_tpu_torch.bench", "--mode",
+         "vmexec", "--device", "cpu"], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    line = json.loads(res.stdout)
+    assert line["mode"] == "vmexec" and line["ok"] is True
 
 
 def test_without_a_card_it_exits_1_with_an_error_line(monkeypatch):

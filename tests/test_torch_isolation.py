@@ -245,6 +245,37 @@ def test_entry_points_raise_without_a_gpu(no_gpu):
             call()
 
 
+def test_vm_toolchain_entry_points_raise_without_a_gpu(no_gpu, monkeypatch,
+                                                      capsys, tmp_path):
+    """The fused lowering's warm, the fused route, the vmexec smoke and the
+    cold child resolve ``device=None`` to the card: without one they
+    raise or fail, and never run the plain versions quietly."""
+    import json
+
+    from consensus_specs_tpu_torch.bench import vmexec_cold
+    from consensus_specs_tpu_torch.ops import vm, vm_compile, vmexec_smoke
+
+    monkeypatch.setenv("CONSENSUS_SPECS_TPU_VM_CACHE", str(tmp_path))
+    monkeypatch.setenv("CONSENSUS_SPECS_TPU_FLIGHT_DUMP",
+                       str(tmp_path / "flight.jsonl"))
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            vm_compile.warm_fused(_tiny_program(), (1,))
+        monkeypatch.setenv("CONSENSUS_SPECS_TPU_VM_EXEC", "fused")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            vm.execute(_tiny_program(), {"a": np.zeros((1, 15), np.uint64)},
+                       batch_shape=(1,))
+        monkeypatch.delenv("CONSENSUS_SPECS_TPU_VM_EXEC")
+        assert vmexec_smoke.main() == 1
+        assert "no CUDA device" in capsys.readouterr().out
+        assert vmexec_cold.main([]) == 1
+        out = capsys.readouterr().out
+        line = json.loads(out.split("VMEXEC_COLD_JSON ", 1)[1])
+        assert line["ok"] is False and "no CUDA device" in line["error"]
+    finally:
+        vm_compile.reset_fused_state()
+
+
 def _tiny_program():
     from consensus_specs_tpu_torch.ops import vm
 

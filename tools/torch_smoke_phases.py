@@ -2,11 +2,12 @@
 """Run named phases of chip_smoke.py alone, on one NVIDIA GPU.
 
     python3 tools/torch_smoke_phases.py lightclient sim spec_tests gen bench
+    python3 tools/torch_smoke_phases.py vmexec
 
 Builds the port's kernels (chip_smoke's build), then runs each named phase
 that needs no earlier phase's output (``lightclient``, ``sim``,
-``spec_tests``, ``gen`` and ``bench``; the first with a spawn pool of its
-own), each printing chip_smoke's JSON line for it, with every (program,
+``spec_tests``, ``gen``, ``bench`` and ``vmexec``; the first with a spawn
+pool of its own), each printing chip_smoke's JSON line for it, with every (program,
 rows) the phase launched the step kernel at noted, and last the
 ``kernels`` line that holds each such shape's first 256 steps against the
 plain steps (max |err| 0 required) and times the whole stream, as
@@ -35,7 +36,7 @@ def main(names):
     from consensus_specs_tpu_torch.ops import bls_backend, cuda_build, vm
     from consensus_specs_tpu_torch.utils.keygen import KeyPool
 
-    phases = ("lightclient", "sim", "spec_tests", "gen", "bench")
+    phases = ("lightclient", "sim", "spec_tests", "gen", "bench", "vmexec")
     unknown = [n for n in names if n not in phases]
     if unknown or not names:
         print(f"torch_smoke_phases: phases are {', '.join(phases)}, "
@@ -58,8 +59,9 @@ def main(names):
                   "build_s": time.perf_counter() - t0, **card})
         path_shapes, launches = {}, {}
         for phase in names:
-            if phase == "sim":
-                line, launches[phase] = cs.phase_sim(torch, card)
+            if phase in ("sim", "vmexec"):
+                run = cs.phase_sim if phase == "sim" else cs.phase_vmexec
+                line, launches[phase] = run(torch, card)
                 cs._emit({**line, "elapsed_s": time.perf_counter() - t0})
                 continue
             shapes = path_shapes[phase] = {}
