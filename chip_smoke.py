@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Drives ``consensus_specs_tpu_torch`` (never jax, never the JAX package)
-through twenty-two phases, each printing one JSON line:
+through twenty-four phases, each printing one JSON line:
 
   1. build   -- compile every CUDA kernel of the port from csrc/ with nvcc
                for sm_90a (one nvcc per source, all started together);
@@ -185,7 +185,7 @@ of spawned processes (utils/keygen.py).
                assignment, 0 affinity moves; (c) one worker armed to fail
                until the router sheds or drains it (falls back on
                purpose). The workers' launch counts are summed and their
-               launch shapes (from their snapshots) join phase 21.
+               launch shapes (from their snapshots) join phase 24.
  16. lightclient -- the light-client proof plane on the port's altair
                mainnet spec: a ProofWorld of the full 512-seat sync
                committee (keys from the spawn pool, equal to SkToPk's) over
@@ -212,9 +212,13 @@ of spawned processes (utils/keygen.py).
                evidence, partition_heal replayed on 2 verdict worker
                processes on the card (each naming the card), and
                sim/latency_smoke.main. No kernel is launched, by design.
- 18. spec_tests -- the 72 ``@always_bls`` cases of the port's spec tests,
-               50 of phase0 (test/phase0/) and 22 of altair
-               (test/altair/: sync aggregates of 32 signers), picked by
+ 18. spec_tests -- the 84 ``@always_bls`` cases of the port's spec tests,
+               50 of phase0 (test/phase0/), 22 of altair (test/altair/:
+               sync aggregates of 32 signers), 7 of sharding
+               (test/sharding/: shard headers and shard proposer
+               slashings) and 5 of custody_game (test/custody_game/:
+               custody key reveals, early derived secret reveals and
+               custody slashings), picked by
                the ``bls_setting`` the port's decorators carry outward,
                each on its fork, on the minimal preset in
                generator mode with the switchboard on the card
@@ -277,11 +281,41 @@ of spawned processes (utils/keygen.py).
                g2_subgroup's fused route on the card against the same
                route on the CPU (the plain product). Any vm/fused_fallback
                event fails it.
- 22. kernels -- every program and row count that phases 9-16 and 18-20
-               launched the step kernel at (noted during those phases) and that no
-               earlier phase checked: the first 256 steps on random
-               canonical inputs limb for limb against the plain version,
-               then each whole stream timed, as in phase 5.
+ 22. twins   -- the tower twins (ops/towers.py, curve.py, pairing.py) at
+               the slot's width, every Fq product one Montgomery-kernel
+               launch and no step kernel: pairing_product_is_one over
+               e(a_i P, Q) * e(-P, a_i Q) for 64 distinct scalars a_i (one
+               row a committee aggregate of phase 4's slot), 4 rows
+               planted with (a_i + 1) P; the verdicts must be the planted
+               ones and the exact-int oracle's on the 4 planted rows and 4
+               valid ones. The Miller loop on those 8 rows against the
+               oracle's up to an Fq2 subfield factor (the ratio fixed by
+               Frobenius^2); the Miller loop, fq12_inv, fq12_frobenius
+               (n = 1, 2, 3), fq12_mul and fq2_mul on the card equal limb
+               for limb to the same functions on the CPU (the plain
+               product), each call's kernel-2 launches equal to the calls
+               the CPU run makes (fq2_mul 5, fq12_mul 3, from the code);
+               r * P on the 64 G1 points at infinity. Warm seconds a
+               function, launches a call, the products each launch ran
+               at, and kernel 2 at the stacked loop's 18,432-product Fq12
+               shape against its plain version.
+ 23. finalexp -- the bench entry's finalexp mode at the JAX bench's
+               defaults (rows 1, 2, 4, 8; fused rows 1, 8; 1 rep; seed 7)
+               in this process: the host oracle against the bit_serial,
+               windowed and frobenius hard parts (one step-kernel launch a
+               call) and the fold-1 frobenius interpreter against its
+               fused lowering (kernel 2 in CUDA graphs), every cell ok and
+               CONSENSUS_SPECS_TPU_VM_EXEC restored after; the bars
+               printed as computed (the JAX package's TPU-era predicates,
+               false ones reported). Then ops/finalexp_smoke.main on the
+               card: bit identity with the exact-int oracle on every
+               unitary input, no false accept on the non-unitary ones,
+               deterministic output. Any vm/fused_fallback event fails it.
+ 24. kernels -- every program and row count that phases 9-16, 18-20 and
+               23 launched the step kernel at (noted during those phases)
+               and that no earlier phase checked: the first 256 steps on
+               random canonical inputs limb for limb against the plain
+               version, then each whole stream timed, as in phase 5.
 
 Then it prints the card's name and power limit, a ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``. Any failure exits
@@ -4097,7 +4131,8 @@ def phase_sim(torch, card):
 # the JAX package's @always_bls uses under consensus_specs_tpu/test/<fork>
 # (tests/test_torch_spec_harness.py holds the port's pick against them);
 # merge's spec tests have none
-SPEC_TESTS_CASES = {"phase0": 50, "altair": 22}
+SPEC_TESTS_CASES = {"phase0": 50, "altair": 22, "sharding": 7,
+                    "custody_game": 5}
 SPEC_TESTS_PRESET = "minimal"
 _CARD_CALLS = {"verify": "oracle_verify",
                "fast_aggregate_verify": "oracle_fast_aggregate_verify",
@@ -4127,8 +4162,8 @@ def spec_test_cases():
 
 
 def phase_spec_tests(torch, card):
-    """The ``@always_bls`` phase0 and altair cases of the port on the
-    card, through the harness's case runner (generator mode, each on its
+    """The ``@always_bls`` phase0, altair, sharding and custody_game
+    cases of the port on the card, through the harness's case runner (generator mode, each on its
     fork, minimal). Counts every card call of the switchboard
     (ops/bls_backend's verify, fast_aggregate_verify, aggregate_verify)
     with its verdict and any exception, every call of the oracle's verify
@@ -4782,6 +4817,288 @@ def phase_vmexec(torch, card):
             **card}, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the tower twins (ops/towers, curve, pairing) on the card
+# ---------------------------------------------------------------------------
+
+TWINS_ROWS = N_COMMITTEES  # one pair a committee aggregate of the slot
+TWINS_PLANTED = (5, 22, 41, 60)  # rows whose a_i P is (a_i + 1) P
+TWINS_ORACLE_ROWS = (0, 5, 17, 22, 33, 41, 50, 60)  # planted + 4 valid
+TWINS_SEED = SEED + 6
+# kernel-2 launches of one call, counted from the code: fq2_mul makes
+# 3 products and 2 subtractions (each compresses its subtrahend with one
+# product), fq12_mul one 144-way product and 2 subtractions
+TWINS_FQ2_MUL_LAUNCHES = 3 + 2
+TWINS_FQ12_MUL_LAUNCHES = 1 + 2
+
+
+def _twins_inputs(n, planted, seed):
+    """64 distinct scalars a_i and the pairing inputs of e(a_i P, Q) *
+    e(-P, a_i Q), planted rows with (a_i + 1) P: numpy Montgomery limbs
+    (px, py, qx, qy) for each of the two pairs, and the oracle points."""
+    from consensus_specs_tpu_torch.ops import fq
+    from consensus_specs_tpu_torch.utils import bls12_381 as O
+
+    rng = random.Random(seed)
+    scalars = []
+    while len(scalars) < n:
+        a = rng.randrange(2, O.R - 1)
+        if a not in scalars:
+            scalars.append(a)
+
+    def g1(pt):
+        x, y = O.ec_to_affine(pt)
+        return x, y, fq.to_mont_int(x.n), fq.to_mont_int(y.n)
+
+    def g2(pt):
+        x, y = O.ec_to_affine(pt)
+        return (x, y, np.stack([fq.to_mont_int(x.c0), fq.to_mont_int(x.c1)]),
+                np.stack([fq.to_mont_int(y.c0), fq.to_mont_int(y.c1)]))
+
+    p1 = [g1(O.ec_mul(O.G1_GEN, a + (i in planted))) for i, a
+          in enumerate(scalars)]
+    q1 = g2(O.G2_GEN)
+    p2 = g1(O.ec_neg(O.G1_GEN))
+    q2 = [g2(O.ec_mul(O.G2_GEN, a)) for a in scalars]
+    limbs = {
+        "px1": np.stack([p[2] for p in p1]), "py1": np.stack([p[3] for p in p1]),
+        "qx1": np.stack([q1[2]] * n), "qy1": np.stack([q1[3]] * n),
+        "px2": np.stack([p2[2]] * n), "py2": np.stack([p2[3]] * n),
+        "qx2": np.stack([q[2] for q in q2]), "qy2": np.stack([q[3] for q in q2]),
+    }
+    points = {"p1": [p[:2] for p in p1], "q1": q1[:2], "p2": p2[:2],
+              "q2": [q[:2] for q in q2]}
+    return scalars, limbs, points
+
+
+def _twins_oracle(points, rows):
+    """The exact-int oracle at ``rows``: each row's two Miller outputs and
+    the product's verdict."""
+    from consensus_specs_tpu_torch.utils import bls12_381 as O
+
+    out = {}
+    for i in rows:
+        m1 = O.miller_loop(points["q1"], points["p1"][i])
+        m2 = O.miller_loop(points["q2"][i], points["p2"])
+        out[i] = (m1, O.final_exponentiate(m1 * m2) == O.Fq12.one())
+    return out
+
+
+def _counted_cpu(fn):
+    """(fn(), the kernel-2 calls it makes) on CPU tensors: every call of
+    ``cuda_fq.mont_mul`` (the kernel's wrapper; on the card one launch
+    each, graph replays of a chain counting its products, which the CPU
+    makes one by one) is counted."""
+    from consensus_specs_tpu_torch.ops import cuda_fq
+
+    calls = [0]
+
+    def counted(mont_mul):
+        def run(a, b):
+            calls[0] += 1
+            return mont_mul(a, b)
+        return run
+
+    with _patched(cuda_fq, "mont_mul", counted):
+        out = fn()
+    return out, calls[0]
+
+
+def _card_call(torch, fn, shapes):
+    """(fn() on the card, warm seconds, kernel-2 launches of the warm
+    call): a cold call first (graph captures of fq.inv's chain), then
+    the warm call timed; the products of each launch are tallied into
+    ``shapes``."""
+    from consensus_specs_tpu_torch.ops import cuda_fq
+
+    fn()
+    torch.cuda.synchronize()
+    before = cuda_fq.LAUNCHES
+
+    def tally(mont_mul):
+        def run(a, b):
+            m = int(np.prod(torch.broadcast_shapes(a.shape, b.shape)[:-1]))
+            shapes[m] = shapes.get(m, 0) + 1
+            return mont_mul(a, b)
+        return run
+
+    t = time.perf_counter()
+    with _patched(cuda_fq, "mont_mul", tally):
+        out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t, cuda_fq.LAUNCHES - before
+
+
+def phase_twins(torch, dev, rng, imad_rate, card):
+    """The port's tower twins on the card at the slot's width; see the
+    module docstring, phase 22."""
+    from consensus_specs_tpu_torch.ops import (cuda_fq, cuda_step, curve,
+                                               fq, pairing, towers)
+
+    t0 = time.perf_counter()
+    n = TWINS_ROWS
+    scalars, limbs, points = _twins_inputs(n, set(TWINS_PLANTED), TWINS_SEED)
+    want = [i not in TWINS_PLANTED for i in range(n)]
+    oracle = _twins_oracle(points, TWINS_ORACLE_ROWS)
+    oracle_s = time.perf_counter() - t0
+    _check(all(oracle[i][1] == want[i] for i in TWINS_ORACLE_ROWS),
+           "twins: the oracle disagrees with the planted verdicts")
+    cuda_step.LAUNCHES = cuda_step.STEPS = cuda_fq.LAUNCHES = 0
+    cuda_fq.CAPTURES = 0
+    t = {k: torch.from_numpy(v.astype(np.int64)).to(dev)
+         for k, v in limbs.items()}
+    pairs = [(t["px1"], t["py1"], t["qx1"], t["qy1"]),
+             (t["px2"], t["py2"], t["qx2"], t["qy2"])]
+    shapes, seconds, launches = {}, {}, {}
+
+    # pairing products: 64 rows, both Miller loops as one stacked loop
+    got, seconds["pairing_product_is_one"], launches[
+        "pairing_product_is_one"] = _card_call(
+        torch, lambda: pairing.pairing_product_is_one(pairs), shapes)
+    verdicts = got.tolist()
+    _check(verdicts == want, f"twins: pairing verdicts "
+           f"{[i for i in range(n) if verdicts[i] != want[i]]} wrong")
+
+    # the Miller loop on the oracle's 8 rows, against the oracle up to an
+    # Fq2 subfield factor, and against the plain product on the CPU
+    sel = list(TWINS_ORACLE_ROWS)
+    args = [t[k][sel] for k in ("qx1", "qy1", "px1", "py1")]
+    f_card, seconds["miller_loop"], launches["miller_loop"] = _card_call(
+        torch, lambda: pairing.miller_loop(*args), shapes)
+    f_cpu, want_miller = _counted_cpu(
+        lambda: pairing.miller_loop(*(a.cpu() for a in args)))
+    f_host = f_card.cpu()
+    subfield = []
+    for j, i in enumerate(sel):
+        ratio = towers.fq12_to_oracle(f_host[j]) * oracle[i][0].inverse()
+        subfield.append(ratio.frobenius().frobenius() == ratio)
+    _check(all(subfield), f"twins: Miller outputs off the oracle's beyond "
+           f"a subfield factor at rows {subfield}")
+
+    # card against the plain product, limb for limb, on the same 8 rows
+    card_vs_cpu = {"miller_loop": int((f_host - f_cpu).abs().max())}
+    counts = {"miller_loop": want_miller}
+    funcs = {"fq12_inv": towers.fq12_inv,
+             **{f"fq12_frobenius_{k}": (lambda x, k=k:
+                                        towers.fq12_frobenius(x, k))
+                for k in (1, 2, 3)},
+             "fq12_mul": lambda x: towers.fq12_mul(x, x.flip(0)),
+             "fq2_mul": lambda x: towers.fq2_mul(x[..., :2, :],
+                                                 x[..., 2:4, :])}
+    for name, fn in funcs.items():
+        out, seconds[name], launches[name] = _card_call(
+            torch, lambda: fn(f_card), shapes)
+        plain, counts[name] = _counted_cpu(lambda: fn(f_host))
+        card_vs_cpu[name] = int((out.cpu() - plain).abs().max())
+    _check(not any(card_vs_cpu.values()),
+           f"twins: card != plain product: {card_vs_cpu}")
+    _check(counts["fq2_mul"] == TWINS_FQ2_MUL_LAUNCHES
+           and counts["fq12_mul"] == TWINS_FQ12_MUL_LAUNCHES,
+           f"twins: kernel-2 calls a product {counts}")
+    _check(all(launches[k] == counts[k] for k in counts),
+           f"twins: kernel-2 launches {launches} != the code's {counts}")
+
+    # subgroup checks: r * P on the 64 G1 points of the first pair
+    out, seconds["g1_subgroup_check"], launches["g1_subgroup_check"] = \
+        _card_call(torch, lambda: curve.scalar_mul_fixed(
+            curve.FQ_OPS, t["px1"], t["py1"], curve.subgroup_check_bits()),
+            shapes)
+    z_zero = fq.is_zero(out["z"]).tolist()
+    _check(all(z_zero), f"twins: r*P not at infinity on rows "
+           f"{[i for i, z in enumerate(z_zero) if not z]}")
+    torch.cuda.synchronize()
+
+    # kernel 2 at the stacked loop's Fq12 product shape against its plain
+    # version, both timed
+    mont = _mont_mul_at(torch, dev, rng, imad_rate, (2 * n, 12, 12))
+    total = {"vm_step": cuda_step.LAUNCHES, "vm_step_steps": cuda_step.STEPS,
+             "mont_mul": cuda_fq.LAUNCHES}
+    _check(total["vm_step"] == 0 and total["mont_mul"] > 0,
+           f"twins: launches {total}")
+    return {"phase": "twins", "rows": n, "planted": list(TWINS_PLANTED),
+            "verdicts_ok": True, "oracle_rows": sel,
+            "oracle_s": oracle_s, "miller_subfield_ok": True,
+            "card_vs_cpu_max_abs_err": card_vs_cpu,
+            "subgroup_rows_at_infinity": sum(z_zero),
+            "warm_s": seconds, "mont_mul_launches_per_call": launches,
+            "mont_mul_calls_counted_on_cpu": counts,
+            "mont_mul_products_per_launch": {str(k): v for k, v
+                                             in sorted(shapes.items())},
+            "chain_graphs_captured": cuda_fq.CAPTURES,
+            "mont_mul_at_stacked_fq12_mul": mont,
+            "phase_s": time.perf_counter() - t0,
+            "step_kernel_launches": total["vm_step"],
+            "mont_mul_kernel_launches": total["mont_mul"],
+            **card}, total, mont
+
+
+# ---------------------------------------------------------------------------
+# phase 23: the finalexp bench mode and the hard-part canary on the card
+# ---------------------------------------------------------------------------
+
+FINALEXP_KNOBS = {"FINALEXP_ROWS": "1,2,4,8", "FINALEXP_FUSED_ROWS": "1,8",
+                  "FINALEXP_REPS": "1", "FINALEXP_SEED": "7"}
+
+
+def phase_finalexp(torch, card):
+    """The bench entry's finalexp mode at the JAX bench's defaults, then
+    ops/finalexp_smoke.main on the card; see the module docstring, phase
+    23."""
+    import io
+
+    from consensus_specs_tpu_torch.bench import entry
+    from consensus_specs_tpu_torch.ops import (cuda_fq, cuda_step,
+                                               finalexp_smoke, vm_compile)
+
+    t0 = time.perf_counter()
+    fallbacks = vm_compile._COUNTERS["fallbacks"]
+    cuda_step.LAUNCHES = cuda_step.STEPS = cuda_fq.LAUNCHES = 0
+    exec_mode = os.environ.get("CONSENSUS_SPECS_TPU_VM_EXEC")
+    buf = io.StringIO()
+    with _env(FINALEXP_KNOBS), contextlib.redirect_stdout(buf):
+        rc = entry.main(["--mode", "finalexp"])
+    lines = buf.getvalue().strip().splitlines()
+    _check(len(lines) == 1, f"finalexp: {len(lines)} bench lines")
+    line = json.loads(lines[0])
+    _check(rc == 0 and "error" not in line,
+           f"finalexp: rc {rc}, line {json.dumps(line)[:600]}")
+    _check(line["platform"] == "gpu" and line["device"]["name"] == card["card"],
+           f"finalexp: ran on {line['platform']} {line['device']}")
+    _check(all(c["ok"] for c in line["finalexp"].values()),
+           f"finalexp: cells {line['finalexp']}")
+    _check(os.environ.get("CONSENSUS_SPECS_TPU_VM_EXEC") == exec_mode,
+           "finalexp: CONSENSUS_SPECS_TPU_VM_EXEC not restored")
+    bench_launches = line["launches"]
+    bench_s = line["seconds"]
+
+    t = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        smoke_rc = finalexp_smoke.main()
+    smoke_s = time.perf_counter() - t
+    said = out.getvalue().strip().splitlines()
+    _check(smoke_rc == 0, f"finalexp: the canary failed: {said[-5:]}")
+    fallbacks = vm_compile._COUNTERS["fallbacks"] - fallbacks
+    _check(fallbacks == 0, f"finalexp: {fallbacks} vm/fused_fallback events")
+    launches = {"vm_step": cuda_step.LAUNCHES,
+                "vm_step_steps": cuda_step.STEPS,
+                "mont_mul": cuda_fq.LAUNCHES}
+    _check(bench_launches["vm_step"] > 0 and bench_launches["mont_mul"] > 0
+           and launches["vm_step"] > bench_launches["vm_step"],
+           f"finalexp: launches bench {bench_launches}, phase {launches}")
+    return {"phase": "finalexp", "value": line["value"],
+            "metric": line["metric"], "cells": line["finalexp"],
+            "bars": line["bars"], "crit_path": line["crit_path"],
+            "assembler": line["assembler"], "bench_s": bench_s,
+            "bench_launches": bench_launches, "canary": said[-1],
+            "canary_s": smoke_s, "fused_fallbacks": fallbacks,
+            "phase_s": time.perf_counter() - t0,
+            "step_kernel_launches": launches["vm_step"],
+            "step_kernel_steps": launches["vm_step_steps"],
+            "mont_mul_kernel_launches": launches["mont_mul"],
+            **card}, launches
+
+
 def main():
     import torch
 
@@ -4928,10 +5245,25 @@ def main():
         _emit({**line, "elapsed_s": time.perf_counter() - t0})
 
         # the VM toolchain: the native scheduler, the interpreter against
-        # the fused lowering (kernel 2 in CUDA graphs), a cold child;
-        # last, so no later phase's auto route reads its measurements
+        # the fused lowering (kernel 2 in CUDA graphs), a cold child
         vmexec_line, path_launches["vmexec"] = phase_vmexec(torch, card)
         _emit({**vmexec_line, "elapsed_s": time.perf_counter() - t0})
+
+        # the tower twins at the slot's width: kernel 2 alone
+        twins_line, path_launches["twins"], twins_mont = phase_twins(
+            torch, dev, rng, imad_rate, card)
+        _emit({**twins_line, "elapsed_s": time.perf_counter() - t0})
+
+        # the finalexp bench mode and the hard-part canary
+        shapes = path_shapes["finalexp"] = {}
+        program_wrap, execute_wrap = _recording_launch_shapes(shapes)
+        with _patched(bls_backend, "_program", program_wrap), \
+                _patched(vm, "execute", execute_wrap):
+            finalexp_line, path_launches["finalexp"] = phase_finalexp(
+                torch, card)
+        finalexp_line["new_shapes"] = new_launch_shapes(
+            path_shapes, "finalexp", streams)
+        _emit({**finalexp_line, "elapsed_s": time.perf_counter() - t0})
 
         path_streams = phase_path_streams(torch, dev, rng, imad_rate, l2_ns,
                                           path_shapes, streams)
@@ -4954,8 +5286,9 @@ def main():
     # counts from 0), the light-client plane (its process and its proof
     # smoke's workers), the simnet, the spec tests' @always_bls
     # cases, the bls generator's checks, the bench entry's modes (this
-    # process's counts; the fleet modes' workers count their own) and the
-    # VM toolchain's cells
+    # process's counts; the fleet modes' workers count their own), the
+    # VM toolchain's cells, the tower twins and the finalexp bench and
+    # canary
     paths = {"slice": {"vm_step": launches["vm_step"],
                        "vm_step_steps": launches["vm_step_steps"],
                        "mont_mul": launches["mont_mul"]},
@@ -4968,13 +5301,14 @@ def main():
     # kzg needs the step kernel only: its items are oracle points (no
     # decode, no subgroup check, no hash to G2), so the Montgomery kernel
     # has no work on that path
-    # the simnet launches none: its verdicts ride in the signature bytes
+    # the simnet launches none: its verdicts ride in the signature bytes;
+    # the tower twins run no VM program, so no step kernel
     idle = [f"{path} {k}" for path in ("wide", "epoch", "mainnet", "spec",
                                        "kzg", "forks", "fleet", "lightclient",
                                        "spec_tests", "gen", "bench",
-                                       "vmexec")
+                                       "vmexec", "twins", "finalexp")
             for k in ("vm_step", "mont_mul") if paths[path][k] == 0
-            and (path, k) != ("kzg", "mont_mul")]
+            and (path, k) not in (("kzg", "mont_mul"), ("twins", "vm_step"))]
     if idle:
         print(f"chip_smoke: FAILED: kernels never launched on {idle}",
               file=sys.stderr)
@@ -5009,15 +5343,20 @@ def main():
          "bound_ms": step_bound["bound_ms"],
          "bound_by": step_bound["bound_by"], "library_ms": None,
          "vmexec_interp_ms_row": {k: c["interp_ms_row"] for k, c
-                                  in vmexec_line["cells"].items()}},
+                                  in vmexec_line["cells"].items()},
+         "finalexp_ms_per_row": {k: c["ms_per_row"] for k, c
+                                 in finalexp_line["cells"].items()}},
         {"name": "mont_mul", "route": "cuda",
          "source": "consensus_specs_tpu_torch/csrc/mont_mul.cu",
          "replaces": "consensus_specs_tpu/ops/pallas_fq.py:129",
          "launches": total["mont_mul"],
          "launches_by_path": {k: p["mont_mul"] for k, p in paths.items()},
          "work": f"{mont['products']} products {mont['shape']}",
-         "max_abs_err": max([k_mont["max_abs_err"]]
-                            + [r["max_abs_err"] for r in rlc_mont]),
+         "max_abs_err": max([k_mont["max_abs_err"],
+                             twins_mont["max_abs_err"]]
+                            + [r["max_abs_err"] for r in rlc_mont]
+                            + list(twins_line["card_vs_cpu_max_abs_err"]
+                                   .values())),
          "ms": mont["ms"], "plain_ms": mont["plain_ms"],
          "bound_ms": mont["bound_ms"], "bound_by": mont["bound_by"],
          "library_ms": None,
@@ -5025,7 +5364,13 @@ def main():
          "fused_route": {k: {"fused_ms_row": c["fused_ms_row"],
                              "launches": c["fused_launches"],
                              "us_per_product_node": c["us_per_product_node"]}
-                         for k, c in vmexec_line["cells"].items()}},
+                         for k, c in vmexec_line["cells"].items()},
+         # the tower twins (phase twins): the stacked Miller loop's Fq12
+         # product shape, and each function's launches and warm seconds
+         "twins": {k: twins_mont[k] for k in ("products", "ms", "plain_ms",
+                                              "bound_ms", "bound_by")}
+         | {"launches_per_call": twins_line["mont_mul_launches_per_call"],
+            "warm_s": twins_line["warm_s"]}},
     ]
     print(f"{name}, {power}", flush=True)
     _emit({"kernels": kernels})

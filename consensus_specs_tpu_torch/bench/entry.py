@@ -20,19 +20,20 @@ the card and 3 on the CPU; the value is the median rep, the warm-up that
 assembles the bucket's programs is reported as ``warmup_s``), ``epoch``
 (BASELINE config 4, ``bench/epoch_replay.py``), ``head``, ``codec``,
 ``rlc``, ``mainnet``, ``latency``, ``soak``, ``merkle``, ``proofs``,
-``sim``, ``serve`` (with ``--trace`` and ``--flight``), ``serve-fleet``
-and ``vmexec`` (the interpreter against the fused lowering,
-``bench/vmexec.py``, with its cold child ``bench/vmexec_cold.py``); each
-mode's knobs are its module's env vars. With no
+``sim``, ``serve`` (with ``--trace`` and ``--flight``), ``serve-fleet``,
+``vmexec`` (the interpreter against the fused lowering,
+``bench/vmexec.py``, with its cold child ``bench/vmexec_cold.py``) and
+``finalexp`` (the hard-part variants against the host oracle,
+``bench/finalexp.py``); each mode's knobs are its module's env vars. With no
 ``--mode`` it runs committee at 32 x 128 and then the epoch at the mainnet
 shape in one process, a line each (BENCH_MODE picks one of the two;
 it names no other mode).
 
 Without ``--device cpu`` it runs on the CUDA card, and without a card it
 prints an ``error`` line and exits 1. A mode that raises prints an
-``error`` line and exits 1. ``serve-mesh``, ``--mesh`` and
-``finalexp`` exit 2 with an ``error`` line naming the ROADMAP item they
-wait for.
+``error`` line and exits 1, and so does ``finalexp`` when a cell is not
+``ok``. ``serve-mesh`` and ``--mesh`` exit 2 with an ``error`` line naming
+the ROADMAP item they wait for.
 """
 import contextlib
 import json
@@ -49,7 +50,6 @@ DEFAULT_STAGES = ("committee", "epoch")
 UNPORTED = {
     "serve-mesh": "ROADMAP Queue 1 item 8 (multi-device)",
     "--mesh": "ROADMAP Queue 1 item 8 (multi-device)",
-    "finalexp": "ROADMAP Queue 1 item 7 (the jax twins)",
 }
 
 
@@ -210,6 +210,19 @@ def run_serve(device, argv) -> dict:
     return result
 
 
+def run_finalexp(device, argv) -> dict:
+    """The finalexp bench (``bench/finalexp.py``). A cell that is not
+    ``ok`` (an exception or a wrong verdict on valid rows) fails the mode;
+    its ``bars`` are reported as computed."""
+    from .finalexp import run_finalexp_bench
+
+    result = run_finalexp_bench(device=device)
+    bad = {k: c for k, c in result["finalexp"].items() if not c["ok"]}
+    if bad:
+        raise AssertionError(f"finalexp cells not ok: {bad}")
+    return result
+
+
 def _module_mode(module, fn):
     def run(device, argv):
         import importlib
@@ -234,6 +247,7 @@ MODES = {
     "serve": run_serve,
     "serve-fleet": _module_mode("fleet_sweep", "run_fleet_bench"),
     "vmexec": _module_mode("vmexec", "run_vmexec_bench"),
+    "finalexp": run_finalexp,
 }
 
 

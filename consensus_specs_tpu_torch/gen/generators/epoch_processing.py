@@ -21,13 +21,25 @@ ALTAIR_MODS = combine_mods(PHASE0_MODS, {
         f"{_T}.altair.epoch_processing.test_process_sync_committee_updates",
 })
 
-# The draft forks' handlers (sharding, custody_game) wait for the port's
-# sharding and custody_game spec tests (ROADMAP Queue 1 item 3.4); the
-# JAX generator's table has them.
+# draft forks: only the handlers whose suites run under them (the
+# shard-work-cycle module declares with_phases([SHARDING, CUSTODY_GAME]))
+SHARDING_MODS = {
+    "pending_shard_confirmations":
+        f"{_T}.sharding.epoch_processing.test_shard_work_cycle",
+}
+# custody adds its own epoch passes (reveal/challenge deadlines, final
+# updates: test_custody_epoch_passes covers all three handlers' suites)
+CUSTODY_GAME_MODS = combine_mods(SHARDING_MODS, {
+    "custody_epoch_passes":
+        f"{_T}.custody_game.epoch_processing.test_custody_epoch_passes",
+})
+
 ALL_MODS = {
     "phase0": PHASE0_MODS,
     "altair": ALTAIR_MODS,
     "merge": ALTAIR_MODS,
+    "sharding": SHARDING_MODS,
+    "custody_game": CUSTODY_GAME_MODS,
 }
 
 

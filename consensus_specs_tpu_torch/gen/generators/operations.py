@@ -23,13 +23,29 @@ ALTAIR_MODS = combine_mods(PHASE0_MODS, combine_mods(
 MERGE_MODS = combine_mods(ALTAIR_MODS, {
     "execution_payload": f"{_T}.merge.block_processing.test_process_execution_payload",
 })
-# The draft forks' handlers (sharding, custody_game) wait for the port's
-# sharding and custody_game spec tests (ROADMAP Queue 1 item 3.4); the
-# JAX generator's table has them.
+# draft-fork MODS list only the handlers whose test modules run under
+# these forks (the base-fork modules pin with_all_phases = the three
+# mainline forks, so inheriting them would yield zero-vector handlers);
+# the sharding op modules declare with_phases([SHARDING, CUSTODY_GAME])
+SHARDING_MODS = {
+    "shard_blob_header": f"{_T}.sharding.block_processing.test_process_shard_header",
+    "shard_proposer_slashing": f"{_T}.sharding.block_processing.test_process_shard_proposer_slashing",
+    "attested_shard_work": f"{_T}.sharding.block_processing.test_process_attested_shard_work",
+}
+CUSTODY_GAME_MODS = combine_mods(SHARDING_MODS, {
+    "attestation": f"{_T}.custody_game.block_processing.test_process_attestation",
+    "custody_key_reveal": f"{_T}.custody_game.block_processing.test_process_custody_key_reveal",
+    "early_derived_secret_reveal": f"{_T}.custody_game.block_processing.test_process_early_derived_secret_reveal",
+    "chunk_challenge": f"{_T}.custody_game.block_processing.test_process_chunk_challenge",
+    "custody_slashing": f"{_T}.custody_game.block_processing.test_process_custody_slashing",
+})
+
 ALL_MODS = {
     "phase0": PHASE0_MODS,
     "altair": ALTAIR_MODS,
     "merge": MERGE_MODS,
+    "sharding": SHARDING_MODS,
+    "custody_game": CUSTODY_GAME_MODS,
 }
 
 

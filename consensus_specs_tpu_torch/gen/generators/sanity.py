@@ -20,13 +20,16 @@ MERGE_MODS = combine_mods(ALTAIR_MODS, {
     "blocks": f"{_T}.merge.sanity.test_blocks",
 })
 
-# The draft forks' handlers (sharding, custody_game) wait for the port's
-# sharding and custody_game spec tests (ROADMAP Queue 1 item 3.4); the
-# JAX generator's table has them.
+# custody sanity blocks run the full draft-fork block pipeline
+CUSTODY_GAME_MODS = {
+    "blocks": f"{_T}.custody_game.sanity.test_blocks",
+}
+
 ALL_MODS = {
     "phase0": PHASE0_MODS,
     "altair": ALTAIR_MODS,
     "merge": MERGE_MODS,
+    "custody_game": CUSTODY_GAME_MODS,
 }
 
 

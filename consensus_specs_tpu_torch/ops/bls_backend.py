@@ -694,15 +694,17 @@ def _hard_part_kind(n_items: int) -> str:
 
 
 def _run_hard_part(g_flat_batch: np.ndarray, device,
-                   kind: str = None) -> np.ndarray:
+                   kind: str = None, fold: int = None) -> np.ndarray:
     """(N, 12, L) unitary g limb batch -> (N,) bool (res == 1). Counts N
     rows against RLC_STATS['final_exps']. ``kind`` overrides the variant
-    route (_hard_part_kind)."""
+    route (_hard_part_kind); ``fold`` pins the fold factor (the finalexp
+    bench's interpreter-against-fused race runs both on the fold-1
+    program)."""
     n = g_flat_batch.shape[0]
     _bump(RLC_STATS, final_exps=n)
     if kind is None:
         kind = _hard_part_kind(n)
-    lay = _FoldLayout(kind, 0, n)
+    lay = _FoldLayout(kind, 0, n, fold=fold)
     gb = np.zeros((lay.nb, 12, fq.NUM_LIMBS), dtype=np.uint64)
     gb[:n] = g_flat_batch
     ins = {}

@@ -81,12 +81,14 @@ def paired_cases(modules, part=0, parts=1):
 
 
 def covered_forks(fn):
-    """The forks of ``context.ALL_PHASES`` a case runs on in generator mode:
+    """The forks of ``context.ALL_PHASES`` and of the draft forks
+    (``context.EXPERIMENTAL_PHASES``) a case runs on in generator mode:
     those of the ``phases`` attribute that ``with_phases`` and
     ``fork_transition_test`` set (on any other fork the case returns
     ``None`` before it builds a spec)."""
     phases = getattr(fn, "phases", ())
-    return [fork for fork in context.ALL_PHASES if fork in phases]
+    return [fork for fork in context.ALL_PHASES + context.EXPERIMENTAL_PHASES
+            if fork in phases]
 
 
 def paired_runs(modules, part=0, parts=1):

@@ -2,9 +2,11 @@
 ``bench/entry.main``) on the CPU: each mode not held against the JAX
 package in tests/test_torch_bench.py prints one parseable line with
 ``bench.py``'s keys at tiny knobs (vmexec among them); the modes the port
-does not have yet exit 2 naming their ROADMAP item; without a card and without ``--device
-cpu`` it exits 1 with an error line; with no ``--mode`` it runs committee
-then the epoch; and ``python -m`` runs it as a module."""
+does not have yet exit 2 naming their ROADMAP item; without a card and
+without ``--device cpu`` it exits 1 with an error line, and so does the
+finalexp mode on a cell that is not ok (its CPU run is in
+tests/test_torch_finalexp.py); with no ``--mode`` it runs committee then
+the epoch; and ``python -m`` runs it as a module."""
 import contextlib
 import io
 import json
@@ -93,7 +95,6 @@ def test_mode_prints_one_line_with_the_bench_keys(mode, knobs, fields,
 
 @pytest.mark.parametrize("argv,item", [
     (["--mode", "committee", "--mesh", "2"], "item 8"),
-    (["--mode", "finalexp"], "item 7"),
     (["--mode", "serve-mesh"], "item 8"),
     (["--mode", "serve", "--mesh", "4"], "item 8"),
 ])
@@ -103,6 +104,46 @@ def test_unported_modes_exit_2_naming_their_roadmap_item(argv, item,
     assert rc == 2 and len(lines) == 1
     assert "ROADMAP Queue 1 " + item in lines[0]["error"]
     assert lines[0]["value"] == 0.0
+
+
+def test_finalexp_without_a_card_is_an_error_line_and_exit_1(monkeypatch):
+    """The finalexp mode runs on the card: without one (and without
+    ``--device cpu``) it prints an error line and exits 1."""
+    from consensus_specs_tpu_torch.bench import finalexp
+
+    ran = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(finalexp, "run_finalexp_bench",
+                        lambda device=None: ran.append(device))
+    rc, lines = _run(["--mode", "finalexp"], monkeypatch)
+    assert rc == 1 and len(lines) == 1
+    assert lines[0]["mode"] == "finalexp"
+    assert "no CUDA device" in lines[0]["error"]
+    assert ran == []
+
+
+def test_finalexp_cell_not_ok_is_an_error_line_and_exit_1(monkeypatch):
+    """A finalexp cell that errored or gave a wrong verdict fails the
+    mode; false bars do not."""
+    from consensus_specs_tpu_torch.bench import finalexp
+
+    def run(device=None):
+        return {"value": 1.0, "vs_baseline": 0.1, "mode": "finalexp",
+                "bars": {"fused_3x_1": False},
+                "finalexp": {"host,1": {"ok": True, "ms_per_row": 1.0},
+                             "windowed,1": {"ok": False, "ms_per_row": None,
+                                            "error": "wrong verdict"}}}
+    monkeypatch.setattr(finalexp, "run_finalexp_bench", run)
+    rc, lines = _run(["--mode", "finalexp", "--device", "cpu"], monkeypatch)
+    assert rc == 1 and len(lines) == 1
+    assert "finalexp cells not ok" in lines[0]["error"]
+    assert "windowed,1" in lines[0]["error"]
+    good = run()
+    good["finalexp"]["windowed,1"] = {"ok": True, "ms_per_row": 2.0}
+    monkeypatch.setattr(finalexp, "run_finalexp_bench", lambda device=None:
+                        good)
+    rc, lines = _run(["--mode", "finalexp", "--device", "cpu"], monkeypatch)
+    assert rc == 0 and lines[0]["bars"] == {"fused_3x_1": False}
 
 
 @pytest.mark.parametrize("bench_mode,said", [
@@ -215,13 +256,16 @@ def test_no_mode_runs_committee_then_epoch_in_one_process(monkeypatch):
 
 
 def test_python_dash_m_runs_the_entry():
-    env = dict(os.environ, PYTHONPATH=REPO)
+    """``python -m`` on a process that sees no card: the finalexp mode's
+    error line, exit 1."""
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
     res = subprocess.run(
         [sys.executable, "-m", "consensus_specs_tpu_torch.bench", "--mode",
          "finalexp"], cwd=REPO, env=env, capture_output=True, text=True,
         timeout=120)
-    assert res.returncode == 2, res.stderr
-    assert json.loads(res.stdout)["mode"] == "finalexp"
+    assert res.returncode == 1, res.stderr
+    line = json.loads(res.stdout)
+    assert line["mode"] == "finalexp" and "no CUDA device" in line["error"]
 
 
 def test_profiling_enabled_and_report_match_the_jax_package(monkeypatch):

@@ -245,6 +245,37 @@ def test_tower_combine_on_the_card_matches_cpu(dev):
     assert torch.equal(got.cpu(), want)
 
 
+def test_final_exp_full_on_the_card_agrees_with_the_structured_one(dev):
+    """The reference-slow final exponentiation (the whole ~4314-bit
+    exponent, ~19,000 kernel-2 launches) and the structured one on the
+    card, on a valid Miller product e(6P, Q) * e(-P, 6Q) and on a
+    corrupted one: both True, then both False."""
+    from consensus_specs_tpu_torch.ops import cuda_fq, fq, pairing, towers
+    from consensus_specs_tpu_torch.utils import bls12_381 as O
+
+    def limbs(pt):
+        x, y = O.ec_to_affine(pt)
+        if isinstance(x, O.Fq2):
+            return [torch.from_numpy(np.stack([fq.to_mont_int(c.c0),
+                                               fq.to_mont_int(c.c1)])
+                                     .astype(np.int64))[None].to(dev)
+                    for c in (x, y)]
+        return [torch.from_numpy(fq.to_mont_int(c.n).astype(np.int64))[None]
+                .to(dev) for c in (x, y)]
+
+    p1, q1 = limbs(O.ec_mul(O.G1_GEN, 6)), limbs(O.G2_GEN)
+    p2, q2 = limbs(O.ec_neg(O.G1_GEN)), limbs(O.ec_mul(O.G2_GEN, 6))
+    f = towers.fq12_mul(pairing.miller_loop(*q1, *p1),
+                        pairing.miller_loop(*q2, *p2))
+    noise = torch.from_numpy(_loose(np.random.default_rng(17), (12,),
+                                    bits=380)).to(dev)
+    batch = torch.cat([f, towers.fq12_mul(f, noise)])
+    before = cuda_fq.LAUNCHES
+    full = pairing.final_exp_is_one_full(batch).tolist()
+    assert cuda_fq.LAUNCHES - before > 4314 * 3
+    assert full == pairing.final_exp_is_one(batch).tolist() == [True, False]
+
+
 @pytest.mark.parametrize("shape", [(15,), (7, 15), (64, 2, 15)])
 def test_pow_chain_replays_match_the_steps(dev, shape):
     """fq.pow_fixed on the card (the chain's CUDA graph: a step-by-step

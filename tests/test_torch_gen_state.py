@@ -49,6 +49,11 @@ SELECTIONS = {
                     "transition_with_slashed_validator_carried"), False),
     # the BLS-on run: the exit's signature checked by each package's oracle
     "operations+bls": ("phase0", "voluntary_exit", ("success",), True),
+    # a draft fork's handler, from the sharding spec tests
+    "operations+sharding": ("sharding", "shard_proposer_slashing",
+                            ("shard_proposer_slashing_accepted",
+                             "shard_proposer_slashing_already_slashed"),
+                            False),
 }
 
 

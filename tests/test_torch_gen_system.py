@@ -237,11 +237,9 @@ GENERATORS = ["bls", "epoch_processing", "finality", "fork_choice", "forks",
 STATE_RUNNERS = ["epoch_processing", "finality", "fork_choice", "forks",
                  "genesis", "operations", "random", "rewards", "sanity",
                  "transition"]
-# the JAX tables' draft-fork entries, which wait for the port's sharding
-# and custody_game spec tests
-DRAFT_FORKS = {"operations": ["sharding", "custody_game"],
-               "epoch_processing": ["sharding", "custody_game"],
-               "sanity": ["custody_game"]}
+# the JAX tables' entries the port's tables leave out, by runner: none,
+# the draft forks' (sharding, custody_game) included
+DRAFT_FORKS = {}
 
 
 def test_every_generator_has_a_port_twin_with_a_main():

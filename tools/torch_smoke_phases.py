@@ -2,12 +2,13 @@
 """Run named phases of chip_smoke.py alone, on one NVIDIA GPU.
 
     python3 tools/torch_smoke_phases.py lightclient sim spec_tests gen bench
-    python3 tools/torch_smoke_phases.py vmexec
+    python3 tools/torch_smoke_phases.py vmexec twins finalexp
 
 Builds the port's kernels (chip_smoke's build), then runs each named phase
 that needs no earlier phase's output (``lightclient``, ``sim``,
-``spec_tests``, ``gen``, ``bench`` and ``vmexec``; the first with a spawn
-pool of its own), each printing chip_smoke's JSON line for it, with every (program,
+``spec_tests``, ``gen``, ``bench``, ``vmexec``, ``twins`` and
+``finalexp``; the first with a spawn pool of its own), each printing
+chip_smoke's JSON line for it, with every (program,
 rows) the phase launched the step kernel at noted, and last the
 ``kernels`` line that holds each such shape's first 256 steps against the
 plain steps (max |err| 0 required) and times the whole stream, as
@@ -36,7 +37,8 @@ def main(names):
     from consensus_specs_tpu_torch.ops import bls_backend, cuda_build, vm
     from consensus_specs_tpu_torch.utils.keygen import KeyPool
 
-    phases = ("lightclient", "sim", "spec_tests", "gen", "bench", "vmexec")
+    phases = ("lightclient", "sim", "spec_tests", "gen", "bench", "vmexec",
+              "twins", "finalexp")
     unknown = [n for n in names if n not in phases]
     if unknown or not names:
         print(f"torch_smoke_phases: phases are {', '.join(phases)}, "
@@ -59,6 +61,11 @@ def main(names):
                   "build_s": time.perf_counter() - t0, **card})
         path_shapes, launches = {}, {}
         for phase in names:
+            if phase == "twins":
+                line, launches[phase], _ = cs.phase_twins(
+                    torch, dev, rng, imad_rate, card)
+                cs._emit({**line, "elapsed_s": time.perf_counter() - t0})
+                continue
             if phase in ("sim", "vmexec"):
                 run = cs.phase_sim if phase == "sim" else cs.phase_vmexec
                 line, launches[phase] = run(torch, card)
@@ -73,9 +80,10 @@ def main(names):
                                                            shapes)
                 cs._emit({**line, "elapsed_s": time.perf_counter() - t0})
                 continue
-            if phase in ("spec_tests", "gen"):
-                run = cs.phase_spec_tests if phase == "spec_tests" \
-                    else cs.phase_gen
+            if phase in ("spec_tests", "gen", "finalexp"):
+                run = {"spec_tests": cs.phase_spec_tests,
+                       "gen": cs.phase_gen,
+                       "finalexp": cs.phase_finalexp}[phase]
                 with cs._patched(bls_backend, "_program", program_wrap), \
                         cs._patched(vm, "execute", execute_wrap):
                     line, launches[phase] = run(torch, card)
