@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Drives ``consensus_specs_tpu_torch`` (never jax, never the JAX package)
-through twenty-four phases, each printing one JSON line:
+through twenty-five phases, each printing one JSON line:
 
   1. build   -- compile every CUDA kernel of the port from csrc/ with nvcc
                for sm_90a (one nvcc per source, all started together);
@@ -258,8 +258,11 @@ of spawned processes (utils/keygen.py).
                knobs: committee at 32 x 128 (3 reps), the epoch at the
                mainnet shape (1 rep), codec, rlc, head, mainnet at 262,144
                validators (1 slot, 2 fleet workers), serve, serve-fleet
-               at 1 and 2 workers, latency, soak (8 epochs), merkle,
-               proofs and sim. Each mode's line must carry no error,
+               at 1 and 2 workers, serve-mesh (one serve child on the
+               card and one on a 4-slot mesh of it: every row ok, no
+               mesh fallback, each child launching kernel 1), latency,
+               soak (8 epochs), merkle, proofs and sim. Each mode's line
+               must carry no error,
                platform gpu and the card's name, every gate flag true and
                no ladder record (serve injects its fault on purpose);
                committee, epoch and codec together must launch both
@@ -311,8 +314,27 @@ of spawned processes (utils/keygen.py).
                card: bit identity with the exact-int oracle on every
                unitary input, no false accept on the non-unitary ones,
                deterministic output. Any vm/fused_fallback event fails it.
- 24. kernels -- every program and row count that phases 9-16, 18-20 and
-               23 launched the step kernel at (noted during those phases)
+ 24. mesh    -- the multi-device path on a 4-slot mesh of the card (the
+               slots share it, each on CUDA streams of its own; on a
+               machine with two or more cards also on a mesh over
+               distinct cards): P1, batch_fast_aggregate_verify on 4
+               checks of K=2 (the last corrupted) on the 1-D mesh and a
+               (2, 2) ("host", "chip") one, equal to the unsharded call
+               and the oracle; P1b, the collector flush(mesh=) of 3
+               committees of 146, a 512-key sync aggregate and 2 proposer
+               checks (attestation #1 corrupted); P2, mesh_reduce.
+               aggregate_pubkeys of a 2,048-key committee against the
+               oracle's bytes, [P, -P] and an invalid key; the Fq12 and G1
+               butterflies on the card against a CPU mesh limb for limb;
+               phase 4's slot (all valid) through both entry points
+               sharded and unsharded, warm (walls, launches, step-kernel
+               ms a slot lane, the butterfly's kernel-2 launches, each
+               lane's utilization); P3, VerificationService(mesh=) on the
+               P1 checks and serve/mesh_smoke.main. Any mesh-reduce
+               fallback, degraded, retry or ladder record fails it.
+ 25. kernels -- every program and row count that phases 9-16, 18-20, 23
+               and 24 launched the step kernel at (noted during those
+               phases; a sharded run at each slot's rows)
                and that no earlier phase checked: the first 256 steps on
                random canonical inputs limb for limb against the plain
                version, then each whole stream timed, as in phase 5.
@@ -323,6 +345,7 @@ non-zero before the last line. Without a CUDA device, or without the
 package beside this script, it exits non-zero and prints no result.
 """
 import contextlib
+import io
 import json
 import os
 import random
@@ -646,12 +669,15 @@ def _recording_launch_shapes(shapes):
         return named
 
     def execute_wrap(fn):
-        def recorded(program, inputs, batch_shape=(), device=None):
+        def recorded(program, inputs, batch_shape=(), device=None,
+                     mesh=None):
             rows = int(np.prod(batch_shape)) if batch_shape else 1
+            if mesh is not None:
+                rows //= mesh.size  # each slot's launch
             shapes.setdefault((id(program), rows), (program, rows, names.get(
                 id(program), (f"steps{program.n_steps}", 0, 0))))
             return fn(program, inputs, batch_shape=batch_shape,
-                      device=device)
+                      device=device, mesh=mesh)
         return recorded
     return program_wrap, execute_wrap
 
@@ -4456,6 +4482,8 @@ BENCH_MODES = (
                  "CONSENSUS_SPECS_TPU_SCALE_SIM_VALIDATORS": "256"}),
     ("serve", {}),
     ("serve-fleet", {"SERVE_FLEET_WORKERS": "1,2"}),
+    # one serve child a slot count: the unsharded card and 4 slots of it
+    ("serve-mesh", {"SERVE_MESH_DEVICES": "1,4"}),
     ("latency", {}),
     ("soak", {"CONSENSUS_SPECS_TPU_SOAK_EPOCHS": "8",
               "CONSENSUS_SPECS_TPU_SOAK_WORKERS": "2"}),
@@ -4502,6 +4530,17 @@ def _bench_gates(mode, line):
     elif mode == "serve":
         gates["verdicts"] = (line.get("lost") == 0 and line.get("wrong") == 0
                              and line.get("fallback_items") == 0)
+    elif mode == "serve-mesh":
+        rows = line.get("mesh", {})
+        gates["rows_ok"] = bool(rows) and all(
+            r.get("ok") is True and r.get("fallbacks") == 0
+            for r in rows.values())
+        gates["mesh_armed"] = all(
+            rows.get(str(d), {}).get("mesh_devices") == (d if d > 1 else 0)
+            for d in line.get("device_counts", []))
+        gates["children_on_card"] = all(
+            (r.get("launches") or {}).get("vm_step", 0) > 0
+            for r in rows.values())
     elif mode == "serve-fleet":
         bars = line.get("bars", {})
         gates["ok"] = bool(bars.get("gated_counts_ok")
@@ -4621,6 +4660,12 @@ def phase_bench(torch, card, shapes):
                 worker_gates, worker_launches = _bench_fleet_workers(
                     torch, line, polls, shapes)
                 gates.update(worker_gates)
+            elif mode == "serve-mesh":
+                # each serve child counts its own launches from 0
+                worker_launches = {
+                    k: sum((r.get("launches") or {}).get(k, 0)
+                           for r in line["mesh"].values())
+                    for k in launches}
             _check(all(gates.values()), f"bench {mode}: gates {gates}")
             _check(line["platform"] == "gpu"
                    and line["device"]["name"] == card["card"],
@@ -5099,6 +5144,371 @@ def phase_finalexp(torch, card):
             **card}, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the multi-device path on a mesh of card slots
+# ---------------------------------------------------------------------------
+
+MESH_SLOTS = 4  # the JAX package's mesh smoke and multichip dryrun count
+MESH_P1_CHECKS = 4  # K=2 checks, the last corrupted (dryrun P1)
+MESH_P2_KEYS = 2048  # the mainnet-max committee (dryrun P2)
+MESH_SEED = SEED + 7
+# flight events that mean a mesh run left the mesh path or the card
+_MESH_BAD_EVENTS = ("degraded_mesh_to_single", "degraded_rlc_to_groups",
+                    "degraded_to_oracle", "backend_retry", "fused_fallback")
+
+
+def _slot_step_timer(torch, sink):
+    """Wrap for cuda_step.run_steps: each launch bracketed by CUDA events on
+    the caller's current stream (a slot's own under a mesh), collected in
+    ``sink`` as (stream key, start, end) without waiting, so the slots'
+    launches stay concurrent."""
+    def wrap(fn):
+        def timed(regs, instr):
+            if regs.device.type != "cuda":
+                return fn(regs, instr)
+            stream = torch.cuda.current_stream(regs.device)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            out = fn(regs, instr)
+            end.record(stream)
+            sink.append(((stream.device.index, stream.cuda_stream), start,
+                         end))
+            return out
+        return timed
+    return wrap
+
+
+def _mesh_timed(torch, mesh, call):
+    """``call()`` with its wall, its kernel-1 and kernel-2 launches, the
+    step-kernel launches and ms by the stream (a slot's lane under
+    ``mesh``: CUDA events, the per-slot measure) and the occupancy
+    ledger's lane utilizations over the call (a sharded execute is noted
+    busy on every slot's lane for its whole wall, so the slots' lanes
+    read alike by construction)."""
+    from consensus_specs_tpu_torch.obs import devices
+    from consensus_specs_tpu_torch.ops import cuda_fq, cuda_step
+
+    lane_of = {}
+    if mesh is not None:
+        lane_of = {(s.device.index, s.stream.cuda_stream): s.lane
+                   for s in mesh.slots}
+    sink = []
+    devices.reset_global()
+    devices.global_ledger()  # its clock starts here, before the call's
+    k1, k2 = cuda_step.LAUNCHES, cuda_fq.LAUNCHES
+    with _patched(cuda_step, "run_steps", _slot_step_timer(torch, sink)):
+        t0 = time.perf_counter()
+        out = call()
+        wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    per_lane, launches_by_lane = {}, {}
+    for key, start, end in sink:
+        lane = str(lane_of.get(key, "unsharded"))
+        per_lane[lane] = per_lane.get(lane, 0.0) + start.elapsed_time(end)
+        launches_by_lane[lane] = launches_by_lane.get(lane, 0) + 1
+    lanes = devices.global_ledger().snapshot()["lanes"]
+    return out, {
+        "wall_s": wall, "step_kernel_launches": cuda_step.LAUNCHES - k1,
+        "mont_mul_kernel_launches": cuda_fq.LAUNCHES - k2,
+        "step_kernel_ms_by_lane": per_lane,
+        "step_kernel_launches_by_lane": launches_by_lane,
+        "lane_utilization": {k: v["utilization"] for k, v in lanes.items()}}
+
+
+def _mesh_p1_checks():
+    """MESH_P1_CHECKS FastAggregateVerify checks of K=2, the last one's
+    message corrupted (__graft_entry__.dryrun_multichip's P1)."""
+    from consensus_specs_tpu_torch.utils import bls
+
+    sks = [1, 2]
+    pks = [bls.SkToPk(sk) for sk in sks]
+    sets, msgs, sigs = [], [], []
+    for i in range(MESH_P1_CHECKS):
+        msg = i.to_bytes(32, "little")
+        sets.append(pks)
+        msgs.append(msg)
+        sigs.append(bls.Aggregate([bls.Sign(sk, msg) for sk in sks]))
+    msgs[-1] = b"\xff" * 32
+    return sets, msgs, sigs
+
+
+def _mesh_p1b(bls_backend, mesh):
+    """The collector flush of dryrun_multichip's P1b: 3 committees of 146,
+    one 512-key sync aggregate, 2 proposer checks, attestation #1's
+    signature swapped for #2's, through ``flush(mesh=)``."""
+    from consensus_specs_tpu_torch.batch_verify import SignatureCollector
+    from consensus_specs_tpu_torch.utils import bls
+    from consensus_specs_tpu_torch.utils.bls12_381 import R
+
+    _, pool_sks, pool_pks = key_pool(MESH_SEED, 512)
+    col = SignatureCollector()
+    for c in range(3):
+        ks, ps = pool_sks[c:c + 146], pool_pks[c:c + 146]
+        msg = b"att" + bytes([c]) * 29
+        col._fast_aggregate_verify(ps, msg, bls.Sign(sum(ks) % R, msg))
+    sync_msg = b"sync" + b"\x00" * 28
+    col._fast_aggregate_verify(pool_pks, sync_msg,
+                               bls.Sign(sum(pool_sks) % R, sync_msg))
+    for p in range(2):
+        msg = b"blk" + bytes([p]) * 29
+        col._fast_aggregate_verify([pool_pks[p]], msg,
+                                   bls.Sign(pool_sks[p], msg))
+    col.checks[1].signature = col.checks[2].signature
+    return [bool(v) for v in col.flush(mesh=mesh)]
+
+
+def _mesh_p2(bls_backend, mesh_reduce, mesh):
+    """A MESH_P2_KEYS committee's pubkeys aggregated across the mesh (the
+    keys decoded and subgroup-checked by the batched codec on the card
+    first), its bytes against the oracle's: the pubkey of the summed
+    secret keys, and bls.AggregatePKs (KeyValidate a key, pure Python) on
+    a 128-key prefix; [P, -P] gives the infinity encoding; an invalid key
+    raises as the oracle does."""
+    from consensus_specs_tpu_torch.utils import bls
+    from consensus_specs_tpu_torch.utils import bls12_381 as O
+
+    _, sks, committee = key_pool(MESH_SEED, MESH_P2_KEYS)
+    t0 = time.perf_counter()
+    bls_backend.prewarm_host_caches([], [], committee)
+    codec_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = mesh_reduce.aggregate_pubkeys(committee, mesh)
+    card_s = time.perf_counter() - t0
+    _check(got == O.g1_to_bytes(O.ec_mul(O.G1_GEN, sum(sks) % O.R)),
+           "mesh P2: the mesh aggregate differs from the oracle's")
+    _check(mesh_reduce.aggregate_pubkeys(committee[:128], mesh)
+           == bls.AggregatePKs(committee[:128]),
+           "mesh P2: a 128-key aggregate differs from AggregatePKs")
+    pk = committee[0]
+    neg = O.g1_to_bytes(O.ec_neg(O.ec_from_affine(O.g1_from_bytes(pk))))
+    _check(mesh_reduce.aggregate_pubkeys([pk, neg], mesh)
+           == bls.AggregatePKs([pk, neg]) == O.g1_to_bytes(None),
+           "mesh P2: [P, -P] is not the infinity encoding")
+    bad = b"\xa0" + b"\x01" * 47
+    raised = []
+    for fn in (bls.AggregatePKs,
+               lambda pks: mesh_reduce.aggregate_pubkeys(pks, mesh)):
+        try:
+            fn([pk, bad])
+        except ValueError:
+            raised.append(True)
+    _check(len(raised) == 2, "mesh P2: an invalid key did not raise on both")
+    return {"keys": len(committee), "slots": mesh.size, "codec_s": codec_s,
+            "card_s": card_s}
+
+
+def _mesh_butterflies(torch, mesh_rlc, mesh_reduce, torch_env, mesh):
+    """mesh_fq12_product and mesh_aggregate_g1 on the card mesh equal to
+    the same calls on a CPU mesh of as many slots, limb for limb (the CPU
+    mesh runs the plain product), with the card's kernel-2 launches."""
+    from consensus_specs_tpu_torch.ops import cuda_fq, fq
+    from consensus_specs_tpu_torch.utils import bls12_381 as O
+
+    rng = random.Random(MESH_SEED)
+    fs = np.stack([np.stack([fq.to_mont_int(rng.randrange(O.P))
+                             for _ in range(12)]) for _ in range(7)])
+    pts = np.zeros((9, 3, fq.NUM_LIMBS), dtype=np.uint64)
+    for i in range(9):
+        x, y = O.ec_to_affine(O.ec_mul(O.G1_GEN, rng.randrange(1, O.R)))
+        pts[i] = [fq.to_mont_int(x.n), fq.to_mont_int(y.n),
+                  fq.to_mont_int(1)]
+    cpu = torch_env.make_mesh(mesh.size, "cpu")
+    out = {}
+    for name, fn, arg in (("fq12_product", mesh_rlc.mesh_fq12_product, fs),
+                          ("aggregate_g1", mesh_reduce.mesh_aggregate_g1,
+                           pts)):
+        k2 = cuda_fq.LAUNCHES
+        t0 = time.perf_counter()
+        got = fn(arg, mesh)
+        card_s = time.perf_counter() - t0
+        launches = cuda_fq.LAUNCHES - k2
+        want = fn(arg, cpu)
+        _check(np.array_equal(got, want),
+               f"mesh butterfly {name}: the card's limbs differ from the "
+               "CPU mesh's")
+        _check(launches > 0, f"mesh butterfly {name}: no kernel-2 launch")
+        out[name] = {"items": int(arg.shape[0]), "limb_exact": True,
+                     "card_s": card_s, "mont_mul_kernel_launches": launches}
+    return out
+
+
+def _mesh_slot(torch, bls_backend, mesh_rlc, mesh):
+    """The mainnet slot (64 x 146, all valid) through
+    batch_fast_aggregate_verify and batch_verify_rlc, sharded and not,
+    each warm (the first call of each assembles its programs): walls,
+    launches, step-kernel ms a slot lane, the butterfly's kernel-2
+    launches and each lane's utilization."""
+    from consensus_specs_tpu_torch.ops import cuda_fq
+
+    sets, msgs, sigs, _, _ = make_slot(plant=False)
+    items = [("fast_aggregate", p, m, s) for p, m, s in zip(sets, msgs, sigs)]
+    butterfly = []
+    real = mesh_rlc.mesh_fq12_product
+
+    def counted(products, m):
+        k2 = cuda_fq.LAUNCHES
+        out = real(products, m)
+        butterfly.append({"chunks": int(products.shape[0]),
+                          "mont_mul_kernel_launches":
+                              cuda_fq.LAUNCHES - k2})
+        return out
+
+    runs = {}
+    with _patched(mesh_rlc, "mesh_fq12_product", lambda fn: counted):
+        for entry, call in (
+                ("per_item", lambda m: bls_backend.batch_fast_aggregate_verify(
+                    sets, msgs, sigs, mesh=m)),
+                ("rlc", lambda m: bls_backend.batch_verify_rlc(
+                    items, rng=random.Random(SEED), mesh=m))):
+            for label, m in (("unsharded", None), ("sharded", mesh)):
+                call(m)  # cold: assembly, caches
+                del butterfly[:]
+                got, run = _mesh_timed(torch, m, lambda: call(m))
+                _check(bool(np.all(got)),
+                       f"mesh slot {entry} {label}: verdicts "
+                       f"{np.flatnonzero(~np.asarray(got)).tolist()} false")
+                if entry == "rlc" and m is not None:
+                    _check(len(butterfly) == 1,
+                           f"mesh slot rlc: {len(butterfly)} butterflies")
+                    run["butterfly"] = butterfly[0]
+                runs[f"{entry}_{label}"] = run
+    for entry in ("per_item", "rlc"):
+        runs[f"{entry}_sharded_over_unsharded"] = (
+            runs[f"{entry}_sharded"]["wall_s"]
+            / runs[f"{entry}_unsharded"]["wall_s"])
+    return runs
+
+
+def _mesh_service(bls_backend, mesh, p1, want):
+    """The P1 checks through VerificationService(mesh=): the same verdicts,
+    the mesh armed, no mesh fallback."""
+    from consensus_specs_tpu_torch.serve.service import VerificationService
+
+    svc = VerificationService(mesh=mesh, max_wait_ms=300.0)
+    try:
+        futures = [svc.submit("fast_aggregate", p, m, s)
+                   for p, m, s in zip(*p1)]
+        got = [bool(f.result(timeout=600)) for f in futures]
+    finally:
+        svc.close(timeout=60)
+    _check(got == want, f"mesh P3: service verdicts {got}, want {want}")
+    _check(svc.mesh_devices == mesh.size,
+           f"mesh P3: the service spans {svc.mesh_devices} slots")
+    _check(svc.metrics.mesh_fallbacks == 0,
+           f"mesh P3: {svc.metrics.mesh_fallbacks} mesh fallbacks")
+    return {"verdicts": got, "mesh_devices": svc.mesh_devices,
+            "mesh_fallbacks": svc.metrics.mesh_fallbacks}
+
+
+def _mesh_bad_events():
+    from consensus_specs_tpu_torch.obs import flight
+
+    return [e["kind"] for e in flight.global_recorder().events()
+            if e["kind"] in _MESH_BAD_EVENTS]
+
+
+def phase_mesh(torch, card):
+    """The multi-device path on a MESH_SLOTS-slot mesh of the card (and on
+    a mesh over distinct cards where there are two or more): P1, P1b, P2,
+    the butterflies against a CPU mesh, the mainnet slot sharded against
+    unsharded, P3 (the service on the mesh, then serve/mesh_smoke.main).
+    Fails on any mesh-reduce fallback, degraded, retry, fallback or
+    ladder record, and on any verdict unlike the unsharded one's or the
+    oracle's."""
+    from consensus_specs_tpu_torch.obs import flight
+    from consensus_specs_tpu_torch.ops import (
+        bls_backend, cuda_fq, cuda_step, mesh_reduce, mesh_rlc, profiling,
+        vm_compile,
+    )
+    from consensus_specs_tpu_torch.serve import mesh_smoke
+    from consensus_specs_tpu_torch.utils import torch_env
+
+    t0 = time.perf_counter()
+    mesh = torch_env.make_mesh(MESH_SLOTS)
+    grid = torch_env.make_mesh(MESH_SLOTS, axis_names=("host", "chip"),
+                               shape=(2, MESH_SLOTS // 2))
+    meshes = {"1d": mesh, "2d": grid}
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        meshes["distinct_cards"] = torch_env.make_mesh(
+            bls_backend._pow2_floor(n_cards))
+    profiling.reset()
+    cuda_step.LAUNCHES = cuda_step.STEPS = cuda_fq.LAUNCHES = 0
+    fused_fallbacks = vm_compile._COUNTERS["fallbacks"]
+    line = {"phase": "mesh", "slots": mesh.size,
+            "distinct_devices": {k: m.distinct_devices
+                                 for k, m in meshes.items()},
+            "cards": n_cards}
+    with _env({"CONSENSUS_SPECS_TPU_FLIGHT": "1"}):
+        flight.reset_global()
+        # P1: the DP axis, 1-D, (host, chip) and distinct cards
+        p1 = _mesh_p1_checks()
+        want = [True] * (MESH_P1_CHECKS - 1) + [False]
+        ts = time.perf_counter()
+        unsharded = [bool(v) for v in
+                     bls_backend.batch_fast_aggregate_verify(*p1)]
+        _check(unsharded == want, f"mesh P1: unsharded {unsharded}")
+        _check([oracle_verdict(*c) for c in zip(*p1)] == want,
+               "mesh P1: the oracle disagrees with the pinned pattern")
+        for name, m in meshes.items():
+            got = [bool(v) for v in bls_backend.batch_fast_aggregate_verify(
+                *p1, mesh=m)]
+            _check(got == unsharded, f"mesh P1 {name}: {got} != {unsharded}")
+        line["p1"] = {"verdicts": want, "meshes": list(meshes),
+                      "seconds": time.perf_counter() - ts}
+        # P1b: the collector at the production K-bucket mix
+        ts = time.perf_counter()
+        flushed = _mesh_p1b(bls_backend, mesh)
+        _check(flushed == [True, False, True, True, True, True],
+               f"mesh P1b: {flushed}")
+        line["p1b"] = {"verdicts": flushed,
+                       "seconds": time.perf_counter() - ts}
+        # P2: the aggregation tree across the slots
+        ts = time.perf_counter()
+        line["p2"] = _mesh_p2(bls_backend, mesh_reduce, mesh)
+        line["p2"]["seconds"] = time.perf_counter() - ts
+        # the butterflies against a CPU mesh, limb for limb
+        line["butterflies"] = {
+            name: _mesh_butterflies(torch, mesh_rlc, mesh_reduce, torch_env,
+                                    m)
+            for name, m in meshes.items() if name != "2d"}
+        # the mainnet slot, sharded against unsharded
+        line["slot"] = _mesh_slot(torch, bls_backend, mesh_rlc, mesh)
+        # P3: the service on the mesh
+        line["p3_service"] = _mesh_service(bls_backend, mesh, p1, want)
+        bad = _mesh_bad_events()
+        _check(not bad, f"mesh: flight events {bad}")
+        ladder = _ladder_records()
+        _check(not any(ladder.values()), f"mesh: ladder records {ladder}")
+        stats, _ = profiling.stats_and_gauges()
+        line["sharded_vm_shapes"] = sum(1 for k in stats
+                                        if "sharded=True" in k)
+        _check(line["sharded_vm_shapes"] > 0, "mesh: no sharded execution")
+    # P3: the JAX package's canary on a 4-slot mesh of the card (it arms
+    # its own flight recorder and mesh env, and restores them)
+    ts = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = mesh_smoke.main()
+    said = buf.getvalue().strip().splitlines()
+    _check(rc == 0, f"mesh P3: the canary failed: {said[-3:]}")
+    line["p3_canary"] = {"said": said[-1], "seconds": time.perf_counter() - ts}
+    fused_fallbacks = vm_compile._COUNTERS["fallbacks"] - fused_fallbacks
+    _check(fused_fallbacks == 0,
+           f"mesh: {fused_fallbacks} vm/fused_fallback events")
+    launches = {"vm_step": cuda_step.LAUNCHES,
+                "vm_step_steps": cuda_step.STEPS,
+                "mont_mul": cuda_fq.LAUNCHES}
+    _check(launches["vm_step"] > 0 and launches["mont_mul"] > 0,
+           f"mesh: launches {launches}")
+    line.update(phase_s=time.perf_counter() - t0,
+                step_kernel_launches=launches["vm_step"],
+                step_kernel_steps=launches["vm_step_steps"],
+                mont_mul_kernel_launches=launches["mont_mul"], **card)
+    return line, launches
+
+
 def main():
     import torch
 
@@ -5265,6 +5675,16 @@ def main():
             path_shapes, "finalexp", streams)
         _emit({**finalexp_line, "elapsed_s": time.perf_counter() - t0})
 
+        # the multi-device path on a mesh of card slots
+        shapes = path_shapes["mesh"] = {}
+        program_wrap, execute_wrap = _recording_launch_shapes(shapes)
+        with _patched(bls_backend, "_program", program_wrap), \
+                _patched(vm, "execute", execute_wrap):
+            mesh_line, path_launches["mesh"] = phase_mesh(torch, card)
+        mesh_line["new_shapes"] = new_launch_shapes(path_shapes, "mesh",
+                                                    streams)
+        _emit({**mesh_line, "elapsed_s": time.perf_counter() - t0})
+
         path_streams = phase_path_streams(torch, dev, rng, imad_rate, l2_ns,
                                           path_shapes, streams)
         streams += path_streams
@@ -5287,8 +5707,8 @@ def main():
     # smoke's workers), the simnet, the spec tests' @always_bls
     # cases, the bls generator's checks, the bench entry's modes (this
     # process's counts; the fleet modes' workers count their own), the
-    # VM toolchain's cells, the tower twins and the finalexp bench and
-    # canary
+    # VM toolchain's cells, the tower twins, the finalexp bench and
+    # canary, and the mesh phase
     paths = {"slice": {"vm_step": launches["vm_step"],
                        "vm_step_steps": launches["vm_step_steps"],
                        "mont_mul": launches["mont_mul"]},
@@ -5306,7 +5726,8 @@ def main():
     idle = [f"{path} {k}" for path in ("wide", "epoch", "mainnet", "spec",
                                        "kzg", "forks", "fleet", "lightclient",
                                        "spec_tests", "gen", "bench",
-                                       "vmexec", "twins", "finalexp")
+                                       "vmexec", "twins", "finalexp",
+                                       "mesh")
             for k in ("vm_step", "mont_mul") if paths[path][k] == 0
             and (path, k) not in (("kzg", "mont_mul"), ("twins", "vm_step"))]
     if idle:

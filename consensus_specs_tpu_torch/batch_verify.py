@@ -227,7 +227,7 @@ class SignatureCollector:
         return order, members
 
     def flush(self, backend=None, device=None, service=None,
-              rlc: bool = False) -> np.ndarray:
+              rlc: bool = False, mesh=None) -> np.ndarray:
         """Verify all recorded checks; returns a bool array in record order.
 
         Identical checks (same kind/pubkeys/message(s)/signature) are
@@ -238,6 +238,9 @@ class SignatureCollector:
         the service carries, cached, deduped against other submitters.
         Otherwise checks are grouped by (kind, K-bucket) so each batch pads
         to its own committee-size bucket, on ``device`` (None is the card).
+        With ``mesh`` (a ``utils/torch_env.Mesh``), each bucket's rows are
+        sharded over its slots (the committee axis is the data-parallel
+        axis); the backend is given ``mesh=`` only then.
 
         ``rlc=True`` resolves the whole span through ``batch_verify_rlc``:
         ONE final exponentiation for all recorded checks instead of one per
@@ -246,11 +249,11 @@ class SignatureCollector:
         order, members = self._unique_checks()
 
         if service is not None:
-            if backend is not None or device is not None:
+            if backend is not None or device is not None or mesh is not None:
                 raise ValueError(
-                    "flush(service=...) uses the service's own backend and "
-                    "device; pass backend/device to the VerificationService "
-                    "instead"
+                    "flush(service=...) uses the service's own backend, "
+                    "device and sharding; pass backend/device/mesh to the "
+                    "VerificationService instead"
                 )
             if rlc:
                 raise ValueError(
@@ -268,13 +271,16 @@ class SignatureCollector:
 
         if backend is None:
             from .ops import bls_backend as backend  # noqa: F811
+        placement = {"device": device}
+        if mesh is not None:
+            placement["mesh"] = mesh
 
         if rlc:
             checks = [self.checks[i] for i in order]
             res = backend.batch_verify_rlc(
                 [(c.kind, c.pubkeys, c.messages, c.signature)
                  for c in checks],
-                device=device,
+                **placement,
             )
             for u, r in enumerate(res):
                 out[members[u]] = bool(r)
@@ -295,7 +301,7 @@ class SignatureCollector:
                 [c.pubkeys for c in checks],
                 [c.messages for c in checks],
                 [c.signature for c in checks],
-                device=device,
+                **placement,
             )
             for r, u in zip(res, uidxs):
                 out[members[u]] = bool(r)

@@ -1,7 +1,7 @@
 """The port's bench entry: ``python -m consensus_specs_tpu_torch.bench``.
 
     python -m consensus_specs_tpu_torch.bench [--mode M] [--device cpu]
-        [--trace out.json] [--flight out.jsonl]
+        [--mesh N] [--trace out.json] [--flight out.jsonl]
 
 Each mode prints ONE JSON line with the JAX package's ``bench.py`` keys
 (``metric``, ``value``, ``unit``, ``vs_baseline``, ``mode`` and the mode's
@@ -20,8 +20,9 @@ the card and 3 on the CPU; the value is the median rep, the warm-up that
 assembles the bucket's programs is reported as ``warmup_s``), ``epoch``
 (BASELINE config 4, ``bench/epoch_replay.py``), ``head``, ``codec``,
 ``rlc``, ``mainnet``, ``latency``, ``soak``, ``merkle``, ``proofs``,
-``sim``, ``serve`` (with ``--trace`` and ``--flight``), ``serve-fleet``,
-``vmexec`` (the interpreter against the fused lowering,
+``sim``, ``serve`` (with ``--trace`` and ``--flight``), ``serve-mesh``
+(one ``serve --mesh d`` child a slot count in SERVE_MESH_DEVICES,
+``serve/load.run_serve_mesh_sweep``), ``serve-fleet``, ``vmexec`` (the interpreter against the fused lowering,
 ``bench/vmexec.py``, with its cold child ``bench/vmexec_cold.py``) and
 ``finalexp`` (the hard-part variants against the host oracle,
 ``bench/finalexp.py``); each mode's knobs are its module's env vars. With no
@@ -32,8 +33,13 @@ it names no other mode).
 Without ``--device cpu`` it runs on the CUDA card, and without a card it
 prints an ``error`` line and exits 1. A mode that raises prints an
 ``error`` line and exits 1, and so does ``finalexp`` when a cell is not
-``ok``. ``serve-mesh`` and ``--mesh`` exit 2 with an ``error`` line naming
-the ROADMAP item they wait for.
+``ok``.
+
+``--mesh N`` sets CONSENSUS_SPECS_TPU_MESH=N for the run (restored
+after it), as the JAX package's ``bench.py --mesh`` does: the serve
+plane's ``torch_env.maybe_mesh`` reads it, so ``--mode serve`` serves on
+an N-slot mesh (slots round-robin over the cards; on one card they share
+it, each on streams of its own).
 """
 import contextlib
 import json
@@ -46,12 +52,6 @@ TARGET_PER_CHIP = 150_000 / 8  # north star: 300k signatures < 2 s on 8 chips
 
 # the run with no --mode, in order: bench.py's accelerator child
 DEFAULT_STAGES = ("committee", "epoch")
-
-UNPORTED = {
-    "serve-mesh": "ROADMAP Queue 1 item 8 (multi-device)",
-    "--mesh": "ROADMAP Queue 1 item 8 (multi-device)",
-}
-
 
 def _opt(argv, name):
     """``<name> <v>`` / ``<name>=<v>`` from argv."""
@@ -210,6 +210,14 @@ def run_serve(device, argv) -> dict:
     return result
 
 
+def run_serve_mesh(device, argv) -> dict:
+    """The serve plane's mesh sweep (``serve/load.run_serve_mesh_sweep``):
+    one serve child a slot count in SERVE_MESH_DEVICES."""
+    from ..serve.load import run_serve_mesh_sweep
+
+    return run_serve_mesh_sweep(device=device)
+
+
 def run_finalexp(device, argv) -> dict:
     """The finalexp bench (``bench/finalexp.py``). A cell that is not
     ``ok`` (an exception or a wrong verdict on valid rows) fails the mode;
@@ -245,6 +253,7 @@ MODES = {
     "proofs": _module_mode("proofs", "run_proofs_bench"),
     "sim": _module_mode("sim_matrix", "run_sim_bench"),
     "serve": run_serve,
+    "serve-mesh": run_serve_mesh,
     "serve-fleet": _module_mode("fleet_sweep", "run_fleet_bench"),
     "vmexec": _module_mode("vmexec", "run_vmexec_bench"),
     "finalexp": run_finalexp,
@@ -283,7 +292,7 @@ def run_mode(mode: str, device, argv=()) -> dict:
 
 def main(argv=None) -> int:
     """Run the modes ``argv`` asks for; 0 when every line is a result, 1
-    on an error line, 2 for a mode the port does not have yet."""
+    on an error line, 2 for a mode or option the entry does not know."""
     argv = list(sys.argv[1:] if argv is None else argv)
     out = sys.stdout
 
@@ -294,12 +303,12 @@ def main(argv=None) -> int:
     # bench.py's way to run one stage of the no-mode run
     env_mode = None if mode is not None else os.environ.get("BENCH_MODE")
     mode = mode or env_mode or None
-    for name in (mode, "--mesh" if _opt(argv, "--mesh") is not None
-                 or "--mesh" in argv else None):
-        if name in UNPORTED:
-            emit(_line(0.0, 0.0, mode=name, error=(
-                f"{name} is not ported yet: {UNPORTED[name]}")))
-            return 2
+    mesh = _opt(argv, "--mesh")
+    if mesh is None and "--mesh" in argv or mesh is not None and not (
+            mesh.isdigit() or mesh in ("auto", "off")):
+        emit(_line(0.0, 0.0, mode=mode or "committee",
+                   error="--mesh takes a slot count (or auto, off)"))
+        return 2
     if env_mode and env_mode not in DEFAULT_STAGES:
         emit(_line(0.0, 0.0, mode=env_mode, error=(
             f"BENCH_MODE={env_mode!r} picks one of {list(DEFAULT_STAGES)}; "
@@ -322,13 +331,24 @@ def main(argv=None) -> int:
 
     stages = [mode] if mode is not None else DEFAULT_STAGES
     rc = 0
-    for stage in stages:
-        try:
-            emit(run_mode(stage, device, argv))
-        except Exception as e:
-            tail = traceback.format_exc().strip().splitlines()[-3:]
-            emit(_line(0.0, 0.0, mode=stage,
-                       error=f"{type(e).__name__}: {e}"[:500],
-                       error_tail=tail))
-            rc = 1
+    # --mesh arms the serve plane's mesh provider for this run only
+    was_mesh = os.environ.get("CONSENSUS_SPECS_TPU_MESH")
+    if mesh is not None:
+        os.environ["CONSENSUS_SPECS_TPU_MESH"] = mesh
+    try:
+        for stage in stages:
+            try:
+                emit(run_mode(stage, device, argv))
+            except Exception as e:
+                tail = traceback.format_exc().strip().splitlines()[-3:]
+                emit(_line(0.0, 0.0, mode=stage,
+                           error=f"{type(e).__name__}: {e}"[:500],
+                           error_tail=tail))
+                rc = 1
+    finally:
+        if mesh is not None:
+            if was_mesh is None:
+                os.environ.pop("CONSENSUS_SPECS_TPU_MESH", None)
+            else:
+                os.environ["CONSENSUS_SPECS_TPU_MESH"] = was_mesh
     return rc

@@ -2,7 +2,8 @@
 port's copy of consensus_specs_tpu/obs/devices.py).
 
 - ``ops/vm.execute`` notes every program run on the lane of its device:
-  the CUDA device index, or ``cpu`` for the plain path;
+  the CUDA device index, or ``cpu`` for the plain path; a sharded run on
+  the lane of each of its mesh's slots;
 - the serve service's PREP stage notes its input-codec time on the
   ``host`` lane, so the prep-vs-device pipeline overlap shows as two
   lanes with overlapping busy intervals.
@@ -99,11 +100,17 @@ class DeviceLedger:
             entry.add(t0, t1, label)
 
     def note_execution(self, device, t0: float, seconds: float,
-                       label: str = "vm") -> None:
+                       label: str = "vm", mesh=None) -> None:
         """One VM program execution, busy on the lane of its
         ``torch.device``: the CUDA device index (the current device when
-        the device names none), or the device type for another device."""
-        self.note_busy(lane_of(device), t0, t0 + seconds, label)
+        the device names none), or the device type for another device.
+        With ``mesh`` (a sharded run) it is busy on every slot's lane
+        instead (``Slot.lane``: the device's lane, with ``.<ordinal>``
+        when several slots share a device), as the JAX package notes
+        every mesh device's id."""
+        lanes = [lane_of(device)] if mesh is None else mesh.lanes
+        for lane in lanes:
+            self.note_busy(lane, t0, t0 + seconds, label)
 
     # -- reading -------------------------------------------------------------
 

@@ -52,6 +52,7 @@ from ..device import resolve_device
 from ..obs import flight
 from ..obs import programs as obs_programs
 from ..utils import bls12_381 as O
+from ..utils import torch_env
 from ..utils.bls12_381 import P
 from . import fq, profiling, vm, vmlib
 
@@ -598,18 +599,33 @@ def _ns(fold: int, t: int) -> str:
     return f"i{t}." if fold > 1 else ""
 
 
+def _rows_for(n_items: int, fold: int, mesh) -> int:
+    rows = _pow2(max(1, -(-n_items // fold)))
+    if mesh is not None:
+        rows = max(rows, mesh.size)
+    return rows
+
+
 class _FoldLayout:
     """Row/lane layout of a folded batch — the one place that knows item i
     lives at row i // fold under name prefix _ns(fold, i % fold), so the
-    scatter and the readback can never diverge."""
+    scatter and the readback can never diverge. With a ``mesh`` the rows
+    pad up to its slot count (every slot runs at least one row) and the
+    fold is capped at pow2(ceil(n_items / slots)), as the JAX package's."""
 
     __slots__ = ("program", "fold", "rows", "nb")
 
-    def __init__(self, kind: str, k: int, n_items: int, fold=None):
+    def __init__(self, kind: str, k: int, n_items: int, mesh=None,
+                 fold=None):
         if fold is None:
             fold = _fold_for(kind, k, n_items)
+        if mesh is not None:
+            # the mesh pads rows up to the slot count anyway, so folding
+            # past ceil(n/slots) just runs a bigger program on filler
+            n_dev = mesh.size
+            fold = min(fold, _pow2(max(1, -(-n_items // n_dev))))
         self.program, self.fold = _program(kind, k, fold=fold)
-        self.rows = _pow2(max(1, -(-n_items // self.fold)))
+        self.rows = _rows_for(n_items, self.fold, mesh)
         self.nb = self.rows * self.fold
 
     def views(self, arr: np.ndarray) -> np.ndarray:
@@ -654,12 +670,13 @@ def _easy_part_batch(out, lay, precheck, aggz: bool):
     return g_batch, agg_nonzero
 
 
-def _finalize_per_item(fs: np.ndarray, device) -> np.ndarray:
+def _finalize_per_item(fs: np.ndarray, device, mesh=None) -> np.ndarray:
     """(N, 12, L) loose Miller-output rows -> (N,) bool through the
     per-item finalization the two batch entry points use (N serial host
-    easy parts, N hard-part rows on ``device``), callable on raw f rows so
-    the RLC bench races it against the combine on the same inputs."""
-    dev = resolve_device(device)
+    easy parts, N hard-part rows on ``device`` or sharded over ``mesh``),
+    callable on raw f rows so the RLC bench races it against the combine
+    on the same inputs."""
+    dev = torch_env.resolve(device, mesh)
     n = fs.shape[0]
     g_batch = np.zeros((n, 12, fq.NUM_LIMBS), dtype=np.uint64)
     active = np.zeros(n, dtype=bool)
@@ -668,7 +685,7 @@ def _finalize_per_item(fs: np.ndarray, device) -> np.ndarray:
         if g is not None:
             g_batch[i] = np.stack([fq.to_mont_int(c) for c in g])
             active[i] = True
-    ok = _run_hard_part(g_batch, dev)
+    ok = _run_hard_part(g_batch, dev, mesh=mesh)
     return ok & active
 
 
@@ -694,22 +711,24 @@ def _hard_part_kind(n_items: int) -> str:
 
 
 def _run_hard_part(g_flat_batch: np.ndarray, device,
-                   kind: str = None, fold: int = None) -> np.ndarray:
+                   kind: str = None, fold: int = None,
+                   mesh=None) -> np.ndarray:
     """(N, 12, L) unitary g limb batch -> (N,) bool (res == 1). Counts N
-    rows against RLC_STATS['final_exps']. ``kind`` overrides the variant
-    route (_hard_part_kind); ``fold`` pins the fold factor (the finalexp
-    bench's interpreter-against-fused race runs both on the fold-1
-    program)."""
+    rows (padding excluded) against RLC_STATS['final_exps']. ``kind``
+    overrides the variant route (_hard_part_kind); ``fold`` pins the fold
+    factor (the finalexp bench's interpreter-against-fused race runs both
+    on the fold-1 program); ``mesh`` shards the rows over its slots."""
     n = g_flat_batch.shape[0]
     _bump(RLC_STATS, final_exps=n)
     if kind is None:
         kind = _hard_part_kind(n)
-    lay = _FoldLayout(kind, 0, n, fold=fold)
+    lay = _FoldLayout(kind, 0, n, mesh, fold=fold)
     gb = np.zeros((lay.nb, 12, fq.NUM_LIMBS), dtype=np.uint64)
     gb[:n] = g_flat_batch
     ins = {}
     lay.scatter(ins, gb, lambda i: f"g.{i}")
-    out = vm.execute(lay.program, ins, batch_shape=(lay.rows,), device=device)
+    out = vm.execute(lay.program, ins, batch_shape=(lay.rows,), device=device,
+                     mesh=mesh)
     ok = np.zeros(n, dtype=bool)
     for i in range(n):
         r, ns = lay.split(i)
@@ -727,23 +746,26 @@ class _FinalExpBatcher:
     CONSENSUS_SPECS_TPU_FINAL_EXP_WINDOW_MS (default 2 ms), then executes
     every row that joined (on its own current stream) and resolves the
     followers with plain bools. Rows cross threads as numpy arrays, never
-    as CUDA tensors. Windows are keyed by the resolved ``torch.device``,
-    so rows bound for different devices never share an execution."""
+    as CUDA tensors. Windows are keyed by the resolved ``torch.device``
+    and the mesh (structural equality; None is the unsharded path), so
+    rows bound for different placements never share an execution."""
 
     def __init__(self):
         self._lock = threading.Lock()
-        self._pending = {}  # device -> [[g_row, result | Exception, Event]]
-        self._leaders = set()  # devices with an active window leader
+        # (device, mesh) -> [[g_row, result | Exception, Event]]
+        self._pending = {}
+        self._leaders = set()  # placements with an active window leader
 
-    def run(self, g_row: np.ndarray, device) -> bool:
+    def run(self, g_row: np.ndarray, device, mesh=None) -> bool:
         window = float(os.environ.get(
             "CONSENSUS_SPECS_TPU_FINAL_EXP_WINDOW_MS", "2")) / 1e3
         entry = [g_row, None, threading.Event()]
+        key = (device, mesh)
         with self._lock:
-            self._pending.setdefault(device, []).append(entry)
-            lead = device not in self._leaders
+            self._pending.setdefault(key, []).append(entry)
+            lead = key not in self._leaders
             if lead:
-                self._leaders.add(device)
+                self._leaders.add(key)
         if not lead:
             entry[2].wait()
             if isinstance(entry[1], BaseException):
@@ -757,8 +779,8 @@ class _FinalExpBatcher:
             if window > 0:
                 time.sleep(window)
             with self._lock:
-                batch = self._pending.pop(device, [])
-                self._leaders.discard(device)  # later arrivals re-elect
+                batch = self._pending.pop(key, [])
+                self._leaders.discard(key)  # later arrivals re-elect
                 n = len(batch)
             _bump(RLC_STATS, final_exp_windows=1, final_exp_window_rows=n)
             rows = np.stack([e[0] for e in batch])
@@ -766,12 +788,14 @@ class _FinalExpBatcher:
             profiling.set_gauge("bls.final_exp_rows_inflight", n)
             flight.note("vm", "final_exp_route", route="device", rows=n,
                         variant=kind)
-            ok = _run_hard_part(rows, device, kind=kind)
+            # an unsharded window calls it as it always has
+            sharding = {} if mesh is None else {"mesh": mesh}
+            ok = _run_hard_part(rows, device, kind=kind, **sharding)
         except BaseException as e:
             if batch is None:  # died before collecting: take over now
                 with self._lock:
-                    batch = self._pending.pop(device, [])
-                    self._leaders.discard(device)
+                    batch = self._pending.pop(key, [])
+                    self._leaders.discard(key)
             # followers re-raise the original Exception; a BaseException
             # (KeyboardInterrupt/SystemExit) stays with the leader and the
             # followers get a RuntimeError instead
@@ -850,7 +874,7 @@ def reset_rlc_stats() -> None:
 
 
 def _miller_fast_aggregate(
-    pubkey_sets, messages, signatures, device
+    pubkey_sets, messages, signatures, device, mesh=None
 ) -> Tuple[Optional[dict], "_FoldLayout", np.ndarray]:
     """PROG A stage of batch_fast_aggregate_verify: prep (the codec
     prewarm, then the cached limbs per item) + the aggregate-and-Miller
@@ -861,7 +885,7 @@ def _miller_fast_aggregate(
     k = _k_bucket(max(1, max_k))
     L = fq.NUM_LIMBS
 
-    lay = _FoldLayout("miller_product", k, n)
+    lay = _FoldLayout("miller_product", k, n, mesh)
     nb = lay.nb
     prewarm_host_caches(
         [bytes(m) for m in messages],
@@ -908,7 +932,8 @@ def _miller_fast_aggregate(
     lay.scatter(ins, hm, lambda ci: f"h.{_G2_COMPS[ci]}")
     lay.scatter(ins, sg, lambda ci: f"sig.{_G2_COMPS[ci]}")
 
-    out = vm.execute(lay.program, ins, batch_shape=(lay.rows,), device=device)
+    out = vm.execute(lay.program, ins, batch_shape=(lay.rows,), device=device,
+                     mesh=mesh)
     return out, lay, precheck
 
 
@@ -917,10 +942,12 @@ def batch_fast_aggregate_verify(
     messages: Sequence[bytes],
     signatures: Sequence[bytes],
     device=None,
+    mesh=None,
 ) -> np.ndarray:
     """N independent FastAggregateVerify calls in one device pipeline
-    (reference specs/phase0/beacon-chain.md's per-attestation verify)."""
-    dev = resolve_device(device)
+    (reference specs/phase0/beacon-chain.md's per-attestation verify).
+    With ``mesh``, the batch's rows are sharded over its slots."""
+    dev = torch_env.resolve(device, mesh)
     n = len(pubkey_sets)
     if len(messages) != n or len(signatures) != n:
         raise ValueError("pubkey_sets, messages and signatures differ in length")
@@ -928,17 +955,17 @@ def batch_fast_aggregate_verify(
     if n == 0:
         return np.zeros(0, dtype=bool)
     out, lay, precheck = _miller_fast_aggregate(
-        pubkey_sets, messages, signatures, dev
+        pubkey_sets, messages, signatures, dev, mesh
     )
     if out is None:
         return precheck[:n]
     g_batch, agg_nonzero = _easy_part_batch(out, lay, precheck, aggz=True)
-    ok = _run_hard_part(g_batch, dev)
+    ok = _run_hard_part(g_batch, dev, mesh=mesh)
     return (ok & precheck & agg_nonzero)[:n]
 
 
 def _miller_aggregate(
-    pubkey_lists, message_lists, signatures, device
+    pubkey_lists, message_lists, signatures, device, mesh=None
 ) -> Tuple[Optional[dict], "_FoldLayout", np.ndarray]:
     """PROG A stage of batch_aggregate_verify (distinct message per
     pubkey); same contract as _miller_fast_aggregate."""
@@ -947,7 +974,7 @@ def _miller_aggregate(
     k = _k_bucket(max(1, max_k))
     L = fq.NUM_LIMBS
 
-    lay = _FoldLayout("aggregate_verify", k, n)
+    lay = _FoldLayout("aggregate_verify", k, n, mesh)
     nb = lay.nb
     prewarm_host_caches(
         [bytes(m) for ms in message_lists for m in ms],
@@ -994,7 +1021,8 @@ def _miller_aggregate(
     lay.scatter(ins, hm, lambda j, ci: f"h{j}.{_G2_COMPS[ci]}")
     lay.scatter(ins, sg, lambda ci: f"sig.{_G2_COMPS[ci]}")
 
-    out = vm.execute(lay.program, ins, batch_shape=(lay.rows,), device=device)
+    out = vm.execute(lay.program, ins, batch_shape=(lay.rows,), device=device,
+                     mesh=mesh)
     return out, lay, precheck
 
 
@@ -1003,11 +1031,13 @@ def batch_aggregate_verify(
     message_lists: Sequence[Sequence[bytes]],
     signatures: Sequence[bytes],
     device=None,
+    mesh=None,
 ) -> np.ndarray:
     """N independent AggregateVerify calls (distinct messages per pubkey).
     Inactive pair lanes use infinity G1 (their Miller factor lands in a
-    proper subfield, killed by the final exponentiation)."""
-    dev = resolve_device(device)
+    proper subfield, killed by the final exponentiation). With ``mesh``,
+    the batch's rows are sharded over its slots."""
+    dev = torch_env.resolve(device, mesh)
     n = len(pubkey_lists)
     if len(message_lists) != n or len(signatures) != n:
         raise ValueError("pubkey_lists, message_lists and signatures differ "
@@ -1016,12 +1046,12 @@ def batch_aggregate_verify(
     if n == 0:
         return np.zeros(0, dtype=bool)
     out, lay, precheck = _miller_aggregate(
-        pubkey_lists, message_lists, signatures, dev
+        pubkey_lists, message_lists, signatures, dev, mesh
     )
     if out is None:
         return precheck[:n]
     g_batch, _ = _easy_part_batch(out, lay, precheck, aggz=False)
-    ok = _run_hard_part(g_batch, dev)
+    ok = _run_hard_part(g_batch, dev, mesh=mesh)
     return (ok & precheck)[:n]
 
 
@@ -1113,10 +1143,10 @@ def _hard_part_is_one_oracle(g_coeffs: List[int]) -> bool:
     return _oracle_to_flat_ints(hard_part_res_oracle(g)) == [1] + [0] * 11
 
 
-def _final_exp_is_one(f_coeffs: List[int], device) -> bool:
+def _final_exp_is_one(f_coeffs: List[int], device, mesh=None) -> bool:
     """ONE full final exponentiation on exact coefficients: the host easy
     part, then the hard part per _rlc_final_mode(device). Device routes go
-    through the final-exp batcher."""
+    through the final-exp batcher (sharded over ``mesh`` when given)."""
     g = _easy_part_flat(f_coeffs)
     if g is None:
         return False  # degenerate f: no valid item produces it
@@ -1124,22 +1154,30 @@ def _final_exp_is_one(f_coeffs: List[int], device) -> bool:
         flight.note("vm", "final_exp_route", route="host", rows=1)
         return _hard_part_is_one_oracle(g)
     gm = np.stack([fq.to_mont_int(c) for c in g])
-    return bool(_FINAL_EXP_BATCHER.run(gm, device))
+    return bool(_FINAL_EXP_BATCHER.run(gm, device, mesh))
 
 
-def _rlc_chunk(m: int) -> int:
-    """f's per rlc_combine program instance for an m-candidate combine."""
-    return min(_pow2(m), _rlc_chunk_max())
+def _rlc_chunk(m: int, mesh=None) -> int:
+    """f's per rlc_combine program instance for an m-candidate combine.
+    Unsharded: the lane-saturating chunk (_rlc_chunk_max, default 16).
+    Under a mesh the width is the parallel axis, so the chunk shrinks
+    until there is at least one chunk row a slot: 16 candidates on 8
+    slots run as 8 chunk-2 rows."""
+    chunk = min(_pow2(m), _rlc_chunk_max())
+    if mesh is not None:
+        n_dev = mesh.size
+        chunk = max(1, min(chunk, _pow2(-(-m // n_dev))))
+    return chunk
 
 
-def _rlc_combine_inputs(fs: np.ndarray, bits: np.ndarray):
+def _rlc_combine_inputs(fs: np.ndarray, bits: np.ndarray, mesh=None):
     """The rlc_combine layout and named inputs for an (m, 12, L) f batch
     and its (m, RLC_BITS) bits: (lay, ins, n_chunks). Inactive lanes get
     f = 1 and all-zero bits (1^0 = 1)."""
     m = fs.shape[0]
-    chunk = _rlc_chunk(m)
+    chunk = _rlc_chunk(m, mesh)
     n_chunks = -(-m // chunk)
-    lay = _FoldLayout("rlc_combine", chunk, n_chunks)
+    lay = _FoldLayout("rlc_combine", chunk, n_chunks, mesh)
     L = fq.NUM_LIMBS
     fb = np.zeros((lay.nb, chunk, 12, L), dtype=np.uint64)
     fb[:, :, 0] = _ONE_LIMBS
@@ -1153,12 +1191,31 @@ def _rlc_combine_inputs(fs: np.ndarray, bits: np.ndarray):
     return lay, ins, n_chunks
 
 
-def _rlc_combine_vm(fs: np.ndarray, bits: np.ndarray, device) -> List[int]:
+def _rlc_combine_vm(fs: np.ndarray, bits: np.ndarray, device,
+                    mesh=None) -> List[int]:
     """Combine through the rlc_combine program (one vm.execute: kernel 1
-    on the card), then one host oracle Fq12 product per extra chunk.
-    Returns the exact flat coefficients of prod f_i^{r_i}."""
-    lay, ins, n_chunks = _rlc_combine_inputs(fs, bits)
-    out = vm.execute(lay.program, ins, batch_shape=(lay.rows,), device=device)
+    on the card, a launch a slot under ``mesh``), then multiply the
+    per-chunk products into one element: under a mesh, a cross-slot Fq12
+    butterfly (ops/mesh_rlc.py: a local fold a slot + log2(n) exchange
+    rounds, every product on kernel 2); otherwise one host oracle Fq12
+    product per extra chunk. Returns the exact flat coefficients of
+    prod f_i^{r_i}, equal either way (Fq12 multiplication is exact and
+    associative). A butterfly failure raises: the JAX package's host
+    multiply escape (``vm/mesh_reduce_fallback``) is not ported, so no
+    sharded combine answers with its cross-slot products off the card.
+    The serve plane's rung 0 catches it and answers on one device."""
+    lay, ins, n_chunks = _rlc_combine_inputs(fs, bits, mesh)
+    out = vm.execute(lay.program, ins, batch_shape=(lay.rows,), device=device,
+                     mesh=mesh)
+    if mesh is not None and n_chunks > 1:
+        from . import mesh_rlc
+
+        prods = np.stack([
+            np.stack([out[f"{ns}c.{j}"][r] for j in range(12)])
+            for r, ns in (lay.split(c) for c in range(n_chunks))
+        ])
+        c = mesh_rlc.mesh_fq12_product(prods, mesh)
+        return [fq.from_mont_limbs(c[j]) for j in range(12)]
     total = None
     for c in range(n_chunks):
         r, ns = lay.split(c)
@@ -1181,7 +1238,7 @@ def _rlc_combine_tower(fs: np.ndarray, bits: np.ndarray, device) -> List[int]:
     return [fq.from_mont_limbs(c[j]) for j in range(12)]
 
 
-def batch_verify_rlc(items, device=None, rng=None) -> np.ndarray:
+def batch_verify_rlc(items, device=None, rng=None, mesh=None) -> np.ndarray:
     """N independent verifications decided by random linear combination:
     check prod_i f_i^{r_i} == 1 (after the final exponentiation) for fresh
     random nonzero 128-bit scalars r_i, so the batch pays ONE easy part
@@ -1198,8 +1255,12 @@ def batch_verify_rlc(items, device=None, rng=None) -> np.ndarray:
     deterministic tests). An all-valid batch always passes. A failed
     combined check bisects: each half is re-combined with fresh scalars,
     down to exact per-item finalization of singletons. One candidate
-    takes the plain per-item finalization with no combine."""
-    dev = resolve_device(device)
+    takes the plain per-item finalization with no combine.
+
+    ``mesh`` shards every program's rows over its slots and reduces the
+    combine's chunk products across them (_rlc_combine_vm); the verdicts
+    and the RLC_STATS trajectory are the unsharded call's."""
+    dev = torch_env.resolve(device, mesh)
     items = list(items)
     n = len(items)
     _count_call("batch_verify_rlc", n)
@@ -1224,7 +1285,7 @@ def batch_verify_rlc(items, device=None, rng=None) -> np.ndarray:
                   else _miller_aggregate)
         out, lay, precheck = miller([it[1] for it in sub],
                                     [it[2] for it in sub],
-                                    [it[3] for it in sub], dev)
+                                    [it[3] for it in sub], dev, mesh)
         if out is None:
             continue
         for pos, i in enumerate(idxs):
@@ -1246,7 +1307,7 @@ def batch_verify_rlc(items, device=None, rng=None) -> np.ndarray:
 
     def finalize_item(j: int) -> bool:
         coeffs = [fq.from_mont_limbs(fs[j, c]) for c in range(12)]
-        return _final_exp_is_one(coeffs, dev)
+        return _final_exp_is_one(coeffs, dev, mesh)
 
     def combine_check(sel: List[int]) -> bool:
         _bump(RLC_STATS, combines=1)
@@ -1255,8 +1316,8 @@ def batch_verify_rlc(items, device=None, rng=None) -> np.ndarray:
         if _rlc_backend() == "jax":
             coeffs = _rlc_combine_tower(sub, bits, dev)
         else:
-            coeffs = _rlc_combine_vm(sub, bits, dev)
-        return _final_exp_is_one(coeffs, dev)
+            coeffs = _rlc_combine_vm(sub, bits, dev, mesh)
+        return _final_exp_is_one(coeffs, dev, mesh)
 
     def resolve(sel: List[int]) -> None:
         if len(sel) == 1:

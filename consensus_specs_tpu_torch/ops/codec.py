@@ -43,6 +43,7 @@ import torch
 
 from ..device import resolve_device
 from ..utils import bls12_381 as O
+from ..utils import torch_env
 from ..utils.bls12_381 import P
 from . import fq, vm
 from . import towers as tw
@@ -366,17 +367,19 @@ def fq2_sqrt_batch(v, device=None) -> Tuple[np.ndarray, np.ndarray]:
 # ---------------------------------------------------------------------------
 
 
-def _layout(kind: str, n_items: int):
+def _layout(kind: str, n_items: int, mesh=None):
     from . import bls_backend  # lazy: bls_backend imports this module
 
-    return bls_backend._FoldLayout(kind, 0, n_items)
+    return bls_backend._FoldLayout(kind, 0, n_items, mesh)
 
 
-def g1_subgroup_check_batch(points: np.ndarray, device=None) -> np.ndarray:
+def g1_subgroup_check_batch(points: np.ndarray, device=None,
+                            mesh=None) -> np.ndarray:
     """points: (M, 2, L) canonical affine (ON the curve) -> bool (M,).
-    Tensor path: the [r]P complete-addition ladder as a VM program. Host
-    path: the GLV criterion on raw ints."""
-    dev = resolve_device(device)
+    Tensor path: the [r]P complete-addition ladder as a VM program (its
+    rows sharded over ``mesh`` when given). Host path: the GLV criterion
+    on raw ints."""
+    dev = torch_env.resolve(device, mesh)
     m = points.shape[0]
     if m == 0:
         return np.zeros(0, dtype=bool)
@@ -386,12 +389,13 @@ def g1_subgroup_check_batch(points: np.ndarray, device=None) -> np.ndarray:
             for i in range(m)
         ]
         return np.asarray(_g1_subgroup_host(pts), dtype=bool)
-    lay = _layout("g1_subgroup", m)
+    lay = _layout("g1_subgroup", m, mesh)
     arr = np.zeros((lay.nb, 2, _L), dtype=np.uint64)
     arr[:m] = points
     ins: Dict[str, np.ndarray] = {}
     lay.scatter(ins, arr, lambda c: f"pt.{'xy'[c]}")
-    out = vm.execute(lay.program, ins, batch_shape=(lay.rows,), device=dev)
+    out = vm.execute(lay.program, ins, batch_shape=(lay.rows,), device=dev,
+                     mesh=mesh)
     rz = np.zeros((m, _L), dtype=np.uint64)
     for i in range(m):
         r, ns = lay.split(i)
@@ -399,11 +403,13 @@ def g1_subgroup_check_batch(points: np.ndarray, device=None) -> np.ndarray:
     return _to_numpy(fq.is_zero(fq.limbs_from_numpy(rz, dev)))
 
 
-def g2_subgroup_check_batch(points: np.ndarray, device=None) -> np.ndarray:
+def g2_subgroup_check_batch(points: np.ndarray, device=None,
+                            mesh=None) -> np.ndarray:
     """points: (M, 4, L) canonical affine [x.0, x.1, y.0, y.1] (ON the
-    curve) -> bool (M,). Tensor path: the psi-criterion VM program. Host
-    path: the same criterion on raw ints."""
-    dev = resolve_device(device)
+    curve) -> bool (M,). Tensor path: the psi-criterion VM program (its
+    rows sharded over ``mesh`` when given). Host path: the same criterion
+    on raw ints."""
+    dev = torch_env.resolve(device, mesh)
     m = points.shape[0]
     if m == 0:
         return np.zeros(0, dtype=bool)
@@ -418,12 +424,13 @@ def g2_subgroup_check_batch(points: np.ndarray, device=None) -> np.ndarray:
             for i in range(m)
         ]
         return np.asarray(_g2_subgroup_host(pts), dtype=bool)
-    lay = _layout("g2_subgroup", m)
+    lay = _layout("g2_subgroup", m, mesh)
     arr = np.zeros((lay.nb, 4, _L), dtype=np.uint64)
     arr[:m] = points
     ins: Dict[str, np.ndarray] = {}
     lay.scatter(ins, arr, lambda c: f"pt.{_G2_COMPS[c]}")
-    out = vm.execute(lay.program, ins, batch_shape=(lay.rows,), device=dev)
+    out = vm.execute(lay.program, ins, batch_shape=(lay.rows,), device=dev,
+                     mesh=mesh)
     d = np.zeros((m, 4, _L), dtype=np.uint64)
     for i in range(m):
         r, ns = lay.split(i)
@@ -432,12 +439,14 @@ def g2_subgroup_check_batch(points: np.ndarray, device=None) -> np.ndarray:
     return _to_numpy(fq.is_zero(fq.limbs_from_numpy(d, dev))).all(axis=1)
 
 
-def _h2g_finish_batch(q0: np.ndarray, q1: np.ndarray, device) -> np.ndarray:
+def _h2g_finish_batch(q0: np.ndarray, q1: np.ndarray, device,
+                      mesh=None) -> np.ndarray:
     """(M, 4, L) SSWU outputs q0, q1 -> (M, 4, L) hashed affine G2 points
-    (isogeny + add + clear-cofactor as a VM program, then one batched
-    projective -> affine ladder)."""
+    (isogeny + add + clear-cofactor as a VM program, its rows sharded
+    over ``mesh`` when given, then one batched projective -> affine
+    ladder on ``device``)."""
     m = q0.shape[0]
-    lay = _layout("h2g_finish", m)
+    lay = _layout("h2g_finish", m, mesh)
     a0 = np.zeros((lay.nb, 4, _L), dtype=np.uint64)
     a1 = np.zeros((lay.nb, 4, _L), dtype=np.uint64)
     a0[:m] = q0
@@ -445,7 +454,8 @@ def _h2g_finish_batch(q0: np.ndarray, q1: np.ndarray, device) -> np.ndarray:
     ins: Dict[str, np.ndarray] = {}
     lay.scatter(ins, a0, lambda c: f"q0.{_G2_COMPS[c]}")
     lay.scatter(ins, a1, lambda c: f"q1.{_G2_COMPS[c]}")
-    out = vm.execute(lay.program, ins, batch_shape=(lay.rows,), device=device)
+    out = vm.execute(lay.program, ins, batch_shape=(lay.rows,), device=device,
+                     mesh=mesh)
     proj = np.zeros((m, 3, 2, _L), dtype=np.uint64)
     for i in range(m):
         r, ns = lay.split(i)
@@ -523,11 +533,11 @@ def hash_to_field_fq2_batch(
 
 
 def hash_to_g2_batch(messages: Sequence[bytes], dst: bytes,
-                     device=None) -> np.ndarray:
+                     device=None, mesh=None) -> np.ndarray:
     """Batched RFC 9380 hash_to_curve: returns (N, 4, L) canonical affine
     G2 limb stacks, bit-identical to ec_to_affine(oracle.hash_to_g2(msg,
-    dst)) per message."""
-    dev = resolve_device(device)
+    dst)) per message. ``mesh`` shards the finishing program's rows."""
+    dev = torch_env.resolve(device, mesh)
     n = len(messages)
     if n == 0:
         return np.zeros((0, 4, _L), dtype=np.uint64)
@@ -546,7 +556,7 @@ def hash_to_g2_batch(messages: Sequence[bytes], dst: bytes,
     if not ok[: 2 * n].all():  # cannot happen for valid parameters
         raise ValueError("SSWU: no square root found")
     q = np.concatenate([x[: 2 * n], y[: 2 * n]], axis=1)  # (2n, 4, L)
-    return _h2g_finish_batch(q[:n], q[n : 2 * n], dev)
+    return _h2g_finish_batch(q[:n], q[n : 2 * n], dev, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -1151,10 +1161,12 @@ def decompress_g2_batch(blobs: Sequence[bytes], device=None) -> List[object]:
 # ---------------------------------------------------------------------------
 
 
-def pubkey_limbs_batch(pubkeys: Sequence[bytes], device=None) -> List[object]:
+def pubkey_limbs_batch(pubkeys: Sequence[bytes], device=None,
+                       mesh=None) -> List[object]:
     """Batched _pubkey_limbs_compute: per item (x_limbs, y_limbs) or a
-    ValueError VALUE (the same messages as the per-item oracle path)."""
-    dev = resolve_device(device)
+    ValueError VALUE (the same messages as the per-item oracle path).
+    ``mesh`` shards the subgroup check's rows."""
+    dev = torch_env.resolve(device, mesh)
     res = decompress_g1_batch(pubkeys, dev)
     live = [i for i, v in enumerate(res) if isinstance(v, tuple)]
     for i, v in enumerate(res):
@@ -1162,18 +1174,19 @@ def pubkey_limbs_batch(pubkeys: Sequence[bytes], device=None) -> List[object]:
             res[i] = ValueError("pubkey is the point at infinity")
     if live:
         pts = np.stack([np.stack(res[i]) for i in live])
-        ok = g1_subgroup_check_batch(pts, dev)
+        ok = g1_subgroup_check_batch(pts, dev, mesh=mesh)
         for j, i in enumerate(live):
             if not ok[j]:
                 res[i] = ValueError("pubkey not in G1 subgroup")
     return res
 
 
-def signature_limbs_batch(signatures: Sequence[bytes],
-                          device=None) -> List[object]:
+def signature_limbs_batch(signatures: Sequence[bytes], device=None,
+                          mesh=None) -> List[object]:
     """Batched _signature_limbs_compute: per item a (4, L) limb stack or a
-    ValueError VALUE (decode errors included, uniformly as values)."""
-    dev = resolve_device(device)
+    ValueError VALUE (decode errors included, uniformly as values).
+    ``mesh`` shards the subgroup check's rows."""
+    dev = torch_env.resolve(device, mesh)
     res = decompress_g2_batch(signatures, dev)
     live = [i for i, v in enumerate(res) if isinstance(v, np.ndarray)]
     for i, v in enumerate(res):
@@ -1181,7 +1194,7 @@ def signature_limbs_batch(signatures: Sequence[bytes],
             res[i] = ValueError("signature is the point at infinity")
     if live:
         pts = np.stack([res[i] for i in live])
-        ok = g2_subgroup_check_batch(pts, dev)
+        ok = g2_subgroup_check_batch(pts, dev, mesh=mesh)
         for j, i in enumerate(live):
             if not ok[j]:
                 res[i] = ValueError("signature not in G2 subgroup")
@@ -1189,8 +1202,9 @@ def signature_limbs_batch(signatures: Sequence[bytes],
 
 
 def message_limbs_batch(messages: Sequence[bytes], dst: bytes,
-                        device=None) -> List[np.ndarray]:
+                        device=None, mesh=None) -> List[np.ndarray]:
     """Batched _message_limbs_compute: per message the (4, L) canonical
-    affine hash-to-G2 limb stack."""
-    pts = hash_to_g2_batch(messages, dst, device)
+    affine hash-to-G2 limb stack (``mesh`` shards the finishing
+    program's rows)."""
+    pts = hash_to_g2_batch(messages, dst, device, mesh=mesh)
     return [pts[i] for i in range(pts.shape[0])]

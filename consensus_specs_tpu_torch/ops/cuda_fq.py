@@ -109,9 +109,12 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     m = a.numel() // fq.NUM_LIMBS
     if m == 0:
         return out
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    rc = _lib().mont_mul_launch(a.data_ptr(), b.data_ptr(), out.data_ptr(), m,
-                                stream)
+    # the C launch runs on the thread's current device: make it the
+    # operands' card, whose stream handle it is given
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = _lib().mont_mul_launch(a.data_ptr(), b.data_ptr(),
+                                    out.data_ptr(), m, stream)
     if rc != 0:
         raise RuntimeError(f"mont_mul kernel launch failed: cudaError {rc}")
     _count_launch()
@@ -163,8 +166,10 @@ def pow_chain(a: torch.Tensor, exp_bits) -> torch.Tensor:
     if a.device.type != "cuda":
         raise ValueError(f"pow_chain: operand on {a.device}")
     stream = torch.cuda.current_stream(a.device)
-    key = (a.device, stream.cuda_stream, tuple(a.shape), tuple(exp_bits))
-    with _CHAINS_LOCK:
+    # keyed by the card's index: "cuda" and "cuda:0" are one card
+    key = (stream.device, stream.cuda_stream, tuple(a.shape),
+           tuple(exp_bits))
+    with _CHAINS_LOCK, torch.cuda.device(a.device):
         entry = _CHAINS.get(key)
         if entry is None:
             out = fq.pow_fixed_steps(a, exp_bits)

@@ -92,16 +92,19 @@ def _check_instr(regs: torch.Tensor, instr) -> None:
 def launch(lib: ctypes.CDLL, regs: torch.Tensor, instr) -> None:
     """One launch of ``lib``'s step kernel (a ``bind``-typed build of
     csrc/vm_step.cu) over every step of ``instr`` on the CUDA register
-    file ``regs``, on the current stream, with its scratch; raises if the
-    launch is refused. Counts nothing: ``run_steps`` is the wrapper."""
+    file ``regs``, on regs' card and its current stream, with its scratch;
+    raises if the launch is refused. Counts nothing: ``run_steps`` is the wrapper."""
     n_steps, w_mul = instr[0].shape
     rows, n_regs, _ = regs.shape
     compact = torch.empty(lib.vm_scratch_words(rows, n_regs),
                           dtype=torch.int32, device=regs.device)
-    stream = torch.cuda.current_stream(regs.device).cuda_stream
-    rc = lib.vm_run_steps(regs.data_ptr(), compact.data_ptr(), rows, n_regs,
-                          *(x.data_ptr() for x in instr),
-                          w_mul, instr[3].shape[1], n_steps, stream)
+    # the C launch runs on the thread's current device: make it regs'
+    # card, whose stream handle it is given
+    with torch.cuda.device(regs.device):
+        stream = torch.cuda.current_stream(regs.device).cuda_stream
+        rc = lib.vm_run_steps(regs.data_ptr(), compact.data_ptr(), rows,
+                              n_regs, *(x.data_ptr() for x in instr),
+                              w_mul, instr[3].shape[1], n_steps, stream)
     if rc != 0:
         raise RuntimeError(f"vm_step kernel launch failed: cudaError {rc}")
 

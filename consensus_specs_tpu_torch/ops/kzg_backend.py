@@ -35,8 +35,8 @@ from typing import Sequence
 
 import numpy as np
 
-from ..device import resolve_device
 from ..utils import bls12_381 as O
+from ..utils import torch_env
 from . import fq, vm
 from .bls_backend import (
     _G2GEN_LIMBS,
@@ -81,18 +81,19 @@ def _g2_limbs(pt):
 
 def batch_verify_point_proofs(setup, commitments: Sequence, proofs: Sequence,
                               zs: Sequence[int], ys: Sequence[int],
-                              device=None) -> np.ndarray:
+                              device=None, mesh=None) -> np.ndarray:
     """N independent `verify_point_proof` checks in one device pipeline.
     ``commitments``/``proofs`` are oracle G1 points; ``zs``/``ys`` scalar
     field ints. ``device=None`` runs on the CUDA card (and raises without
-    one), ``device="cpu"`` the plain steps."""
-    dev = resolve_device(device)
+    one), ``device="cpu"`` the plain steps. With ``mesh``, the batch's
+    rows shard over its slots."""
+    dev = torch_env.resolve(device, mesh)
     n = len(commitments)
     assert len(proofs) == n and len(zs) == n and len(ys) == n
     if n == 0:
         return np.zeros(0, dtype=bool)
 
-    lay = _FoldLayout("aggregate_verify", 2, n)
+    lay = _FoldLayout("aggregate_verify", 2, n, mesh)
     prA, rows, nb = lay.program, lay.rows, lay.nb
     L = fq.NUM_LIMBS
 
@@ -138,7 +139,8 @@ def batch_verify_point_proofs(setup, commitments: Sequence, proofs: Sequence,
         lay.scatter(ins, pk_z, lambda j: f"pk{j}.z")
         lay.scatter(ins, hm, lambda j, ci: f"h{j}.{_G2_COMPS[ci]}")
         lay.scatter(ins, sg, lambda ci: f"sig.{_G2_COMPS[ci]}")
-        out = vm.execute(prA, ins, batch_shape=(rows,), device=dev)
+        out = vm.execute(prA, ins, batch_shape=(rows,), device=dev,
+                         mesh=mesh)
         g_batch = np.zeros((nb, 12, L), dtype=np.uint64)
         usable = active.copy()
         for i in range(nb):
@@ -154,7 +156,7 @@ def batch_verify_point_proofs(setup, commitments: Sequence, proofs: Sequence,
                 continue
             for j in range(12):
                 g_batch[i, j] = fq.to_mont_int(g[j])
-        ok = _run_hard_part(g_batch, dev)
+        ok = _run_hard_part(g_batch, dev, mesh=mesh)
         out_ok = ok & usable
 
     for i, verdict in oracle_fallback.items():

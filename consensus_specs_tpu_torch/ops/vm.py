@@ -821,10 +821,15 @@ class Program:
                     raise ValueError("register index out of range")
             t = lambda x, dt: torch.from_numpy(
                 np.ascontiguousarray(x, dtype=dt)).to(device)
-            cache[key] = (t(msa, np.int32), t(msb, np.int32),
-                          t(msd, np.int32), t(lsa, np.int32),
-                          t(lsb, np.int32), t(lsub, np.uint8),
-                          t(lsd, np.int32))
+            uploaded = (t(msa, np.int32), t(msb, np.int32),
+                        t(msd, np.int32), t(lsa, np.int32),
+                        t(lsb, np.int32), t(lsub, np.uint8),
+                        t(lsd, np.int32))
+            if device.type == "cuda":
+                # other streams (a mesh's slots, the service's stages)
+                # read them next: let the upload land first
+                torch.cuda.current_stream(device).synchronize()
+            cache[key] = uploaded
         return cache[key]
 
 
@@ -871,7 +876,7 @@ def _init_regs(program: Program, stacked: np.ndarray,
 
 
 def execute(program: Program, inputs: Dict[str, np.ndarray], batch_shape=(),
-            device=None) -> Dict[str, np.ndarray]:
+            device=None, mesh=None) -> Dict[str, np.ndarray]:
     """Run an assembled program. Input arrays are canonical Montgomery
     limb arrays of shape batch_shape + (15,). Returns the named outputs as
     uint64 arrays (loose, bounded < 2^382), like the JAX package's
@@ -880,45 +885,63 @@ def execute(program: Program, inputs: Dict[str, np.ndarray], batch_shape=(),
     ``device=None`` runs on the CUDA card (every step through the fused
     step kernel); ``device="cpu"`` runs the plain PyTorch steps.
 
+    ``mesh`` (a ``utils/torch_env.Mesh``) shards the leading row axis
+    over all of its slots: ``batch_shape[0]`` must divide by the slot
+    count, or the call raises. Slot i takes the i-th contiguous block of
+    rows, staged on its device and run on its stream (one kernel launch
+    a slot on the card); the instruction stream is replicated and the
+    step needs no exchange between slots. Every slot's stream is
+    synchronized before the timer stops, and the outputs are gathered
+    in slot order. A ``device`` that is not one of the mesh's raises.
+
     Route (CONSENSUS_SPECS_TPU_VM_EXEC, ops/vm_compile.py): ``interp``
     runs the steps; ``fused`` the straight-line lowering (the same
     schedule, limb-identical outputs; on the card its Montgomery products
     are launches of the Montgomery kernel in CUDA graphs); ``auto``
     (default) takes fused only where its units are built for this call's
-    rows and stream and its measured ms/row beats the interpreter's. A
+    rows and streams and its measured ms/row beats the interpreter's. A
     failure in the fused route falls back to the interpreter with a
     ``vm/fused_fallback`` flight event.
 
     Each call is timed under ``vm[steps=...,regs=...,batch=...,sharded=
-    False]`` in ``ops/profiling``, noted on its device's lane of the
-    occupancy ledger (``obs/devices.py``), in the route's ms/row ledger
-    and, with tracing on, in the tracer (``obs/tracing.py``). The card is
-    synchronized before the interval ends, so it covers the card's work."""
+    ...]`` in ``ops/profiling``, noted on its device's lane (each slot's
+    lane under a mesh) of the occupancy ledger (``obs/devices.py``), in
+    the route's ms/row ledger and, with tracing on, in the tracer
+    (``obs/tracing.py``). The card is synchronized before the interval
+    ends, so it covers the card's work."""
     from ..obs import devices, tracing
+    from ..utils import torch_env
     from . import profiling, vm_compile
 
-    dev = resolve_device(device)
+    dev = torch_env.resolve(device, mesh)
     batch_shape = tuple(int(d) for d in batch_shape)
     rows = int(np.prod(batch_shape)) if batch_shape else 1
+    sharded = mesh is not None
+    if sharded and (not batch_shape or batch_shape[0] % mesh.size):
+        raise ValueError(f"batch {batch_shape} does not shard over "
+                         f"{mesh.size} slots")
     label = (f"vm[steps={program.n_steps},regs={program.n_regs},"
-             f"batch={batch_shape},sharded=False]")
+             f"batch={batch_shape},sharded={sharded}]")
     path = "interp"
     compile_inclusive = False
     t0 = time.perf_counter()
     with profiling.timed(label):
         stacked = program.stack_inputs(inputs, batch_shape).reshape(
             (rows, len(program.input_names), fq.NUM_LIMBS))
+        sig = (vm_compile.mesh_shape_sig(rows, mesh) if sharded
+               else vm_compile.shape_sig(batch_shape, dev))
         out = None
-        if vm_compile.use_fused(
-                program, shape_sig=vm_compile.shape_sig(batch_shape, dev)):
+        if vm_compile.use_fused(program, shape_sig=sig):
             try:
                 out, compile_inclusive = vm_compile.run_fused(
-                    program, stacked, dev)
+                    program, stacked, dev, mesh=mesh)
                 path = "fused"
             except Exception as e:
                 vm_compile.note_fallback(program, e)
                 out = None
-        if out is None:
+        if out is None and sharded:
+            out = _execute_mesh(program, stacked, mesh)
+        elif out is None:
             regs = _init_regs(program, stacked, dev)
             cuda_step.run_steps(regs, program.device_instr(dev))
             out_idx = torch.as_tensor(program.output_regs.astype(np.int64),
@@ -935,12 +958,38 @@ def execute(program: Program, inputs: Dict[str, np.ndarray], batch_shape=(),
     if tracing.trace_enabled():
         tracing.global_tracer().note_execution(
             steps=program.n_steps, regs=program.n_regs, batch=batch_shape,
-            sharded=False, t0=t0, seconds=dt)
+            sharded=sharded, t0=t0, seconds=dt)
     ledger = devices.maybe_ledger()
     if ledger is not None:
         ledger.note_execution(dev, t0, dt,
-                              label=f"vm[steps={program.n_steps}]")
+                              label=f"vm[steps={program.n_steps}]",
+                              mesh=mesh)
     out = out.reshape(batch_shape + out.shape[1:])
     return {
         name: out[..., i, :] for i, name in enumerate(program.output_names)
     }
+
+
+def _execute_mesh(program: Program, stacked: np.ndarray,
+                  mesh) -> torch.Tensor:
+    """The interpreter over a mesh: slot i's contiguous block of rows
+    staged on its device and run on its stream (every slot's launch is
+    issued before any slot is waited on), then every slot's stream
+    synchronized and the outputs gathered in slot order on the CPU."""
+    block = stacked.shape[0] // mesh.size
+    out_idx = program.output_regs.astype(np.int64)
+    outs = []
+    for slot in mesh.slots:
+        with slot.context():
+            regs = _init_regs(
+                program, stacked[slot.index * block:(slot.index + 1) * block],
+                slot.device)
+            cuda_step.run_steps(regs, program.device_instr(slot.device))
+            outs.append(regs[:, torch.as_tensor(out_idx,
+                                                device=slot.device), :])
+    gathered = []
+    for slot, o in zip(mesh.slots, outs):
+        with slot.context():
+            slot.synchronize()
+            gathered.append(o.cpu())
+    return torch.cat(gathered)

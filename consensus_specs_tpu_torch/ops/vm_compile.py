@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils import torch_env
 from . import fq, vm_analysis
 
 # bump when the lowering's code or plan format changes: re-keys every fused
@@ -411,13 +412,9 @@ def _const_block(vals: List[int]) -> np.ndarray:
     return block
 
 
-def _canon(dev) -> torch.device:
-    """``dev`` with its index: "cuda" and "cuda:0" name one card, and the
-    per-device caches key on the name."""
-    dev = torch.device(dev)
-    if dev.type == "cuda" and dev.index is None:
-        return torch.device("cuda", torch.cuda.current_device())
-    return dev
+# "cuda" and "cuda:0" name one card, and the per-device caches key on the
+# name: every key takes the device with its index
+_canon = torch_env.canonical
 
 
 def shape_sig(batch_shape, device) -> tuple:
@@ -430,6 +427,17 @@ def shape_sig(batch_shape, device) -> tuple:
         return (rows, None)
     s = torch.cuda.current_stream(dev)
     return (rows, (s.device.index, s.cuda_stream))
+
+
+def mesh_shape_sig(rows: int, mesh) -> tuple:
+    """A sharded execution's signature: ("mesh", each slot's signature
+    (its rows, its device and this thread's stream of it))."""
+    block = rows // mesh.size
+    sigs = []
+    for slot in mesh.slots:
+        with slot.context():
+            sigs.append(shape_sig((block,), slot.device))
+    return ("mesh",) + tuple(sigs)
 
 
 class FusedProgram:
@@ -872,20 +880,40 @@ def use_fused(program, mode: str = None, shape_sig: tuple = None) -> bool:
         return True  # shape-independent query (tests, diagnostics)
     fp = _FUSED.get(id(program))
     ready = fp is not None and tuple(shape_sig) in fp.seen_shapes
-    if not ready and _bg_warm_enabled():
+    # the background warm builds single-device signatures only (as the
+    # JAX package's warms no sharded one)
+    if not ready and _bg_warm_enabled() and shape_sig[0] != "mesh":
         _bg_enqueue(program, tuple(shape_sig))
     return ready
 
 
-def run_fused(program, stacked: np.ndarray, device):
+def run_fused(program, stacked: np.ndarray, device, mesh=None):
     """Execute through the fused lowering: (rows, n_in, 15) uint64 inputs
-    -> ((rows, n_out, 15) int64 outputs on ``device``, compile_inclusive).
-    The flag marks a first run at this signature, whose wall time includes
+    -> ((rows, n_out, 15) int64 outputs, compile_inclusive). The flag
+    marks a first run at this signature, whose wall time includes
     building units and must not enter the warm ms/row ledger. The card is
     synchronized before the return, inside the caller's fallback net and
-    timer."""
-    dev = torch.device(device)
+    timer. Without ``mesh`` the outputs are on ``device``; with one, slot
+    i's contiguous block of rows runs through that slot's units (keyed by
+    its device, this thread's stream of it and the thread, as every
+    unit) and the outputs are gathered in slot order on the CPU."""
     fp = fused_program(program)
+    if mesh is not None:
+        sig = mesh_shape_sig(stacked.shape[0], mesh)
+        compile_inclusive = sig not in fp.seen_shapes
+        block = stacked.shape[0] // mesh.size
+        outs = []
+        for slot, slot_sig in zip(mesh.slots, sig[1:]):
+            with slot.context():
+                lo = slot.index * block
+                outs.append(fp.run(stacked[lo:lo + block], slot.device).cpu())
+            fp.seen_shapes.add(slot_sig)
+        out = torch.cat(outs)
+        fp.seen_shapes.add(sig)
+        _bump(executions=1)
+        _export_gauges()
+        return out, compile_inclusive
+    dev = torch.device(device)
     sig = shape_sig((stacked.shape[0],), dev)
     compile_inclusive = sig not in fp.seen_shapes
     out = fp.run(stacked, dev)

@@ -78,14 +78,15 @@ def committee_items(registry, slot: int, participation: float = 1.0,
 
 
 def verify_slot(items: Sequence[CommitteeItem], *, slot: int = 0,
-                plane=None, device=None, rng=None) -> SlotReport:
+                plane=None, device=None, rng=None, mesh=None) -> SlotReport:
     """Hierarchically verify one slot's committee aggregates.
 
     ``plane`` (a ``PubkeyPlane``) is warmed with the slot's full pubkey
     column first — batched decompression, byte-budgeted residency — so
     the backend's host prep runs entirely from warm columnar state.
     Verdict semantics are ``batch_verify_rlc``'s: bit-identical to the
-    flat per-committee path on every input."""
+    flat per-committee path on every input. ``mesh`` shards the slot's
+    rows over its slots."""
     from ..ops import bls_backend, profiling
 
     items = list(items)
@@ -98,7 +99,8 @@ def verify_slot(items: Sequence[CommitteeItem], *, slot: int = 0,
 
     before = dict(bls_backend.RLC_STATS)
     t0 = time.perf_counter()
-    verdicts = bls_backend.batch_verify_rlc(items, device=device, rng=rng)
+    verdicts = bls_backend.batch_verify_rlc(items, device=device, rng=rng,
+                                            mesh=mesh)
     verify_s = time.perf_counter() - t0
     after = bls_backend.RLC_STATS
 
@@ -123,7 +125,7 @@ def verify_slot(items: Sequence[CommitteeItem], *, slot: int = 0,
 
 
 def verify_slot_flat(items: Sequence[CommitteeItem],
-                     device=None) -> np.ndarray:
+                     device=None, mesh=None) -> np.ndarray:
     """Flat reference path: every committee finalized individually
     (no RLC fold — N final exps instead of 1). The smoke pins
     hierarchical == flat bit-identity on every traffic mix."""
@@ -137,14 +139,14 @@ def verify_slot_flat(items: Sequence[CommitteeItem],
         v = bls_backend.batch_fast_aggregate_verify(
             [list(it[1]) for _, it in fast],
             [it[2] for _, it in fast],
-            [it[3] for _, it in fast], device=device)
+            [it[3] for _, it in fast], device=device, mesh=mesh)
         for (i, _), ok in zip(fast, v):
             out[i] = bool(ok)
     if agg:
         v = bls_backend.batch_aggregate_verify(
             [list(it[1]) for _, it in agg],
             [list(it[2]) for _, it in agg],
-            [it[3] for _, it in agg], device=device)
+            [it[3] for _, it in agg], device=device, mesh=mesh)
         for (i, _), ok in zip(agg, v):
             out[i] = bool(ok)
     return out

@@ -16,14 +16,22 @@ amortization. Env knobs (the JAX package's names and defaults):
   SERVE_MAX_BATCH, SERVE_MAX_WAIT_MS, SERVE_INJECT_FAILURE (1/0),
   SERVE_SEED, SERVE_METRICS_PORT (opt-in /metrics + /snapshot + /healthz
   endpoint during the run; 0 = ephemeral port, reported in the record)
+With a mesh armed (CONSENSUS_SPECS_TPU_MESH, the bench entry's
+``--mesh``) the record carries ``mesh_devices``, ``mesh_fallbacks``,
+``mesh_warmup_s`` and ``mesh_distinct_devices``. ``run_serve_mesh_sweep``
+(the entry's ``serve-mesh`` mode) runs one serve child a slot count in
+SERVE_MESH_DEVICES (default 1,2,4,8; SERVE_MESH_TIMEOUT, default 900 s).
 
 It also holds the crypto-free pieces that fleet workers in verdict mode,
 and the tests, run on: ``VerdictBackend`` (the verdict rides in the
 signature bytes) and the per-event gossip fault plan.
 """
 import concurrent.futures as cf
+import json
 import os
 import random
+import subprocess
+import sys
 import time
 from collections.abc import Sequence
 from dataclasses import dataclass
@@ -274,6 +282,30 @@ def run_serve_bench(target: float = TARGET_PER_CHIP, device=None) -> dict:
     if not bool(warm_ok[0]):
         raise AssertionError("serve bench warmup verification failed")
 
+    # with a mesh armed (CONSENSUS_SPECS_TPU_MESH / the entry's --mesh),
+    # assemble the sharded shapes' programs outside the timed window too:
+    # flush-shaped RLC batches of warm-only committees (another seed, so
+    # none of their content is in the stream), the corrupted last item
+    # included so the bisection's shapes warm as well. Sizes below the
+    # slot count warm unsharded, as the service routes such flushes
+    from ..utils import torch_env
+
+    warm_mesh = torch_env.maybe_mesh(dev)
+    mesh_warmup_s = 0.0
+    if warm_mesh is not None:
+        t0 = time.perf_counter()
+        warm_items = [
+            ("fast_aggregate", pks, msg, sig)
+            for pks, msg, sig, _ok in build_committees(
+                n_committees, k, seed=seed + 1)
+        ]
+        for size in sorted({len(warm_items), max(1, len(warm_items) // 2),
+                            2, 1}, reverse=True):
+            bls_backend.batch_verify_rlc(
+                warm_items[:size], device=dev,
+                mesh=warm_mesh if size >= warm_mesh.size else None)
+        mesh_warmup_s = time.perf_counter() - t0
+
     backend = FailingBackendProxy(bls_backend) if inject else bls_backend
     svc = VerificationService(
         backend=backend, device=dev, max_batch=max_batch,
@@ -402,6 +434,12 @@ def run_serve_bench(target: float = TARGET_PER_CHIP, device=None) -> dict:
         wrong=wrong,
         profile=profiling.summary(),
     )
+    if svc.mesh_devices:
+        # the single-run mesh record (the per-count rows are the sweep's)
+        result["mesh_devices"] = svc.mesh_devices
+        result["mesh_fallbacks"] = snap["mesh_fallbacks"]
+        result["mesh_warmup_s"] = round(mesh_warmup_s, 3)
+        result["mesh_distinct_devices"] = warm_mesh.distinct_devices
     if devices_section is not None:
         result["devices"] = devices_section
     if exposition is not None:
@@ -409,3 +447,107 @@ def run_serve_bench(target: float = TARGET_PER_CHIP, device=None) -> dict:
         result["metrics_scrape_ok"] = scrape is not None
         result["metrics_scrape_lines"] = len((scrape or "").splitlines())
     return result
+
+
+# -- mesh scaling sweep (the bench entry's ``--mode serve-mesh``) -------------
+
+
+def _parse_last_json_line(stdout: bytes):
+    """Last parseable JSON object in a child's stdout, or None."""
+    parsed = None
+    for line in stdout.decode(errors="replace").strip().splitlines():
+        try:
+            parsed = json.loads(line)
+        except ValueError:
+            continue
+    return parsed
+
+
+def run_serve_mesh_sweep(device=None) -> dict:
+    """The serve plane's mesh matrix: one ``python -m
+    consensus_specs_tpu_torch.bench --mode serve --mesh <d>`` child a slot
+    count in SERVE_MESH_DEVICES (default 1,2,4,8), on ``device`` (None:
+    the card; "cpu": the children run with ``--device cpu``), fault
+    injection off (SERVE_INJECT_FAILURE=0 forced: the sweep measures
+    clean traffic, and an injected failure would make every child's first
+    sharded flush a mesh fallback). Returns the record; its ``mesh``
+    section maps the slot count to {ok, sigs_per_sec,
+    verified_sigs_per_sec, final_exps_per_item, fallbacks, p99_ms, lanes,
+    distinct_devices, efficiency}. Efficiency (sigs/s at d slots over d
+    times the 1-slot sigs/s) is report-only: slots that share one card
+    share its SMs."""
+    dev = resolve_device(device)
+    counts = []
+    for tok in os.environ.get("SERVE_MESH_DEVICES", "1,2,4,8").split(","):
+        tok = tok.strip()
+        if tok and tok.isdigit() and int(tok) > 0:
+            counts.append(int(tok))
+    timeout = float(os.environ.get("SERVE_MESH_TIMEOUT", "900"))
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+
+    rows = {}
+    for d in counts:
+        env = os.environ.copy()
+        env["SERVE_INJECT_FAILURE"] = "0"
+        env["PYTHONPATH"] = os.pathsep.join(
+            [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                      if p])
+        cmd = [sys.executable, "-m", "consensus_specs_tpu_torch.bench",
+               "--mode", "serve", "--mesh", str(d)]
+        if dev.type == "cpu":
+            cmd += ["--device", "cpu"]
+        try:
+            out = subprocess.run(cmd, capture_output=True, timeout=timeout,
+                                 env=env, cwd=root)
+            parsed = _parse_last_json_line(out.stdout)
+        except subprocess.TimeoutExpired:
+            rows[str(d)] = {"ok": False,
+                            "error": f"child exceeded {timeout:.0f}s"}
+            continue
+        if parsed is None or "error" in parsed or parsed.get("value", 0) <= 0:
+            err = (parsed or {}).get("error") or (
+                out.stderr.decode(errors="replace").strip()
+                .splitlines()[-1:] or ["no parseable output"])[0]
+            rows[str(d)] = {"ok": False, "error": str(err)[:300]}
+            continue
+        lanes = {}
+        for lane, entry in (parsed.get("devices") or {}).get(
+                "lanes", {}).items():
+            lanes[lane] = entry.get("utilization", 0.0)
+        rows[str(d)] = {
+            "ok": True,
+            "sigs_per_sec": round(float(parsed["value"]), 2),
+            "verified_sigs_per_sec": parsed.get("verified_sigs_per_sec", 0.0),
+            "final_exps_per_item": parsed.get("final_exps_per_item", 0.0),
+            "fallbacks": parsed.get("mesh_fallbacks", 0),
+            "mesh_devices": parsed.get("mesh_devices", 0),
+            "distinct_devices": parsed.get("mesh_distinct_devices", 1),
+            "p99_ms": parsed.get("p99_ms", 0.0),
+            "launches": parsed.get("launches"),
+            "lanes": lanes,
+        }
+
+    single = rows.get("1", {})
+    base = single.get("sigs_per_sec", 0.0) if single.get("ok") else 0.0
+    for d_str, row in rows.items():
+        d = int(d_str)
+        if row.get("ok") and base > 0 and d > 1:
+            row["efficiency"] = round(row["sigs_per_sec"] / (d * base), 4)
+            row["within_10pct_of_single"] = bool(
+                row["sigs_per_sec"] >= 0.9 * base)
+
+    ok_rows = {d: r for d, r in rows.items() if r.get("ok")}
+    best = max((r["sigs_per_sec"] for r in ok_rows.values()), default=0.0)
+    best_verified = max(
+        (float(r.get("verified_sigs_per_sec") or 0.0)
+         for r in ok_rows.values()), default=0.0)
+    return dict(
+        metric="sustained aggregate BLS signatures served/sec "
+               "(serve, mesh sweep)",
+        value=best,
+        vs_baseline=best_verified / TARGET_PER_CHIP,
+        mode="serve-mesh",
+        device_counts=counts,
+        mesh=rows,
+    )

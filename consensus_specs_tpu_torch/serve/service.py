@@ -29,6 +29,16 @@ stage's kernels are independent streams rather than both queued on the
 legacy default stream. Nothing on the card crosses the hand-off queue:
 the host caches hold numpy arrays and a batch is a list of requests.
 
+Mesh: the service takes its verify mesh (``utils/torch_env.Mesh``) at
+construction: an explicit ``mesh=`` wins, otherwise the process-level
+provider (``torch_env.maybe_mesh``, governed by
+CONSENSUS_SPECS_TPU_MESH; one env read when off). A 1-slot mesh
+collapses to the unsharded path, and a flush narrower than the mesh runs
+unsharded. A flush's RLC check and each group's first attempt run on the
+mesh; a failure there costs one ``mesh_fallbacks`` and a
+``degraded_mesh_to_single`` flight event, and the single-device path
+answers (ladder rung 0).
+
 Robustness: a device error on a flush is retried once (transient); an
 RLC failure then moves the flush to the per-group batched path (its own
 retry), and a per-group failure degrades the group to the pure-Python
@@ -61,6 +71,7 @@ import torch
 from ..device import resolve_device
 from ..obs import devices, flight, latency, tracing
 from ..ops import profiling
+from ..utils import torch_env
 from .cache import ResultCache, check_key
 from .metrics import ServeMetrics
 
@@ -190,11 +201,22 @@ class VerificationService:
                  max_batch: int = 256, max_wait_ms: float = 20.0,
                  max_queue: int = 4096, cache_capacity: int = 1 << 16,
                  backend_retries: int = 1, bucket_fn=None, tracer=None,
-                 node=None, slot_clock=None, deadline_margin_ms: float = 2.0):
+                 node=None, slot_clock=None, deadline_margin_ms: float = 2.0,
+                 mesh=None):
         assert max_batch > 0 and max_queue > 0
         self._backend = backend  # None: resolved lazily on first batch
         # resolved once: None is the CUDA card (raises without one)
         self._device = resolve_device(device)
+        # the verify mesh, acquired here: an explicit ``mesh=`` wins,
+        # otherwise the process-level provider (CONSENSUS_SPECS_TPU_MESH);
+        # a 1-slot mesh is the unsharded path
+        if mesh is None:
+            mesh = torch_env.maybe_mesh(self._device)
+        self._mesh = mesh
+        self._mesh_devices = 0 if mesh is None else mesh.size
+        if self._mesh_devices <= 1:
+            self._mesh = None
+            self._mesh_devices = 0
         # one CUDA stream per stage thread on a CUDA device (None on the
         # CPU, where torch.cuda.stream(None) is a no-op)
         cuda = self._device.type == "cuda"
@@ -246,7 +268,7 @@ class VerificationService:
         # node labels the whole metric family (serve[<node>].<name>) so N
         # instances coexist in one process
         self.metrics = ServeMetrics(node=node)
-        self.metrics.note_mesh(0)  # the single-device path
+        self.metrics.note_mesh(self._mesh_devices)  # 0: single-device
         # commanded degradation-ladder rung (load shedding): 0 = normal
         # (RLC combine first), 1 = per-group batched only, 2 = sequential
         # oracle only, moved by set_ladder_rung; the fault-driven
@@ -406,6 +428,11 @@ class VerificationService:
         return self._cache
 
     @property
+    def mesh_devices(self) -> int:
+        """Slots the verify mesh spans (0 = single-device path)."""
+        return self._mesh_devices
+
+    @property
     def slot_clock(self) -> Optional[SlotClock]:
         """The armed slot grid (None = classic size-OR-deadline flush)."""
         return self._slot_clock
@@ -427,6 +454,15 @@ class VerificationService:
             if self._flight is not None:
                 self._flight.note("serve", "shed_rung", rung_from=prev,
                                   rung_to=rung, reason=reason)
+
+    def _flush_mesh(self, n_items: int):
+        """The mesh for an n_items flush, or None when the batch is
+        narrower than the slot count: its rows would pad up to the mesh
+        and run mostly filler, while the single-device programs are
+        already warm. Verdicts are equal either way."""
+        if self._mesh is not None and n_items >= self._mesh_devices:
+            return self._mesh
+        return None
 
     # -- worker -------------------------------------------------------------
 
@@ -653,6 +689,28 @@ class VerificationService:
         if rlc_fn is None or not _rlc_enabled():
             return None
         items = [(p.kind, p.pubkeys, p.messages, p.signature) for p in batch]
+        flush_mesh = self._flush_mesh(len(batch))
+        if flush_mesh is not None:
+            # degradation-ladder rung 0: the mesh-sharded combined check.
+            # A failure here costs one fallback, never the flush: the
+            # single-device RLC below still amortizes the final exp
+            try:
+                t0 = time.perf_counter()
+                res = [bool(r) for r in rlc_fn(items, device=self._device,
+                                               mesh=flush_mesh)]
+                t1 = time.perf_counter()
+                latency.note_stage("combine", t1 - t0)
+                if self._tracer is not None:
+                    self._tracer.span_many((p.trace for p in batch),
+                                           "combine", t0, t1)
+                return res
+            except Exception as e:
+                self.metrics.note_mesh_fallback()
+                if self._flight is not None:
+                    self._flight.note(
+                        "serve", "degraded_mesh_to_single",
+                        items=len(batch), devices=self._mesh_devices,
+                        error=f"{type(e).__name__}: {e}"[:200])
         for attempt in range(1 + self._backend_retries):
             if attempt:
                 self.metrics.note_retry()
@@ -701,7 +759,13 @@ class VerificationService:
                     self._flight.note("serve", "backend_retry",
                                       stage="group", attempt=attempt,
                                       check_kind=kind, items=len(pends))
+            # attempt 0 rides the mesh when one is armed (and the group is
+            # at least mesh-wide); retries drop to the single-device path,
+            # so a mesh fault degrades in one rung
             kwargs = {"device": self._device}
+            group_mesh = self._flush_mesh(len(pends)) if attempt == 0 else None
+            if group_mesh is not None:
+                kwargs["mesh"] = group_mesh
             if wants_flows:
                 kwargs["flows"] = [
                     None if p.trace is None else p.trace.flow
@@ -724,6 +788,14 @@ class VerificationService:
                 return [bool(r) for r in res]
             except Exception as e:  # device/compile/transfer failure
                 last_err = e
+                if group_mesh is not None:
+                    self.metrics.note_mesh_fallback()
+                    if self._flight is not None:
+                        self._flight.note(
+                            "serve", "degraded_mesh_to_single",
+                            stage="group", check_kind=kind,
+                            items=len(pends), devices=self._mesh_devices,
+                            error=f"{type(e).__name__}: {e}"[:200])
         # poisoned batch: degrade to sequential oracle verification —
         # the stream slows down, it does not fail
         profiling.record("serve.backend_error", 0.0)

@@ -1,8 +1,8 @@
 """The port's bench entry (``python -m consensus_specs_tpu_torch.bench``,
 ``bench/entry.main``) on the CPU: each mode not held against the JAX
 package in tests/test_torch_bench.py prints one parseable line with
-``bench.py``'s keys at tiny knobs (vmexec among them); the modes the port
-does not have yet exit 2 naming their ROADMAP item; without a card and
+``bench.py``'s keys at tiny knobs (vmexec among them; the mesh modes are
+in tests/test_torch_mesh_bench.py); without a card and
 without ``--device cpu`` it exits 1 with an error line, and so does the
 finalexp mode on a cell that is not ok (its CPU run is in
 tests/test_torch_finalexp.py); with no ``--mode`` it runs committee then
@@ -91,19 +91,6 @@ def test_mode_prints_one_line_with_the_bench_keys(mode, knobs, fields,
         assert row["ok"] is True, row
         assert row["merge_exact"]["ok"] is True
         assert set(row["worker_kernels"]) == {"w0"}
-
-
-@pytest.mark.parametrize("argv,item", [
-    (["--mode", "committee", "--mesh", "2"], "item 8"),
-    (["--mode", "serve-mesh"], "item 8"),
-    (["--mode", "serve", "--mesh", "4"], "item 8"),
-])
-def test_unported_modes_exit_2_naming_their_roadmap_item(argv, item,
-                                                         monkeypatch):
-    rc, lines = _run(argv + ["--device", "cpu"], monkeypatch)
-    assert rc == 2 and len(lines) == 1
-    assert "ROADMAP Queue 1 " + item in lines[0]["error"]
-    assert lines[0]["value"] == 0.0
 
 
 def test_finalexp_without_a_card_is_an_error_line_and_exit_1(monkeypatch):

@@ -192,10 +192,10 @@ def test_bls_check_on_the_cpu_runs_the_plain_steps(monkeypatch):
     devices = []
     execute = vm.execute
 
-    def recorded(program, inputs, batch_shape=(), device=None):
+    def recorded(program, inputs, batch_shape=(), device=None, mesh=None):
         devices.append(device)
         return execute(program, inputs, batch_shape=batch_shape,
-                       device=device)
+                       device=device, mesh=mesh)
 
     monkeypatch.setattr(vm, "execute", recorded)
     monkeypatch.setattr(port_switch, "bls_active", True)

@@ -2,17 +2,20 @@
 """Run named phases of chip_smoke.py alone, on one NVIDIA GPU.
 
     python3 tools/torch_smoke_phases.py lightclient sim spec_tests gen bench
-    python3 tools/torch_smoke_phases.py vmexec twins finalexp
+    python3 tools/torch_smoke_phases.py vmexec twins finalexp mesh
+    python3 tools/torch_smoke_phases.py --no-kernels kzg forks lightclient
 
 Builds the port's kernels (chip_smoke's build), then runs each named phase
-that needs no earlier phase's output (``lightclient``, ``sim``,
-``spec_tests``, ``gen``, ``bench``, ``vmexec``, ``twins`` and
-``finalexp``; the first with a spawn pool of its own), each printing
+that needs no earlier phase's output (``kzg``, ``forks``,
+``lightclient``, ``sim``, ``spec_tests``, ``gen``, ``bench``, ``vmexec``,
+``twins``, ``finalexp`` and ``mesh``; the first three with a key pool of
+their own), each printing
 chip_smoke's JSON line for it, with every (program,
 rows) the phase launched the step kernel at noted, and last the
 ``kernels`` line that holds each such shape's first 256 steps against the
 plain steps (max |err| 0 required) and times the whole stream, as
-chip_smoke's last phase does. Programs are assembled
+chip_smoke's last phase does; ``--no-kernels`` leaves that line out, to
+time the phases alone. Programs are assembled
 cold (nothing earlier ran), so a phase's first card calls take longer
 than inside the whole smoke. Exit 0 when every phase passed.
 """
@@ -29,6 +32,9 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def main(names):
     import torch
 
+    kernels_line = "--no-kernels" not in names
+    names = [n for n in names if n != "--no-kernels"]
+
     if not torch.cuda.is_available():
         print("torch_smoke_phases: no CUDA device", file=sys.stderr)
         return 2
@@ -37,8 +43,8 @@ def main(names):
     from consensus_specs_tpu_torch.ops import bls_backend, cuda_build, vm
     from consensus_specs_tpu_torch.utils.keygen import KeyPool
 
-    phases = ("lightclient", "sim", "spec_tests", "gen", "bench", "vmexec",
-              "twins", "finalexp")
+    phases = ("kzg", "forks", "lightclient", "sim", "spec_tests", "gen", "bench", "vmexec",
+              "twins", "finalexp", "mesh")
     unknown = [n for n in names if n not in phases]
     if unknown or not names:
         print(f"torch_smoke_phases: phases are {', '.join(phases)}, "
@@ -80,10 +86,11 @@ def main(names):
                                                            shapes)
                 cs._emit({**line, "elapsed_s": time.perf_counter() - t0})
                 continue
-            if phase in ("spec_tests", "gen", "finalexp"):
+            if phase in ("spec_tests", "gen", "finalexp", "mesh"):
                 run = {"spec_tests": cs.phase_spec_tests,
                        "gen": cs.phase_gen,
-                       "finalexp": cs.phase_finalexp}[phase]
+                       "finalexp": cs.phase_finalexp,
+                       "mesh": cs.phase_mesh}[phase]
                 with cs._patched(bls_backend, "_program", program_wrap), \
                         cs._patched(vm, "execute", execute_wrap):
                     line, launches[phase] = run(torch, card)
@@ -94,11 +101,19 @@ def main(names):
             with KeyPool() as pool, \
                     cs._patched(bls_backend, "_program", program_wrap), \
                     cs._patched(vm, "execute", execute_wrap):
-                line, launches[phase], smoke_shapes = cs.phase_lightclient(
-                    torch, pool, card)
+                if phase in ("kzg", "forks"):
+                    run = cs.phase_kzg if phase == "kzg" else cs.phase_forks
+                    line, launches[phase] = run(torch, pool, card)
+                    smoke_shapes = {}
+                else:
+                    line, launches[phase], smoke_shapes = \
+                        cs.phase_lightclient(torch, pool, card)
             for key, shape in smoke_shapes.items():
                 shapes.setdefault(key, shape)
             cs._emit({**line, "elapsed_s": time.perf_counter() - t0})
+        if not kernels_line:
+            print(json.dumps({"ok": True, "phases": names}))
+            return 0
         streams = cs.phase_path_streams(torch, dev, rng, imad_rate, l2_ns,
                                         path_shapes, [])
         cs._emit({"phase": "kernels", "paths": list(path_shapes),
