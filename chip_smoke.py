@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Drives ``consensus_specs_tpu_torch`` (never jax, never the JAX package)
-through twenty-five phases, each printing one JSON line:
+through twenty-six phases, each printing one JSON line:
 
   1. build   -- compile every CUDA kernel of the port from csrc/ with nvcc
                for sm_90a (one nvcc per source, all started together);
@@ -141,7 +141,7 @@ through twenty-five phases, each printing one JSON line:
                are the point at infinity) and a z == tau item, through
                kzg_backend.batch_verify_point_proofs on the card (PROG A
                aggregate_verify k2 fold 8 on 32 rows, the hard part fold
-               32 on 8 rows): cold, then twice warm, every verdict the
+               32 on 8 rows): cold, then once warm, every verdict the
                constructed truth, each wall split into host scalar prep,
                vm.execute, step kernels, easy part and hard part; the
                exact-int oracle agreeing on the 10 planted or edge items
@@ -166,8 +166,8 @@ through twenty-five phases, each printing one JSON line:
                (an aggregate over another message; a header with another
                header's signature; a masked reveal over another message)
                flagged alone, the oracle agreeing.
-Phases 9-14 and 16 build their keys, signatures and KZG proofs in a pool
-of spawned processes (utils/keygen.py).
+Phases 9-14, 16 and 25 build their keys, signatures and KZG proofs in a
+pool of spawned processes (utils/keygen.py).
  15. fleet   -- the serve fleet on the card: FleetRouter with 2 bls worker
                processes (each its own CUDA context). (a) the port's
                serve/fleet_smoke.main: verdict identity fleet ==
@@ -197,7 +197,7 @@ of spawned processes (utils/keygen.py).
                full: validate_light_client_update (the switchboard on the
                card), the combined multiproof, and the finality branch
                against a state re-Merkleized from a fresh decode_bytes.
-               Then 100,000 requests (the 1 build among them) round-robin
+               Then 20,000 requests (the 1 build among them) round-robin
                from 4 threads, each paying is_valid_merkle_branch: hit
                rate (N - R)/N, proofs served/s, p50/p99 proof_serve. An
                update signed under a wrong key (verified False, the spec's
@@ -261,7 +261,7 @@ of spawned processes (utils/keygen.py).
                at 1 and 2 workers, serve-mesh (one serve child on the
                card and one on a 4-slot mesh of it: every row ok, no
                mesh fallback, each child launching kernel 1), latency,
-               soak (8 epochs), merkle, proofs and sim. Each mode's line
+               soak (4 epochs), merkle, proofs and sim. Each mode's line
                must carry no error,
                platform gpu and the card's name, every gate flag true and
                no ladder record (serve injects its fault on purpose);
@@ -332,8 +332,26 @@ of spawned processes (utils/keygen.py).
                lane's utilization); P3, VerificationService(mesh=) on the
                P1 checks and serve/mesh_smoke.main. Any mesh-reduce
                fallback, degraded, retry or ladder record fails it.
- 25. kernels -- every program and row count that phases 9-16, 18-20, 23
-               and 24 launched the step kernel at (noted during those
+ 25. wide_aggregate -- the wide AggregateVerify programs, PROG A
+               aggregate_verify k512 fold 2 and k2048 fold 1 (121,600
+               and 241,920 steps): built cold from the start of the smoke
+               in child processes (``chip_smoke.py --build-program``, one
+               program after the other, the card hidden from them) into
+               this checkout's program cache while phases 1-24 run; the
+               phase waits for them (failing if a child failed or they are
+               not done 1,000 s into the smoke) and loads both from disk.
+               At each bucket three checks of fresh keys, each signing its
+               own distinct message (2,560 pairs signed in the key pool):
+               valid, the last pair dropped, one message changed, through
+               batch_aggregate_verify, batch_verify_rlc ("aggregate"
+               items) and scale/hierarchy.verify_slot, first and warm,
+               verdicts [True, False, False] every time; no oracle call,
+               ladder record or fused fallback. Prints each child's build
+               seconds and peak RSS, each program's registers and shared
+               memory against the step kernel's limit, and each run's
+               wall split.
+ 26. kernels -- every program and row count that phases 9-16, 18-20 and
+               23-25 launched the step kernel at (noted during those
                phases; a sharded run at each slot's rows)
                and that no earlier phase checked: the first 256 steps on
                random canonical inputs limb for limb against the plain
@@ -2176,7 +2194,9 @@ def phase_serve(torch, card):
 
 WIDE_KS = (512, 2048)  # the sync committee, the mainnet-max committee
 NORTH_STAR_EPOCH_S = 2.0  # BASELINE: one mainnet epoch's checks in < 2 s
-EPOCH_WARM_RUNS = 2
+# one warm run a route: a second one cost 5.9 s of a whole smoke on an
+# H100 at 700 W (3.0 + 1.0 + 1.9 s), cut to pay for phase wide_aggregate
+EPOCH_WARM_RUNS = 1
 MAINNET_VALIDATORS = 1 << 20  # 64 committees of 512
 MAINNET_RSS_BUDGET_MB = 8192  # the JAX package's bench/mainnet.py default
 SCALE_SMOKE_VALIDATORS = 8192  # the port's scale/smoke.py default
@@ -2236,6 +2256,298 @@ def phase_wide(torch, pool, card):
             "setup_s": setup_s, "verdicts": want, "verdicts_exact": True,
             **{entry: runs for entry, runs in entry_runs.items()}})
     return {"phase": "wide", "buckets": buckets, **card}, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 25: the wide AggregateVerify programs, built cold beside the smoke
+# ---------------------------------------------------------------------------
+
+WIDE_AGG_SEED = SEED + 8  # the wide AggregateVerify signers' secret keys
+# valid, a signer dropped, a message changed
+WIDE_AGG_WANT = [True, False, False]
+# seconds since the smoke started by which the builds must be done: past
+# it the phase and the closing kernels line would not fit in 1,200 s
+WIDE_AGG_DEADLINE_S = 1000.0
+# the step kernel's shared memory: the stamps' offset at 96 x 192 lanes
+# (csrc/vm_step.cu vm_stamps_offset) plus one int32 stamp a register,
+# against VM_MAX_SMEM
+VM_STAMPS_OFFSET = 30720
+VM_MAX_SMEM = 232448
+
+
+def build_program_child(kind, k, fold):
+    """The child's side of _WideBuilds: assemble one program through
+    bls_backend._program (its own .vm_cache_torch/ entry, written for the
+    smoke's process to load), then print one JSON line of its steps,
+    registers, seconds and peak RSS. Runs on the host alone: the card is
+    hidden from it."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    sys.path.insert(0, HERE)
+    from consensus_specs_tpu_torch.obs import programs as obs_programs
+    from consensus_specs_tpu_torch.ops import bls_backend, vm
+    from consensus_specs_tpu_torch.scale.pubkeys import peak_rss_bytes
+
+    if vm.native_sched() is None:
+        print("chip_smoke: the native scheduler did not build",
+              file=sys.stderr)
+        return 1
+    t0 = time.perf_counter()
+    prog, got = bls_backend._program(kind, int(k), int(fold))
+    _emit({"kind": kind, "k": int(k), "fold": got,
+           "steps": int(prog.n_steps), "registers": int(prog.n_regs),
+           "build_s": time.perf_counter() - t0,
+           "vm_cache": obs_programs.PROGRAMS[
+               f"{kind}[k={k},fold={got}]"]["vm_cache"],
+           "peak_rss_mb": peak_rss_bytes() / (1 << 20)})
+    return 0
+
+
+class _WideBuilds:
+    """Builds the PROG A program of WIDE_AGG_WANT's checks at each of
+    WIDE_KS (``aggregate_verify`` at the fold ``_fold_for`` gives: k512
+    fold 2, k2048 fold 1) cold in child processes (``chip_smoke.py
+    --build-program``), one after the other so that one build's memory is
+    returned before the next starts, on a thread of this process, while
+    the smoke's phases run. ``wait`` fails the smoke on a child that
+    failed or did not finish in time; ``stop`` kills a running child."""
+
+    def __init__(self):
+        import threading
+
+        from consensus_specs_tpu_torch.ops import bls_backend
+
+        n = len(WIDE_AGG_WANT)
+        self.programs = tuple(
+            ("aggregate_verify", k,
+             bls_backend._fold_for("aggregate_verify", k, n))
+            for k in WIDE_KS)
+        self.results, self.error, self.done_s = [], None, None
+        # held while a child is started and while stop() reads it, so no
+        # child starts after stop()
+        self._lock = threading.Lock()
+        self._proc, self._stopped = None, False
+        self._t0 = time.perf_counter()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        for kind, k, fold in self.programs:
+            t0 = time.perf_counter()
+            with self._lock:
+                if self._stopped:
+                    return
+                self._proc = subprocess.Popen(
+                    [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                     "--build-program", kind, str(k), str(fold)],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)
+            out, err = self._proc.communicate()
+            if self._proc.returncode != 0:
+                self.error = (f"{kind} k{k} fold {fold}: child exit "
+                              f"{self._proc.returncode}: {err[-2000:]}")
+                return
+            line = json.loads(out.strip().splitlines()[-1])
+            line["wall_s"] = time.perf_counter() - t0
+            line["done_at_s"] = time.perf_counter() - self._t0
+            self.results.append(line)
+        self.done_s = time.perf_counter() - self._t0
+
+    def wait(self, deadline_s):
+        """Block until every build is done or ``deadline_s`` seconds after
+        the builds started; returns the seconds waited."""
+        t0 = time.perf_counter()
+        self._thread.join(max(0.0, deadline_s - (t0 - self._t0)))
+        waited = time.perf_counter() - t0
+        _check(not self._thread.is_alive(),
+               f"wide_aggregate: the program builds were not done "
+               f"{deadline_s:.0f} s after they started ({self.results})")
+        _check(self.error is None, f"wide_aggregate: {self.error}")
+        return waited
+
+    def stop(self):
+        with self._lock:
+            self._stopped = True
+            proc = self._proc
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def _aggregate_sign_chunk(job):
+    """The sum of Sign(sk_i, m_i) over one chunk of (sk, message) pairs, in
+    a spawned worker of the key pool, compressed: the chunks' sums
+    aggregate to the AggregateVerify signature of all the pairs."""
+    from consensus_specs_tpu_torch.utils.bls12_381 import (
+        ec_add, ec_mul, ec_to_affine, g2_to_bytes, hash_to_g2)
+
+    pairs, dst = job
+    acc = None
+    for sk, msg in pairs:
+        pt = ec_mul(hash_to_g2(msg, dst), sk)
+        acc = pt if acc is None else ec_add(acc, pt)
+    return g2_to_bytes(ec_to_affine(acc))
+
+
+def wide_aggregate_inputs(pool):
+    """The three checks of each wide bucket: k fresh keys, each signing its
+    own distinct 32-byte message, with the aggregate signature (valid);
+    the same with the last pair dropped; the same with one message
+    changed. Keys and signatures from the key pool."""
+    import hashlib
+
+    from consensus_specs_tpu_torch.utils import bls
+
+    t0 = time.perf_counter()
+    # distinct 32-bit secret keys: a Sign's G2 multiply by one costs ~2 ms
+    # against ~20 ms by a full-width key, beside ~17 ms of hash to G2
+    drawn = random.Random(WIDE_AGG_SEED).sample(range(1, 1 << 32),
+                                                sum(WIDE_KS))
+    sks, at = {}, 0
+    for k in WIDE_KS:
+        sks[k], at = drawn[at:at + k], at + k
+    pks = pool.sk_to_pk(drawn)
+    keys_s = time.perf_counter() - t0
+    msgs = {k: [hashlib.sha256(b"wide_aggregate %d %d" % (k, i)).digest()
+                for i in range(k)] for k in WIDE_KS}
+    t1 = time.perf_counter()
+    jobs = {k: [(list(zip(sks[k][i:i + 64], msgs[k][i:i + 64])), bls.DST)
+                for i in range(0, k, 64)] for k in WIDE_KS}
+    partials = pool.map(_aggregate_sign_chunk,
+                        [j for k in WIDE_KS for j in jobs[k]])
+    sign_s = time.perf_counter() - t1
+    checks, lo, at = {}, 0, 0
+    for k in WIDE_KS:
+        sig = bls.Aggregate(partials[at:at + len(jobs[k])])
+        at += len(jobs[k])
+        pk = pks[lo:lo + k]
+        lo += k
+        m = msgs[k]
+        j = k // 2
+        changed = m[:j] + [bytes([m[j][0] ^ 1]) + m[j][1:]] + m[j + 1:]
+        checks[k] = [(pk, m, sig), (pk[:-1], m[:-1], sig),
+                     (pk, changed, sig)]
+    return {"checks": checks, "keys_s": keys_s, "sign_s": sign_s,
+            "pairs": sum(WIDE_KS), "setup_s": time.perf_counter() - t0}
+
+
+def phase_wide_aggregate(torch, card, inputs, builds,
+                         deadline_s=WIDE_AGG_DEADLINE_S):
+    """The wide AggregateVerify programs (aggregate_verify k512 fold 2 and
+    k2048 fold 1, built cold by ``builds`` beside the earlier phases): at
+    each bucket the three checks of ``inputs`` through
+    batch_aggregate_verify, batch_verify_rlc ("aggregate" items) and
+    scale/hierarchy.verify_slot, first then warm, every verdict
+    WIDE_AGG_WANT. The first call loads each program from the children's
+    disk cache. No oracle call, ladder record or fused fallback. Fails if
+    the builds are not done ``deadline_s`` after they started."""
+    from consensus_specs_tpu_torch.obs import programs as obs_programs
+    from consensus_specs_tpu_torch.ops import bls_backend, cuda_step, vm_compile
+    from consensus_specs_tpu_torch.scale import hierarchy
+    from consensus_specs_tpu_torch.scale.pubkeys import peak_rss_bytes
+    from consensus_specs_tpu_torch.utils import bls
+
+    waited_s = builds.wait(deadline_s)
+    oracle_calls = {}
+
+    def counted(name):
+        def wrap(fn):
+            def wrapped(*args, **kwargs):
+                oracle_calls[name] = oracle_calls.get(name, 0) + 1
+                return fn(*args, **kwargs)
+            return wrapped
+        return wrap
+
+    fallbacks0 = vm_compile._COUNTERS["fallbacks"]
+    launches, buckets = {}, []
+    with contextlib.ExitStack() as stack:
+        for module, name in ((bls, "oracle_verify"),
+                             (bls, "oracle_fast_aggregate_verify"),
+                             (bls, "oracle_aggregate_verify"),
+                             (bls_backend, "_hard_part_is_one_oracle")):
+            stack.enter_context(_patched(module, name, counted(name)))
+        for (kind, k, fold), built in zip(builds.programs, builds.results):
+            checks = inputs["checks"][k]
+            pks, msgs, sigs = (list(x) for x in zip(*checks))
+            calls = {
+                "batch_aggregate_verify":
+                    lambda: bls_backend.batch_aggregate_verify(pks, msgs,
+                                                               sigs),
+                "batch_verify_rlc": lambda: bls_backend.batch_verify_rlc(
+                    [("aggregate", p, m, s) for p, m, s in checks],
+                    rng=random.Random(SEED)),
+                "verify_slot": lambda: hierarchy.verify_slot(
+                    [("aggregate", p, m, s) for p, m, s in checks],
+                    rng=random.Random(SEED)).verdicts,
+            }
+            entry_runs = {}
+            for entry, call in calls.items():
+                runs = {}
+                for label in ("first", "warm"):
+                    ladder0 = _ladder_records()
+                    got, split = _split_run(torch, call)
+                    got = [bool(g) for g in got]
+                    _check(got == WIDE_AGG_WANT,
+                           f"wide_aggregate k{k} {entry} {label}: verdicts "
+                           f"{got}, want {WIDE_AGG_WANT}")
+                    ladder = _ladder_records()
+                    _check(ladder == ladder0,
+                           f"wide_aggregate k{k} {entry} {label}: ladder "
+                           f"records {ladder}")
+                    _add_counts(launches, split)
+                    runs[label] = split
+                entry_runs[entry] = runs
+            key = f"{kind}[k={k},fold={fold}]"
+            resolved = obs_programs.PROGRAMS.get(key, {})
+            _check(resolved.get("vm_cache") == "hit",
+                   f"wide_aggregate k{k}: {key} was not loaded from the "
+                   f"children's disk cache ({resolved})")
+            prog, _ = bls_backend._program(kind, k, fold)
+            _check((prog.n_steps, prog.n_regs)
+                   == (built["steps"], built["registers"]),
+                   f"wide_aggregate k{k}: loaded {prog.n_steps} steps, "
+                   f"{prog.n_regs} registers; the child built {built}")
+            smem = VM_STAMPS_OFFSET + 4 * prog.n_regs
+            threads = cuda_step.block_threads(
+                bls_backend.W_MUL, bls_backend.W_LIN, prog.n_regs,
+                prog.n_steps)
+            _check(smem <= VM_MAX_SMEM and threads > 0,
+                   f"wide_aggregate k{k}: {smem} B of shared memory, "
+                   f"{threads} threads a block")
+            buckets.append({
+                "k": k, "kind": kind, "fold": fold,
+                "rows": bls_backend._rows_for(len(checks), fold, None),
+                "steps": int(prog.n_steps),
+                "registers": int(prog.n_regs), "smem_bytes": smem,
+                "smem_limit": VM_MAX_SMEM, "block_threads": threads,
+                "build": built, "first_load": resolved,
+                "verdicts": WIDE_AGG_WANT, **entry_runs})
+    _check(not oracle_calls, f"wide_aggregate: oracle calls {oracle_calls}")
+    fused = vm_compile._COUNTERS["fallbacks"] - fallbacks0
+    _check(fused == 0, f"wide_aggregate: {fused} vm/fused_fallback events")
+    return {"phase": "wide_aggregate", "buckets": buckets,
+            "setup_s": inputs["setup_s"], "keys_s": inputs["keys_s"],
+            "sign_s": inputs["sign_s"], "pairs": inputs["pairs"],
+            "builds_done_at_s": builds.done_s, "build_wait_s": waited_s,
+            "oracle_calls": 0, "fused_fallbacks": 0, "ladder_records": 0,
+            "main_peak_rss_mb": peak_rss_bytes() / (1 << 20),
+            **card}, launches
+
+
+def _oracle_check(item):
+    """The switchboard's exact-int oracle on one (kind, pubkeys, message or
+    messages, signature) check, in a spawned worker of the key pool:
+    (verdict, seconds)."""
+    from consensus_specs_tpu_torch.utils import bls
+
+    kind, pks, msgs, sig = item
+    t0 = time.perf_counter()
+    pks = [bytes(pk) for pk in pks]
+    if kind == "aggregate":
+        v = bls.oracle_aggregate_verify(pks, [bytes(m) for m in msgs],
+                                        bytes(sig))
+    else:
+        v = bls.oracle_fast_aggregate_verify(pks, bytes(msgs), bytes(sig))
+    return bool(v), time.perf_counter() - t0
 
 
 def _epoch_routes(col):
@@ -2324,7 +2636,6 @@ def phase_epoch(torch, pool, card):
     aggregate of 512 and a proposer check each; every flush route cold,
     warm and fresh, then the epoch with 4 planted checks."""
     from consensus_specs_tpu_torch.bench import epoch_replay
-    from consensus_specs_tpu_torch.utils import bls
 
     shape = epoch_replay.MAINNET
     n_sigs = epoch_replay.epoch_signatures(
@@ -2360,16 +2671,18 @@ def phase_epoch(torch, pool, card):
         want_bad[i] = False
     sample_valid = [0, shape["committees"], shape["committees"] + 1,
                     n_checks - 3]
-    oracle = {}
-    for i in sorted(set(planted.values()) | set(sample_valid)):
-        c = bad.checks[i]
-        t1 = time.perf_counter()
-        v = bls.oracle_fast_aggregate_verify(c.pubkeys, c.messages,
-                                             c.signature)
+    oracle, idx = {}, sorted(set(planted.values()) | set(sample_valid))
+    t1 = time.perf_counter()
+    verdicts = pool.map(_oracle_check, [
+        ("fast_aggregate", [bytes(pk) for pk in bad.checks[i].pubkeys],
+         bytes(bad.checks[i].messages), bytes(bad.checks[i].signature))
+        for i in idx])
+    oracle_wall_s = time.perf_counter() - t1
+    for i, (v, oracle_s) in zip(idx, verdicts):
         _check(v == want_bad[i], f"epoch planted: oracle says {v} on check "
                f"{i}, planted {want_bad[i]}")
-        oracle[str(i)] = {"verdict": v, "k": len(c.pubkeys),
-                          "oracle_s": time.perf_counter() - t1}
+        oracle[str(i)] = {"verdict": v, "k": len(bad.checks[i].pubkeys),
+                          "oracle_s": oracle_s}
     planted_runs = {
         name: _epoch_run(torch, f"epoch planted {name}", fn, want_bad,
                          launches)
@@ -2381,7 +2694,8 @@ def phase_epoch(torch, pool, card):
             "setup_s": setup_s, "setup_processes": pool.processes,
             "north_star_s": NORTH_STAR_EPOCH_S, "verdicts_exact": True,
             "routes": routes_out, "planted": planted,
-            "planted_oracle": oracle, "planted_runs": planted_runs,
+            "planted_oracle": oracle, "planted_oracle_wall_s": oracle_wall_s,
+            "planted_runs": planted_runs,
             **card}, launches
 
 
@@ -2451,14 +2765,12 @@ def phase_mainnet(torch, pool, card):
            f"mainnet bad committee: localized {bad_rep.bad_committees} by "
            f"{bad_rep.bisections} bisections, planted {bad_ci}")
     oracle = {}
-    for ci in (bad_ci, 0):
-        t1 = time.perf_counter()
-        v = hierarchy.verify_slot_oracle([items_b[ci]])[0]
-        _check(bool(v) == bool(bad_rep.verdicts[ci]),
-               f"mainnet bad committee: oracle {bool(v)} on committee {ci}, "
+    for ci, (v, oracle_s) in zip((bad_ci, 0), pool.map(
+            _oracle_check, [items_b[bad_ci], items_b[0]])):
+        _check(v == bool(bad_rep.verdicts[ci]),
+               f"mainnet bad committee: oracle {v} on committee {ci}, "
                f"plane {bool(bad_rep.verdicts[ci])}")
-        oracle[str(ci)] = {"verdict": bool(v),
-                           "oracle_s": time.perf_counter() - t1}
+        oracle[str(ci)] = {"verdict": v, "oracle_s": oracle_s}
     ladder = _ladder_records()
     _check(not any(ladder.values()), f"mainnet: ladder records {ladder}")
     peak_rss_mb = peak_rss_bytes() / (1 << 20)
@@ -3091,7 +3403,9 @@ KZG_PLANTS = {(0, 0): "infinity", (0, 1): "z_is_tau", (0, 2): "wrong_y",
               (1, 2): "wrong_z", (1, 3): "wrong_z", (2, 0): "other_proof",
               (2, 1): "other_proof"}
 KZG_ORACLE_VALID = 16  # valid items the oracle also checks
-KZG_WARM_RUNS = 2
+# one warm run: a second one cost 9.0 s of a whole smoke on an H100 at
+# 700 W, cut to pay for phase wide_aggregate
+KZG_WARM_RUNS = 1
 
 
 def _kzg_prove(job):
@@ -3812,7 +4126,10 @@ LIGHTCLIENT_VALIDATORS = 300_000  # BASELINE.json's registry
 # distinct head slots (R): the artifacts built; one since phase 18 joined
 # the smoke (each slot's fresh decode and root costs ~17-36 s)
 LIGHTCLIENT_SLOTS = 1
-LIGHTCLIENT_REQUESTS = 100_000  # client requests (N), the R builds included
+# client requests (N), the R builds included: 100,000 took a 13.4 s
+# window in a whole smoke on an H100 at 700 W, cut to pay for phase
+# wide_aggregate
+LIGHTCLIENT_REQUESTS = 20_000
 LIGHTCLIENT_THREADS = 4  # request threads, as the JAX proofs bench
 LIGHTCLIENT_SEED = SEED + 3  # the sync committee's secret keys
 
@@ -3853,8 +4170,8 @@ def phase_lightclient(torch, pool, card):
     card), then checked in full before the timed window: the spec's
     validate_light_client_update (the switchboard on the card), the
     combined multiproof, and the finality branch against a state
-    re-Merkleized from a fresh decode_bytes. Then 100,000 requests (the 2
-    builds among them) round-robin from 4 threads, each paying the
+    re-Merkleized from a fresh decode_bytes. Then LIGHTCLIENT_REQUESTS
+    requests (the builds among them) round-robin from 4 threads, each paying the
     client's is_valid_merkle_branch. Planted controls: an artifact signed
     under a wrong key (verified False, validate_light_client_update
     raises) and a flipped finality-branch byte. Then the port's proof
@@ -4485,7 +4802,9 @@ BENCH_MODES = (
     # one serve child a slot count: the unsharded card and 4 slots of it
     ("serve-mesh", {"SERVE_MESH_DEVICES": "1,4"}),
     ("latency", {}),
-    ("soak", {"CONSENSUS_SPECS_TPU_SOAK_EPOCHS": "8",
+    # 4 epochs: 8 ran 8.9 s of the mode's 20.3 s in a whole smoke on an
+    # H100 at 700 W, cut to pay for phase wide_aggregate
+    ("soak", {"CONSENSUS_SPECS_TPU_SOAK_EPOCHS": "4",
               "CONSENSUS_SPECS_TPU_SOAK_WORKERS": "2"}),
     ("merkle", {"CONSENSUS_SPECS_TPU_MERKLE_VALIDATORS": "4096"}),
     ("proofs", {"CONSENSUS_SPECS_TPU_PROOF_CLIENTS": "10000",
@@ -5528,6 +5847,20 @@ def main():
         return 2
     from consensus_specs_tpu_torch.ops import bls_backend, cuda_build, cuda_step
 
+    # the wide AggregateVerify programs, built cold in child processes
+    # beside every phase up to the one that runs them
+    builds = _WideBuilds()
+    try:
+        return _run_phases(torch, builds)
+    finally:
+        builds.stop()
+
+
+def _run_phases(torch, builds):
+    """Every phase of the smoke in order, then the closing lines; the
+    exit code."""
+    from consensus_specs_tpu_torch.ops import bls_backend, cuda_build, cuda_step
+
     dev = torch.device("cuda")
     name, power = (s.strip() for s in _nvidia_smi("name,power.limit").split(","))
     card = {"card": name, "power_limit": power}
@@ -5604,6 +5937,10 @@ def main():
                 if "_fleet_slot" in line:
                     mainnet_slot = line.pop("_fleet_slot")
                 _emit({**line, "elapsed_s": time.perf_counter() - t0})
+
+            # the wide AggregateVerify checks' keys and signatures, for
+            # phase wide_aggregate below
+            wide_agg_inputs = wide_aggregate_inputs(pool)
 
             # the serve fleet: worker processes on the card; their launch
             # shapes come home in their snapshots
@@ -5685,6 +6022,17 @@ def main():
                                                     streams)
         _emit({**mesh_line, "elapsed_s": time.perf_counter() - t0})
 
+        # the wide AggregateVerify programs, once their cold builds are done
+        shapes = path_shapes["wide_aggregate"] = {}
+        program_wrap, execute_wrap = _recording_launch_shapes(shapes)
+        with _patched(bls_backend, "_program", program_wrap), \
+                _patched(vm, "execute", execute_wrap):
+            line, path_launches["wide_aggregate"] = phase_wide_aggregate(
+                torch, card, wide_agg_inputs, builds)
+        line["new_shapes"] = new_launch_shapes(path_shapes, "wide_aggregate",
+                                               streams)
+        _emit({**line, "elapsed_s": time.perf_counter() - t0})
+
         path_streams = phase_path_streams(torch, dev, rng, imad_rate, l2_ns,
                                           path_shapes, streams)
         streams += path_streams
@@ -5708,7 +6056,7 @@ def main():
     # cases, the bls generator's checks, the bench entry's modes (this
     # process's counts; the fleet modes' workers count their own), the
     # VM toolchain's cells, the tower twins, the finalexp bench and
-    # canary, and the mesh phase
+    # canary, the mesh phase and the wide AggregateVerify checks
     paths = {"slice": {"vm_step": launches["vm_step"],
                        "vm_step_steps": launches["vm_step_steps"],
                        "mont_mul": launches["mont_mul"]},
@@ -5727,7 +6075,7 @@ def main():
                                        "kzg", "forks", "fleet", "lightclient",
                                        "spec_tests", "gen", "bench",
                                        "vmexec", "twins", "finalexp",
-                                       "mesh")
+                                       "mesh", "wide_aggregate")
             for k in ("vm_step", "mont_mul") if paths[path][k] == 0
             and (path, k) not in (("kzg", "mont_mul"), ("twins", "vm_step"))]
     if idle:
@@ -5802,4 +6150,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--build-program"]:
+        sys.exit(build_program_child(*sys.argv[2:5]))
     sys.exit(main())

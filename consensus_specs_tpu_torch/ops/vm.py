@@ -42,7 +42,6 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..device import resolve_device
 from . import cuda_step, fq
 
 # value-magnitude bounds for lazy reduction (limb-level overflow is

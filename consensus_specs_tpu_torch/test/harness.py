@@ -91,11 +91,13 @@ def covered_forks(fn):
             if fork in phases]
 
 
-def paired_runs(modules, part=0, parts=1):
+def paired_runs(modules, part=0, parts=1, fork=None):
     """(key, case name, fork) for every fork each case of
-    ``paired_cases(modules)`` covers, split as ``paired_cases`` splits."""
-    runs = [(key, name, fork) for key, name in paired_cases(modules)
-            for fork in covered_forks(getattr(modules[key][0], name))]
+    ``paired_cases(modules)`` covers (only ``fork``, where given), split
+    as ``paired_cases`` splits."""
+    runs = [(key, name, f) for key, name in paired_cases(modules)
+            for f in covered_forks(getattr(modules[key][0], name))
+            if fork is None or f == fork]
     return runs[part::parts]
 
 

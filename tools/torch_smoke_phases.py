@@ -4,12 +4,14 @@
     python3 tools/torch_smoke_phases.py lightclient sim spec_tests gen bench
     python3 tools/torch_smoke_phases.py vmexec twins finalexp mesh
     python3 tools/torch_smoke_phases.py --no-kernels kzg forks lightclient
+    python3 tools/torch_smoke_phases.py wide_aggregate
 
 Builds the port's kernels (chip_smoke's build), then runs each named phase
 that needs no earlier phase's output (``kzg``, ``forks``,
 ``lightclient``, ``sim``, ``spec_tests``, ``gen``, ``bench``, ``vmexec``,
-``twins``, ``finalexp`` and ``mesh``; the first three with a key pool of
-their own), each printing
+``twins``, ``finalexp``, ``mesh`` and ``wide_aggregate``; the first three
+and the last with a key pool of their own; ``wide_aggregate`` starts its
+programs' cold builds first and waits for them), each printing
 chip_smoke's JSON line for it, with every (program,
 rows) the phase launched the step kernel at noted, and last the
 ``kernels`` line that holds each such shape's first 256 steps against the
@@ -27,6 +29,8 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# run alone, wide_aggregate waits for its builds with no phase beside them
+WIDE_AGG_ALONE_DEADLINE_S = 1800.0
 
 
 def main(names):
@@ -43,8 +47,9 @@ def main(names):
     from consensus_specs_tpu_torch.ops import bls_backend, cuda_build, vm
     from consensus_specs_tpu_torch.utils.keygen import KeyPool
 
-    phases = ("kzg", "forks", "lightclient", "sim", "spec_tests", "gen", "bench", "vmexec",
-              "twins", "finalexp", "mesh")
+    phases = ("kzg", "forks", "lightclient", "sim", "spec_tests", "gen",
+              "bench", "vmexec", "twins", "finalexp", "mesh",
+              "wide_aggregate")
     unknown = [n for n in names if n not in phases]
     if unknown or not names:
         print(f"torch_smoke_phases: phases are {', '.join(phases)}, "
@@ -61,6 +66,9 @@ def main(names):
     l2_ns = cs.L2_HIT_CYCLES / sm_clock_mhz * 1e3
     rng = np.random.default_rng(cs.SEED)
     t0 = time.perf_counter()
+    # the wide AggregateVerify programs' cold builds start first, as in
+    # the whole smoke
+    builds = cs._WideBuilds() if "wide_aggregate" in names else None
     try:
         reports = cuda_build.build()
         cs._emit({"phase": "build", "compiled": sorted(reports),
@@ -84,6 +92,18 @@ def main(names):
                         cs._patched(vm, "execute", execute_wrap):
                     line, launches[phase] = cs.phase_bench(torch, card,
                                                            shapes)
+                cs._emit({**line, "elapsed_s": time.perf_counter() - t0})
+                continue
+            if phase == "wide_aggregate":
+                with KeyPool() as pool:
+                    inputs = cs.wide_aggregate_inputs(pool)
+                with cs._patched(bls_backend, "_program", program_wrap), \
+                        cs._patched(vm, "execute", execute_wrap):
+                    line, launches[phase] = cs.phase_wide_aggregate(
+                        torch, card, inputs, builds,
+                        deadline_s=WIDE_AGG_ALONE_DEADLINE_S)
+                line["new_shapes"] = cs.new_launch_shapes(path_shapes, phase,
+                                                          [])
                 cs._emit({**line, "elapsed_s": time.perf_counter() - t0})
                 continue
             if phase in ("spec_tests", "gen", "finalexp", "mesh"):
@@ -124,6 +144,9 @@ def main(names):
     except cs.SmokeFailure as e:
         print(f"torch_smoke_phases: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        if builds is not None:
+            builds.stop()
     print(json.dumps({"ok": True, "phases": names}))
     return 0
 
