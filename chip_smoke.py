@@ -49,12 +49,17 @@ through twenty-six phases, each printing one JSON line:
                against the raw-int host path item for item; the first 256
                steps of g1_subgroup, g2_subgroup and h2g_finish against
                the plain version, each whole stream timed; the Montgomery
-               kernel at 512, 128 and 64 products; each exponentiation
-               chain step by step against its CUDA-graph replay; then a
+               kernel at 512, 128 and 64 products; the chain kernel
+               (csrc/pow_chain.cu, one launch a chain) at 1 to 8,192 rows
+               and both exponents against the plain chain and the kernel-2
+               step chain, timed beside its throughput bound and its 1-row
+               time, the step chain's CUDA graph (the earlier route) timed;
+               then a
                fresh slot (new messages and signatures from phase 4's key
                pool, pubkeys cached) through batch_fast_aggregate_verify
-               and batch_verify_rlc, each with the codec prep (and once
-               with its chains step by step) and with per-item prep
+               and batch_verify_rlc, each with the codec prep (and with
+               its chains as graph replays and step by step) and with
+               per-item prep
                (CONSENSUS_SPECS_TPU_BATCH_CODEC=0), verdicts
                equal to the planted ones, walls split into codec prep
                (decode, subgroup checks, hash), assembly, vm.execute and
@@ -70,7 +75,7 @@ through twenty-six phases, each printing one JSON line:
                stream's second half. Every verdict exact; no retry, no
                fallback, no prep/RLC/backend error, codec prep only, one
                backend item per distinct check, and at least one chain
-               graph captured inside the stream; its kernel launches,
+               launched inside the stream; its kernel launches,
                latencies, occupancy, prep/device split and the overlap of
                the prep (host) and card lanes of the occupancy ledger are
                printed. Then the same distinct checks through one
@@ -946,10 +951,11 @@ def phase_slice(torch, card):
 
     cuda_step.LAUNCHES = 0
     cuda_step.STEPS = 0
-    cuda_fq.LAUNCHES = 0
+    cuda_fq.LAUNCHES = cuda_fq.CHAIN_LAUNCHES = 0
     got, cold = _verify_timed(torch, slot)
     launches = {"vm_step": cuda_step.LAUNCHES, "mont_mul": cuda_fq.LAUNCHES,
-                "vm_step_steps": cuda_step.STEPS}
+                "vm_step_steps": cuda_step.STEPS,
+                "pow_chain": cuda_fq.CHAIN_LAUNCHES}
     _check(list(got) == list(expected),
            f"verdicts {np.flatnonzero(~got).tolist()} false, planted "
            f"{sorted(planted.values())}")
@@ -987,7 +993,8 @@ def phase_slice(torch, card):
         "verifications_per_s_warm": n / warm["wall_s"],
         "step_kernel_launches": launches["vm_step"],
         "step_kernel_steps": launches["vm_step_steps"],
-        "mont_mul_kernel_launches": launches["mont_mul"], **card,
+        "mont_mul_kernel_launches": launches["mont_mul"],
+        "chain_kernel_launches": launches["pow_chain"], **card,
     }, launches, (slot, got, expected)
 
 
@@ -1036,6 +1043,7 @@ def _rlc_timed(torch, items):
     asm, execs, easy, steps, monts = [], [], [], [], []
     before = dict(bls_backend.RLC_STATS)
     cuda_step.LAUNCHES = cuda_step.STEPS = cuda_fq.LAUNCHES = 0
+    cuda_fq.CHAIN_LAUNCHES = 0
     with _patched(bls_backend, "_program", _host_timer(asm)), \
             _patched(vm, "execute", _host_timer(execs)), \
             _patched(bls_backend, "_easy_part_flat", _host_timer(easy)), \
@@ -1046,8 +1054,9 @@ def _rlc_timed(torch, items):
         got = bls_backend.batch_verify_rlc(items, rng=random.Random(SEED))
         wall = time.perf_counter() - t0
     torch.cuda.synchronize()
-    launches, n_steps, monts_n = (cuda_step.LAUNCHES, cuda_step.STEPS,
-                                  cuda_fq.LAUNCHES)
+    launches, n_steps, monts_n, chains_n = (
+        cuda_step.LAUNCHES, cuda_step.STEPS, cuda_fq.LAUNCHES,
+        cuda_fq.CHAIN_LAUNCHES)
     split = {"wall_s": wall, "assemble_s": sum(asm),
              "vm_execute_s": sum(execs), "vm_executions": len(execs),
              "step_kernel_ms": sum(steps), "easy_part_s": sum(easy),
@@ -1056,6 +1065,7 @@ def _rlc_timed(torch, items):
              "step_kernel_launches": launches,
              "step_kernel_steps": n_steps,
              "mont_mul_kernel_launches": monts_n,
+             "chain_kernel_launches": chains_n,
              "rlc_stats": {k: bls_backend.RLC_STATS[k] - before[k]
                            for k in before}}
     split["other_host_s"] = wall - split["assemble_s"] \
@@ -1346,10 +1356,17 @@ def _same_tensors(torch, got, want):
     return torch.equal(got.cpu(), want)
 
 
+# chain launches of each codec field function: an Fq2 square root is two
+# stacked square-root chains and one inversion, a batch inversion one chain
+FIELD_CHAINS = {"_g1_decode": 1, "_g2_decode": 3, "_sswu_map": 1 + 2 * 3,
+                "_fq_batch_inverse": 1, "_proj_to_affine": 1}
+
+
 def _codec_field_checks(torch, dev, rng, pks, sigs, msgs):
     """Each field function of the codec on the card against the plain
     tensor path on the CPU, limb for limb (ok flags equal), at the slot's
-    prep sizes; launches of kernel 2 and both times per function."""
+    prep sizes; launches of kernel 2 and of the chain kernel (as many as
+    FIELD_CHAINS says) and both times per function."""
     from consensus_specs_tpu_torch.ops import codec, cuda_fq, fq
 
     cpu = torch.device("cpu")
@@ -1372,63 +1389,99 @@ def _codec_field_checks(torch, dev, rng, pks, sigs, msgs):
         on_card = [fq.limbs_from_numpy(a, dev) for a in arrays]
         on_cpu = [fq.limbs_from_numpy(a, cpu) for a in arrays]
         torch.cuda.synchronize()
-        launches = cuda_fq.LAUNCHES
+        launches, chains = cuda_fq.LAUNCHES, cuda_fq.CHAIN_LAUNCHES
         t0 = time.perf_counter()
         got = fn(*on_card)
         torch.cuda.synchronize()
         card_s = time.perf_counter() - t0
         launches = cuda_fq.LAUNCHES - launches
+        chains = cuda_fq.CHAIN_LAUNCHES - chains
         t0 = time.perf_counter()
         want = fn(*on_cpu)
         cpu_s = time.perf_counter() - t0
         _check(_same_tensors(torch, got, want),
                f"codec {name} on the card differs from the plain CPU path")
+        _check(chains == FIELD_CHAINS[name],
+               f"codec {name} made {chains} chain launches, not "
+               f"{FIELD_CHAINS[name]}")
         out[name] = {"rows": int(arrays[0].shape[0]), "exact": True,
-                     "mont_mul_launches": launches, "card_s": card_s,
-                     "plain_cpu_s": cpu_s}
+                     "mont_mul_launches": launches, "chain_launches": chains,
+                     "card_s": card_s, "plain_cpu_s": cpu_s}
     return out
 
 
+CHAIN_ROWS = (1, 64, 128, 512)  # the codec's chain shapes, 1 a ladder's
+CHAIN_WIDE_ROWS = (2048, 8192)  # past the codec's: where the time leaves
+#                                 the 1-row time
+
+
 def _chain_checks(torch, dev, rng, imad_rate):
-    """fq.pow_fixed's two routes on the card at the codec's chain shapes:
-    step by step (one wrapper call and launch a product) and one replay of
-    the chain's CUDA graph, limb for limb equal; the host time of each
-    (synchronized), the replay's device time (CUDA events) and the
-    chain's bound."""
+    """fq.pow_fixed on the card, one launch of the chain kernel a call, at
+    both exponents: at CHAIN_ROWS against the plain version (every product
+    fq.mont_mul_plain, on the card) and the kernel-2 step chain
+    (fq.pow_fixed_steps, a launch a product), limb for limb; the kernel's
+    device time beside its throughput bound and its own 1-row time (the
+    time of one dependent chain, which the card cannot spread), the plain
+    chain's and the step chain's times, and the earlier route's time: the
+    step chain captured once with cuda_fq.capture, replayed. At
+    CHAIN_WIDE_ROWS: the kernel against the step chain, timed."""
     from consensus_specs_tpu_torch.ops import codec, cuda_fq, fq
 
+    def events_ms(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
     out = []
-    for rows, label, bits in ((512, "sqrt", codec._SQRT_BITS),
-                              (128, "sqrt", codec._SQRT_BITS),
-                              (64, "sqrt", codec._SQRT_BITS),
-                              (None, "inv", fq._P_MINUS_2_BITS)):
-        shape = (rows,) if rows else ()
-        a = torch.from_numpy(_canonical_limbs(rng, shape)).to(dev)
-        fq.pow_fixed(a, bits)  # the key's first call captures the graph
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        steps = fq.pow_fixed_steps(a, bits)
-        torch.cuda.synchronize()
-        steps_s = time.perf_counter() - t0
-        launches = cuda_fq.LAUNCHES
-        t0 = time.perf_counter()
-        graph = fq.pow_fixed(a, bits)
-        torch.cuda.synchronize()
-        graph_s = time.perf_counter() - t0
-        launches = cuda_fq.LAUNCHES - launches
-        _check(torch.equal(steps, graph),
-               f"pow_fixed ({label}, {rows} rows): graph replay differs from "
-               "the step-by-step chain")
-        _check(launches == 2 * (len(bits) - 1),
-               f"pow_fixed replay counted {launches} launches")
-        m = rows or 1
-        n_ops = launches * m * WIDE_MACS_PER_MONT * IMAD_PER_WIDE_MAC
-        out.append({
-            "chain": label, "rows": m, "products": launches,
-            "exact": True, "steps_host_s": steps_s, "graph_host_s": graph_s,
-            "graph_device_ms": _cuda_ms(torch, lambda: fq.pow_fixed(a, bits),
-                                        5),
-            **_bound(2 * m * 15 * LIMB_BYTES, n_ops, imad_rate)})
+    for label, bits in (("sqrt", codec._SQRT_BITS),
+                        ("inv", fq._P_MINUS_2_BITS)):
+        products = len(bits) - 1 + sum(bits[1:])
+        for rows in CHAIN_ROWS + CHAIN_WIDE_ROWS:
+            a = torch.from_numpy(_canonical_limbs(rng, (rows,))).to(dev)
+            launches = cuda_fq.CHAIN_LAUNCHES
+            got = fq.pow_fixed(a, bits)
+            torch.cuda.synchronize()
+            _check(cuda_fq.CHAIN_LAUNCHES - launches == 1,
+                   f"pow_fixed ({label}, {rows} rows) made "
+                   f"{cuda_fq.CHAIN_LAUNCHES - launches} chain launches")
+            steps, steps_ms = events_ms(lambda: fq.pow_fixed_steps(a, bits))
+            _check(torch.equal(got, steps),
+                   f"pow_chain ({label}, {rows} rows) differs from the "
+                   "kernel-2 step chain")
+            row = {"chain": label, "rows": rows, "products": products,
+                   "launches": 1, "steps_ms": steps_ms}
+            row["ms"] = _cuda_ms(torch, lambda: cuda_fq.pow_chain(a, bits), 20)
+            n_ops = products * rows * WIDE_MACS_PER_MONT * IMAD_PER_WIDE_MAC
+            row.update(_bound(2 * rows * 15 * LIMB_BYTES, n_ops, imad_rate))
+            if rows in CHAIN_ROWS:
+                with _patched(cuda_fq, "mont_mul",
+                              lambda real: fq.mont_mul_plain):
+                    plain, row["plain_ms"] = events_ms(
+                        lambda: fq.pow_fixed_steps(a, bits))
+                err = int((got - plain).abs().max().item())
+                _check(err == 0, f"pow_chain ({label}, {rows} rows) differs "
+                                 f"from the plain chain: max |err| {err}")
+                row["max_abs_err"] = err
+                stream = torch.cuda.current_stream()
+                graph, static_out, nodes = cuda_fq.capture(
+                    lambda: fq.pow_fixed_steps(a, bits), stream)
+                row["graph_nodes"] = nodes
+                row["graph_ms"] = _cuda_ms(torch, graph.replay, 5)
+                _check(torch.equal(static_out, got),
+                       f"the step chain's graph ({label}, {rows} rows) "
+                       "differs from pow_chain")
+                del graph
+            out.append(row)
+        one_row = next(r["ms"] for r in out
+                       if r["chain"] == label and r["rows"] == 1)
+        for r in out:
+            if r["chain"] == label:
+                r["one_row_ms"] = one_row
     return out
 
 
@@ -1499,7 +1552,7 @@ def _split_run(torch, call):
             "easy", "fold", "scalars", "steps")
     sinks = {k: [] for k in keys}
     ctx = threading.local()
-    prep_launches = {"vm_step": 0, "mont_mul": 0}
+    prep_launches = {"vm_step": 0, "mont_mul": 0, "pow_chain": 0}
     lock = threading.Lock()
 
     def scoped(name, sink):
@@ -1521,7 +1574,8 @@ def _split_run(torch, call):
         timed = scoped("prep", "prep")(fn)
 
         def wrapped(*args, **kwargs):
-            step0, mont0 = cuda_step.LAUNCHES, cuda_fq.LAUNCHES
+            step0, mont0, chain0 = (cuda_step.LAUNCHES, cuda_fq.LAUNCHES,
+                                    cuda_fq.CHAIN_LAUNCHES)
             try:
                 return timed(*args, **kwargs)
             finally:
@@ -1530,6 +1584,8 @@ def _split_run(torch, call):
                 with lock:
                     prep_launches["vm_step"] += cuda_step.LAUNCHES - step0
                     prep_launches["mont_mul"] += cuda_fq.LAUNCHES - mont0
+                    prep_launches["pow_chain"] += (cuda_fq.CHAIN_LAUNCHES
+                                                   - chain0)
         return wrapped
 
     def exec_wrap(fn):
@@ -1570,6 +1626,7 @@ def _split_run(torch, call):
     calls0 = dict(bls_backend.CALL_COUNTS)
     prep0 = dict(bls_backend.PREP_STATS)
     cuda_step.LAUNCHES = cuda_step.STEPS = cuda_fq.LAUNCHES = 0
+    cuda_fq.CHAIN_LAUNCHES = 0
     with contextlib.ExitStack() as stack:
         for module, name, wrap in patches:
             stack.enter_context(_patched(module, name, wrap))
@@ -1577,8 +1634,9 @@ def _split_run(torch, call):
         got = call()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches, n_steps, monts = (cuda_step.LAUNCHES, cuda_step.STEPS,
-                                cuda_fq.LAUNCHES)
+    launches, n_steps, monts, chains = (
+        cuda_step.LAUNCHES, cuda_step.STEPS, cuda_fq.LAUNCHES,
+        cuda_fq.CHAIN_LAUNCHES)
     total = {k: sum(v) for k, v in sinks.items()}
     split = {
         "wall_s": wall, "codec_prep_s": total["prep"],
@@ -1597,9 +1655,10 @@ def _split_run(torch, call):
         "vm_executions": sum(len(sinks[k]) for k in (
             "execute", "execute_prep", "execute_fold")),
         "step_kernel_launches": launches, "step_kernel_steps": n_steps,
-        "mont_mul_kernel_launches": monts,
+        "mont_mul_kernel_launches": monts, "chain_kernel_launches": chains,
         "prep_step_kernel_launches": prep_launches["vm_step"],
         "prep_mont_mul_kernel_launches": prep_launches["mont_mul"],
+        "prep_chain_kernel_launches": prep_launches["pow_chain"],
         "rlc_stats": {k: bls_backend.RLC_STATS[k] - rlc0[k] for k in rlc0},
         "call_counts": {k: bls_backend.CALL_COUNTS[k] - calls0[k]
                         for k in calls0},
@@ -1633,30 +1692,20 @@ def _fresh_timed(torch, entry, slot):
 
 
 def _prep_kernel2_ms(torch, slot):
-    """Kernel 2's device time inside one codec prep of the evicted slot's
-    messages and signatures (an instrumented run, apart from the timed
-    walls): CUDA events around each wrapper launch, and around each chain
-    replay (the graph's launches plus its input copy and output clone)."""
+    """The Fq kernels' device time inside one codec prep of the evicted
+    slot's messages and signatures (an instrumented run, apart from the
+    timed walls): CUDA events around each launch of kernel 2 and of the
+    chain kernel, the kernels alone."""
     from consensus_specs_tpu_torch.ops import bls_backend, cuda_fq
 
     _evict(slot)
     single, chains = [], []
-
-    def timed_chain(fn):
-        def wrapped(*args):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*args)
-            end.record()
-            chains.append((start, end))
-            return out
-        return wrapped
-
-    launches = cuda_fq.LAUNCHES
+    launches, chain0 = cuda_fq.LAUNCHES, cuda_fq.CHAIN_LAUNCHES
     with _patched(cuda_fq, "_lib", lambda lib: lambda: _TimedLaunches(
             torch, lib(), "mont_mul_launch", single)), \
-            _patched(cuda_fq, "pow_chain", timed_chain):
+            _patched(cuda_fq, "_chain_lib",
+                     lambda lib: lambda: _TimedLaunches(
+                         torch, lib(), "pow_chain_launch", chains)):
         t0 = time.perf_counter()
         bls_backend.prewarm_host_caches(slot[1], slot[2])
         wall = time.perf_counter() - t0
@@ -1664,7 +1713,33 @@ def _prep_kernel2_ms(torch, slot):
     ms = lambda evs: sum(s.elapsed_time(e) for s, e in evs)
     return {"wall_s": wall, "launches": cuda_fq.LAUNCHES - launches,
             "single_launches": len(single), "single_ms": ms(single),
-            "chain_replays": len(chains), "chain_ms": ms(chains)}
+            "chain_launches": cuda_fq.CHAIN_LAUNCHES - chain0,
+            "chain_ms": ms(chains)}
+
+
+def _graph_chains(torch):
+    """fq.pow_fixed as the earlier route ran it, for the kernel's gain in
+    one call: the step chain (a kernel-2 launch a product) captured once
+    a shape and exponent as a CUDA graph with cuda_fq.capture, then
+    replayed (its zero-bit products skipped, as the step chain does
+    now)."""
+    from consensus_specs_tpu_torch.ops import cuda_fq, fq
+
+    graphs = {}
+
+    def pow_fixed(a, bits):
+        key = (tuple(a.shape), tuple(bits))
+        if key not in graphs:
+            static_in = a.clone()
+            graphs[key] = (static_in,) + cuda_fq.capture(
+                lambda: fq.pow_fixed_steps(static_in, bits),
+                torch.cuda.current_stream())
+        static_in, graph, static_out, nodes = graphs[key]
+        static_in.copy_(a)
+        graph.replay()
+        cuda_fq.count_replay(nodes)
+        return static_out.clone()
+    return pow_fixed
 
 
 def _cold_pubkeys(torch, pool_pks):
@@ -1676,7 +1751,8 @@ def _cold_pubkeys(torch, pool_pks):
     for label in ("codec", "per_item"):
         for pk in pool_pks:
             bls_backend._PK_CACHE.pop(pk, None)
-        step0, mont0 = cuda_step.LAUNCHES, cuda_fq.LAUNCHES
+        step0, mont0, chain0 = (cuda_step.LAUNCHES, cuda_fq.LAUNCHES,
+                                cuda_fq.CHAIN_LAUNCHES)
         t0 = time.perf_counter()
         if label == "codec":
             bls_backend.prewarm_host_caches([], [], pool_pks)
@@ -1686,7 +1762,12 @@ def _cold_pubkeys(torch, pool_pks):
         torch.cuda.synchronize()
         out[label] = {"s": time.perf_counter() - t0,
                       "step_kernel_launches": cuda_step.LAUNCHES - step0,
-                      "mont_mul_kernel_launches": cuda_fq.LAUNCHES - mont0}
+                      "mont_mul_kernel_launches": cuda_fq.LAUNCHES - mont0,
+                      "chain_kernel_launches": (cuda_fq.CHAIN_LAUNCHES
+                                                - chain0)}
+    _check(out["codec"]["chain_kernel_launches"] == 1,
+           f"cold pubkeys: {out['codec']['chain_kernel_launches']} chain "
+           "launches for one batch of G1 square roots")
     _check(all(pk in bls_backend._PK_CACHE for pk in pool_pks),
            "cold pubkeys: the pool is not cached after its prep")
     return out
@@ -1694,8 +1775,8 @@ def _cold_pubkeys(torch, pool_pks):
 
 def _single_item_prep(torch, slot):
     """n = 1: one fresh message and signature prepared by the codec on the
-    card (the first such call captures the chains at the new shapes, the
-    next one replays them), then per item by the oracle."""
+    card (twice: the first call at these shapes and the next), then per
+    item by the oracle."""
     from consensus_specs_tpu_torch.ops import bls_backend
 
     out = {}
@@ -1742,19 +1823,28 @@ def phase_codec(torch, dev, rng, imad_rate, l2_ns, card):
     chains = _chain_checks(torch, dev, rng, imad_rate)
 
     runs, paths = {}, {}
+    # codec_chain_graphs: the same codec with every chain replayed from
+    # its captured graph of kernel-2 launches (the earlier route; the first
+    # run captures them), codec_chain_steps: every chain step by step, for
+    # the chain kernel's gain in this call
+    chain_routes = {"codec_chain_graphs_first": _graph_chains(torch),
+                    "codec_chain_steps": lambda a, bits:
+                        fq.pow_fixed_steps(a, bits)}
+    chain_routes["codec_chain_graphs"] = chain_routes[
+        "codec_chain_graphs_first"]
     for entry, prep in (("batch_fast_aggregate_verify", "codec"),
+                        ("batch_fast_aggregate_verify",
+                         "codec_chain_graphs_first"),
+                        ("batch_fast_aggregate_verify", "codec_chain_graphs"),
                         ("batch_fast_aggregate_verify", "codec_chain_steps"),
                         ("batch_fast_aggregate_verify", "per_item"),
                         ("batch_verify_rlc", "codec"),
                         ("batch_verify_rlc", "per_item")):
         if prep == "per_item":
             os.environ["CONSENSUS_SPECS_TPU_BATCH_CODEC"] = "0"
-        # codec_chain_steps: the same codec with every chain run step by
-        # step instead of replayed, for the graph's gain in this call
-        steps = prep == "codec_chain_steps"
+        route = chain_routes.get(prep)
         try:
-            with _patched(fq, "pow_fixed", lambda real: (
-                    fq.pow_fixed_steps if steps else real)):
+            with _patched(fq, "pow_fixed", lambda real: route or real):
                 got, run = _fresh_timed(torch, entry, slot)
         finally:
             os.environ.pop("CONSENSUS_SPECS_TPU_BATCH_CODEC", None)
@@ -1764,7 +1854,8 @@ def phase_codec(torch, dev, rng, imad_rate, l2_ns, card):
                f"{sorted(planted.values())}")
         if prep == "codec":
             _check(run["prep_mont_mul_kernel_launches"] > 0
-                   and run["prep_step_kernel_launches"] > 0,
+                   and run["prep_step_kernel_launches"] > 0
+                   and run["prep_chain_kernel_launches"] > 0,
                    f"fresh slot, {entry}: the codec prep launched no kernel")
             paths["codec" if entry == "batch_fast_aggregate_verify"
                   else "codec_rlc"] = run
@@ -1773,10 +1864,18 @@ def phase_codec(torch, dev, rng, imad_rate, l2_ns, card):
         runs[entry + ".prep_speedup"] = (
             runs[entry + ".per_item"]["per_item_prep_s"]
             / runs[entry + ".codec"]["codec_prep_s"])
-    runs["chain_graph_prep_speedup"] = (
-        runs["batch_fast_aggregate_verify.codec_chain_steps"]["codec_prep_s"]
-        / runs["batch_fast_aggregate_verify.codec"]["codec_prep_s"])
+    for route in ("codec_chain_graphs", "codec_chain_steps"):
+        runs[f"chain_kernel_prep_speedup_over_{route[12:]}"] = (
+            runs[f"batch_fast_aggregate_verify.{route}"]["codec_prep_s"]
+            / runs["batch_fast_aggregate_verify.codec"]["codec_prep_s"])
     kernel2 = _prep_kernel2_ms(torch, slot)
+    # a fresh slot's prep: the signatures' G2 decode, the messages' SSWU
+    # map and their projective -> affine conversion, one batch each
+    want_chains = sum(FIELD_CHAINS[f] for f in (
+        "_g2_decode", "_sswu_map", "_proj_to_affine"))
+    _check(kernel2["chain_launches"] == want_chains,
+           f"fresh slot prep: {kernel2['chain_launches']} chain launches, "
+           f"not {want_chains}")
     cold_pks = _cold_pubkeys(torch, pool_pks)
     single = _single_item_prep(torch, slot)
     return {
@@ -1971,13 +2070,13 @@ def _serve_main(torch):
     bls_backend.reset_prep_state()
     log = _CallLog(bls_backend)
     cuda_step.LAUNCHES = cuda_step.STEPS = 0
-    cuda_fq.LAUNCHES = cuda_fq.CAPTURES = 0
+    cuda_fq.LAUNCHES = cuda_fq.CHAIN_LAUNCHES = 0
     svc, got, want, elapsed, sig_count, (t_start, stage) = _serve_stream(
         torch, log, committees, rng, picks)
     launches = {"vm_step": cuda_step.LAUNCHES,
                 "vm_step_steps": cuda_step.STEPS,
-                "mont_mul": cuda_fq.LAUNCHES}
-    captures = cuda_fq.CAPTURES
+                "mont_mul": cuda_fq.LAUNCHES,
+                "pow_chain": cuda_fq.CHAIN_LAUNCHES}
 
     wrong = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
     _check(not wrong, f"serve stream: events {wrong[:10]} answered wrong")
@@ -1995,8 +2094,8 @@ def _serve_main(torch):
     _check(calls["items"] == len(distinct),
            f"serve stream: {calls['items']} items reached the backend for "
            f"{len(distinct)} distinct checks")
-    _check(captures > 0, "serve stream: no chain graph was captured")
-    _check(launches["vm_step"] > 0 and launches["mont_mul"] > 0,
+    _check(launches["vm_step"] > 0 and launches["mont_mul"] > 0
+           and launches["pow_chain"] > 0,
            f"serve stream: kernel launches {launches}")
 
     ledger = devices.global_ledger()
@@ -2042,7 +2141,7 @@ def _serve_main(torch):
         "step_kernel_launches": launches["vm_step"],
         "step_kernel_steps": launches["vm_step_steps"],
         "mont_mul_kernel_launches": launches["mont_mul"],
-        "chain_graph_captures": captures,
+        "chain_kernel_launches": launches["pow_chain"],
         "card_lane_busy_s": lanes.get(card_lane, {}).get("busy_s", 0.0),
         "host_lane_busy_s": lanes.get(devices.HOST_LANE, {}).get(
             "busy_s", 0.0),
@@ -2206,7 +2305,8 @@ def _add_counts(total, split):
     """Add a _split_run's kernel counts to a path's running total."""
     for k, key in (("vm_step", "step_kernel_launches"),
                    ("vm_step_steps", "step_kernel_steps"),
-                   ("mont_mul", "mont_mul_kernel_launches")):
+                   ("mont_mul", "mont_mul_kernel_launches"),
+                   ("pow_chain", "chain_kernel_launches")):
         total[k] = total.get(k, 0) + split[key]
 
 
@@ -3143,7 +3243,8 @@ def _planted_run(torch, label, spec, base, prefix, planted_kind, planted_k):
             "wall_s": split["wall_s"],
             **{k: split[k] for k in ("step_kernel_launches",
                                      "step_kernel_steps",
-                                     "mont_mul_kernel_launches")}}
+                                     "mont_mul_kernel_launches",
+                                     "chain_kernel_launches")}}
 
 
 def _head_service_run(torch, spec, genesis, blocks, aggregates, pool):
@@ -3250,7 +3351,8 @@ def _head_service_run(torch, spec, genesis, blocks, aggregates, pool):
             "ladder_rung", "prep_ms_per_flush", "device_ms_per_flush")},
         "ladder": ladder, **{k: split[k] for k in (
             "wall_s", "vm_execute_s", "step_kernel_ms",
-            "step_kernel_launches", "mont_mul_kernel_launches")}}
+            "step_kernel_launches", "mont_mul_kernel_launches",
+            "chain_kernel_launches")}}
     return line, split
 
 
@@ -3581,7 +3683,8 @@ def phase_kzg(torch, pool, card):
                 "vm_execute_s",
                 "step_kernel_ms", "easy_part_s", "hard_part_s",
                 "other_host_s", "step_kernel_launches", "step_kernel_steps",
-                "mont_mul_kernel_launches")} for tag, split in runs.items()},
+                "mont_mul_kernel_launches",
+                "chain_kernel_launches")} for tag, split in runs.items()},
             "launches": dict(launches), **card}, launches
 
 
@@ -3976,8 +4079,7 @@ def _fleet_stream(torch, router, committees, serve_verdicts, serve_main):
              "step_kernel_launches": k1["vm_step"] - k0["vm_step"],
              "step_kernel_steps": k1["vm_step_steps"] - k0["vm_step_steps"],
              "mont_mul_kernel_launches": k1["mont_mul"] - k0["mont_mul"],
-             "chain_graph_captures": (k1["mont_mul_captures"]
-                                      - k0["mont_mul_captures"]),
+             "chain_kernel_launches": k1["pow_chain"] - k0["pow_chain"],
              "fallback_items": s1["fallback_items"],
              "backend_retries": s1["backend_retries"],
              "rlc": s1["rlc"]}
@@ -4008,7 +4110,8 @@ def _fleet_stream(torch, router, committees, serve_verdicts, serve_main):
                 "served_sigs_per_s", "verified_sigs_per_s", "p50_ms",
                 "p95_ms", "p99_ms", "flushes", "prep_ms_per_flush",
                 "device_ms_per_flush", "step_kernel_launches",
-                "mont_mul_kernel_launches")}}
+                "mont_mul_kernel_launches",
+                "chain_kernel_launches")}}
 
 
 def _fleet_affinity(router, items, want):
@@ -4095,7 +4198,8 @@ def phase_fleet(torch, card, serve_input, serve_main, mainnet_slot):
     finally:
         router.close()
     fleet_smoke.check_worker_devices(final, cuda)
-    launches = {"vm_step": 0, "vm_step_steps": 0, "mont_mul": 0}
+    launches = {"vm_step": 0, "vm_step_steps": 0, "mont_mul": 0,
+                "pow_chain": 0}
     for snap in final.values():
         kernels = snap["extra"]["kernels"]
         for key in launches:
@@ -4115,6 +4219,7 @@ def phase_fleet(torch, card, serve_input, serve_main, mainnet_slot):
                                            for snap in final.values()}),
             "step_kernel_launches": launches["vm_step"],
             "mont_mul_kernel_launches": launches["mont_mul"],
+            "chain_kernel_launches": launches["pow_chain"],
             **card}, launches, shapes
 
 
@@ -4228,7 +4333,7 @@ def phase_lightclient(torch, pool, card):
     bls_backend.reset_call_counts()
     bls_backend.reset_prep_state()
     cuda_step.LAUNCHES = cuda_step.STEPS = 0
-    cuda_fq.LAUNCHES = cuda_fq.CAPTURES = 0
+    cuda_fq.LAUNCHES = cuda_fq.CHAIN_LAUNCHES = 0
     step_ms = []  # every step-kernel call of the main run (CUDA events)
     t_main = time.perf_counter()
     with _patched(cuda_step, "run_steps", _device_timer(torch, step_ms)):
@@ -4307,7 +4412,8 @@ def phase_lightclient(torch, pool, card):
     main_s = time.perf_counter() - t_main
     launches = {"vm_step": cuda_step.LAUNCHES,
                 "vm_step_steps": cuda_step.STEPS,
-                "mont_mul": cuda_fq.LAUNCHES}
+                "mont_mul": cuda_fq.LAUNCHES,
+                "pow_chain": cuda_fq.CHAIN_LAUNCHES}
     snap = service.snapshot()
     _check(snap["served"] == LIGHTCLIENT_REQUESTS
            and snap["builds"] == LIGHTCLIENT_SLOTS
@@ -4337,7 +4443,8 @@ def phase_lightclient(torch, pool, card):
     # this process's launches through the proof smoke too (its client
     # checks on the card), then each worker's own count from 0
     total = {"vm_step": cuda_step.LAUNCHES, "vm_step_steps": cuda_step.STEPS,
-             "mont_mul": cuda_fq.LAUNCHES}
+             "mont_mul": cuda_fq.LAUNCHES,
+             "pow_chain": cuda_fq.CHAIN_LAUNCHES}
     for kernels in workers.values():
         for key in total:
             total[key] += kernels[key]
@@ -4366,6 +4473,7 @@ def phase_lightclient(torch, pool, card):
             "step_kernel_launches": launches["vm_step"],
             "step_kernel_steps": launches["vm_step_steps"],
             "mont_mul_kernel_launches": launches["mont_mul"],
+            "chain_kernel_launches": launches["pow_chain"],
             "step_kernel_ms": sum(step_ms),
             "step_kernel_busy_share": sum(step_ms) / 1e3 / main_s,
             "proof_smoke": dict(smoke_report["result"], wall_s=smoke_s,
@@ -4395,7 +4503,7 @@ def phase_sim(torch, card):
     from consensus_specs_tpu_torch.sim.fleet_replay import run_fleet_replay
 
     cuda_step.LAUNCHES = cuda_step.STEPS = 0
-    cuda_fq.LAUNCHES = cuda_fq.CAPTURES = 0
+    cuda_fq.LAUNCHES = cuda_fq.CHAIN_LAUNCHES = 0
     t0 = time.perf_counter()
     report = {}
     _check(smoke.main(report=report) == 0,
@@ -4451,8 +4559,10 @@ def phase_sim(torch, card):
     latency_s = time.perf_counter() - t0
     launches = {"vm_step": cuda_step.LAUNCHES,
                 "vm_step_steps": cuda_step.STEPS,
-                "mont_mul": cuda_fq.LAUNCHES}
-    _check(launches == {"vm_step": 0, "vm_step_steps": 0, "mont_mul": 0},
+                "mont_mul": cuda_fq.LAUNCHES,
+                "pow_chain": cuda_fq.CHAIN_LAUNCHES}
+    _check(launches == {"vm_step": 0, "vm_step_steps": 0, "mont_mul": 0,
+                        "pow_chain": 0},
            f"sim: kernel launches {launches} on a crypto-free path")
     return {"phase": "sim", "nodes": smoke_run.nodes, "seed": 7,
             "smoke": dict(evidence(smoke_run), wall_s=smoke_s),
@@ -4464,7 +4574,7 @@ def phase_sim(torch, card):
             "kernels_note": "no kernel by design: the simnet's services "
                             "answer through the crypto-free VerdictBackend",
             "step_kernel_launches": 0, "mont_mul_kernel_launches": 0,
-            **card}, launches
+            "chain_kernel_launches": 0, **card}, launches
 
 
 # ---------------------------------------------------------------------------
@@ -4570,7 +4680,7 @@ def phase_spec_tests(torch, card):
     bls.use_gpu()
     outcomes, case_s = {}, {}
     cuda_step.LAUNCHES = cuda_step.STEPS = 0
-    cuda_fq.LAUNCHES = cuda_fq.CAPTURES = 0
+    cuda_fq.LAUNCHES = cuda_fq.CHAIN_LAUNCHES = 0
     try:
         with contextlib.ExitStack() as stack:
             for fname, oname in _CARD_CALLS.items():
@@ -4594,7 +4704,8 @@ def phase_spec_tests(torch, card):
         bls._backend = saved_backend
     launches = {"vm_step": cuda_step.LAUNCHES,
                 "vm_step_steps": cuda_step.STEPS,
-                "mont_mul": cuda_fq.LAUNCHES}
+                "mont_mul": cuda_fq.LAUNCHES,
+                "pow_chain": cuda_fq.CHAIN_LAUNCHES}
     # after the span, so these oracle calls are not counted: a decode
     # error passes only on an input the oracle rejects too
     oracle = {f: getattr(bls, o) for f, o in _CARD_CALLS.items()}
@@ -4635,6 +4746,7 @@ def phase_spec_tests(torch, card):
             "step_kernel_launches": launches["vm_step"],
             "step_kernel_steps": launches["vm_step_steps"],
             "mont_mul_kernel_launches": launches["mont_mul"],
+            "chain_kernel_launches": launches["pow_chain"],
             **card}, launches
 
 
@@ -4717,7 +4829,7 @@ def phase_gen(torch, card):
 
     saved = (bls._backend, bls.bls_active)
     cuda_step.LAUNCHES = cuda_step.STEPS = 0
-    cuda_fq.LAUNCHES = cuda_fq.CAPTURES = 0
+    cuda_fq.LAUNCHES = cuda_fq.CHAIN_LAUNCHES = 0
     trees = {}
     with tempfile.TemporaryDirectory() as tmp:
         with contextlib.ExitStack() as stack:
@@ -4730,7 +4842,8 @@ def phase_gen(torch, card):
         torch.cuda.synchronize()
         launches = {"vm_step": cuda_step.LAUNCHES,
                     "vm_step_steps": cuda_step.STEPS,
-                    "mont_mul": cuda_fq.LAUNCHES}
+                    "mont_mul": cuda_fq.LAUNCHES,
+                    "pow_chain": cuda_fq.CHAIN_LAUNCHES}
         restored = (bls._backend, bls.bls_active) == saved
         cases = [d for d, _, files in os.walk(bls_dir) if "data.yaml" in files]
         incomplete = gen_runner.detect_incomplete(bls_dir)
@@ -4780,6 +4893,7 @@ def phase_gen(torch, card):
             "step_kernel_launches": launches["vm_step"],
             "step_kernel_steps": launches["vm_step_steps"],
             "mont_mul_kernel_launches": launches["mont_mul"],
+            "chain_kernel_launches": launches["pow_chain"],
             **card}, launches
 
 
@@ -4921,7 +5035,8 @@ def _bench_fleet_workers(torch, line, polls, shapes):
         for row in rows)
     ladder = {label: 0 for label in _LADDER}
     fallbacks = 0
-    launches = {"vm_step": 0, "vm_step_steps": 0, "mont_mul": 0}
+    launches = {"vm_step": 0, "vm_step_steps": 0, "mont_mul": 0,
+                "pow_chain": 0}
     for snaps in fleets:
         for snap in snaps.values():
             for label in _LADDER:
@@ -4945,16 +5060,18 @@ def phase_bench(torch, card, shapes):
     vs_baseline, gate flags, seconds and kernel launches. Fails on an
     error line, a false gate, a ladder record in a mode without injected
     faults (serve-fleet's workers included: on the card, each launching
-    the step kernel), or no launch of either kernel over committee, epoch
-    and codec together. The serve-fleet workers' launch shapes join
-    ``shapes`` (this process's are recorded by the caller)."""
+    the step kernel), or no launch of any of the three kernels over
+    committee, epoch and codec together. The serve-fleet workers' launch
+    shapes join ``shapes`` (this process's are recorded by the
+    caller)."""
     import io
     import tempfile
 
     from consensus_specs_tpu_torch.bench import entry
     from consensus_specs_tpu_torch.serve.fleet import FleetRouter
 
-    modes, launches = {}, {"vm_step": 0, "vm_step_steps": 0, "mont_mul": 0}
+    modes, launches = {}, {"vm_step": 0, "vm_step_steps": 0, "mont_mul": 0,
+                           "pow_chain": 0}
     with tempfile.TemporaryDirectory() as tmp:
         for mode, knobs in BENCH_MODES:
             knobs = dict(knobs)
@@ -5006,7 +5123,8 @@ def phase_bench(torch, card, shapes):
                    "line": line, **card})
     core = [modes[m]["launches"] for m in ("committee", "epoch", "codec")]
     _check(sum(c["vm_step"] for c in core) > 0
-           and sum(c["mont_mul"] for c in core) > 0,
+           and sum(c["mont_mul"] for c in core) > 0
+           and sum(c["pow_chain"] for c in core) > 0,
            f"bench: committee, epoch and codec launched {core}")
     return {"phase": "bench", "modes": modes,
             "seconds": sum(m["seconds"] for m in modes.values()),
@@ -5126,6 +5244,7 @@ def phase_vmexec(torch, card):
     fallbacks = vm_compile._COUNTERS["fallbacks"]
     captures = vm_compile._COUNTERS["captures"]
     cuda_step.LAUNCHES = cuda_step.STEPS = cuda_fq.LAUNCHES = 0
+    cuda_fq.CHAIN_LAUNCHES = 0
     buf = io.StringIO()
     knobs = {"VMEXEC_KINDS": ",".join(VMEXEC_KINDS),
              "VMEXEC_ROWS": ",".join(map(str, VMEXEC_ROWS)),
@@ -5144,7 +5263,8 @@ def phase_vmexec(torch, card):
     oracle = _oracle_cells(SEED + 5)
     launches = {"vm_step": cuda_step.LAUNCHES,
                 "vm_step_steps": cuda_step.STEPS,
-                "mont_mul": cuda_fq.LAUNCHES}
+                "mont_mul": cuda_fq.LAUNCHES,
+                "pow_chain": cuda_fq.CHAIN_LAUNCHES}
     fallbacks = vm_compile._COUNTERS["fallbacks"] - fallbacks
     _check(fallbacks == 0, f"vmexec: {fallbacks} vm/fused_fallback events")
     cells = {}
@@ -5178,6 +5298,7 @@ def phase_vmexec(torch, card):
             "step_kernel_launches": launches["vm_step"],
             "step_kernel_steps": launches["vm_step_steps"],
             "mont_mul_kernel_launches": launches["mont_mul"],
+            "chain_kernel_launches": launches["pow_chain"],
             **card}, launches
 
 
@@ -5249,35 +5370,47 @@ def _twins_oracle(points, rows):
 
 
 def _counted_cpu(fn):
-    """(fn(), the kernel-2 calls it makes) on CPU tensors: every call of
+    """(fn(), its kernel-2 calls, its chains) on CPU tensors: every call of
     ``cuda_fq.mont_mul`` (the kernel's wrapper; on the card one launch
-    each, graph replays of a chain counting its products, which the CPU
-    makes one by one) is counted."""
-    from consensus_specs_tpu_torch.ops import cuda_fq
+    each) outside a chain is counted, and every chain
+    (``fq.pow_fixed_steps``: on the card one launch of the chain kernel,
+    product by product on the CPU) once."""
+    from consensus_specs_tpu_torch.ops import cuda_fq, fq
 
-    calls = [0]
+    calls, chains, in_chain = [0], [0], [False]
 
     def counted(mont_mul):
         def run(a, b):
-            calls[0] += 1
+            calls[0] += not in_chain[0]
             return mont_mul(a, b)
         return run
 
-    with _patched(cuda_fq, "mont_mul", counted):
+    def chain(steps):
+        def run(a, bits):
+            chains[0] += 1
+            in_chain[0] = True
+            try:
+                return steps(a, bits)
+            finally:
+                in_chain[0] = False
+        return run
+
+    with _patched(cuda_fq, "mont_mul", counted), \
+            _patched(fq, "pow_fixed_steps", chain):
         out = fn()
-    return out, calls[0]
+    return out, calls[0], chains[0]
 
 
 def _card_call(torch, fn, shapes):
-    """(fn() on the card, warm seconds, kernel-2 launches of the warm
-    call): a cold call first (graph captures of fq.inv's chain), then
-    the warm call timed; the products of each launch are tallied into
+    """(fn() on the card, warm seconds, kernel-2 launches and chain
+    launches of the warm call): a cold call first, then the warm call
+    timed; the products of each kernel-2 launch are tallied into
     ``shapes``."""
     from consensus_specs_tpu_torch.ops import cuda_fq
 
     fn()
     torch.cuda.synchronize()
-    before = cuda_fq.LAUNCHES
+    before, chains = cuda_fq.LAUNCHES, cuda_fq.CHAIN_LAUNCHES
 
     def tally(mont_mul):
         def run(a, b):
@@ -5290,7 +5423,8 @@ def _card_call(torch, fn, shapes):
     with _patched(cuda_fq, "mont_mul", tally):
         out = fn()
     torch.cuda.synchronize()
-    return out, time.perf_counter() - t, cuda_fq.LAUNCHES - before
+    return (out, time.perf_counter() - t, cuda_fq.LAUNCHES - before,
+            cuda_fq.CHAIN_LAUNCHES - chains)
 
 
 def phase_twins(torch, dev, rng, imad_rate, card):
@@ -5308,17 +5442,18 @@ def phase_twins(torch, dev, rng, imad_rate, card):
     _check(all(oracle[i][1] == want[i] for i in TWINS_ORACLE_ROWS),
            "twins: the oracle disagrees with the planted verdicts")
     cuda_step.LAUNCHES = cuda_step.STEPS = cuda_fq.LAUNCHES = 0
-    cuda_fq.CAPTURES = 0
+    cuda_fq.CHAIN_LAUNCHES = 0
     t = {k: torch.from_numpy(v.astype(np.int64)).to(dev)
          for k, v in limbs.items()}
     pairs = [(t["px1"], t["py1"], t["qx1"], t["qy1"]),
              (t["px2"], t["py2"], t["qx2"], t["qy2"])]
-    shapes, seconds, launches = {}, {}, {}
+    shapes, seconds, launches, chains = {}, {}, {}, {}
 
     # pairing products: 64 rows, both Miller loops as one stacked loop
     got, seconds["pairing_product_is_one"], launches[
-        "pairing_product_is_one"] = _card_call(
-        torch, lambda: pairing.pairing_product_is_one(pairs), shapes)
+        "pairing_product_is_one"], chains["pairing_product_is_one"] = \
+        _card_call(torch, lambda: pairing.pairing_product_is_one(pairs),
+                   shapes)
     verdicts = got.tolist()
     _check(verdicts == want, f"twins: pairing verdicts "
            f"{[i for i in range(n) if verdicts[i] != want[i]]} wrong")
@@ -5327,9 +5462,10 @@ def phase_twins(torch, dev, rng, imad_rate, card):
     # Fq2 subfield factor, and against the plain product on the CPU
     sel = list(TWINS_ORACLE_ROWS)
     args = [t[k][sel] for k in ("qx1", "qy1", "px1", "py1")]
-    f_card, seconds["miller_loop"], launches["miller_loop"] = _card_call(
+    f_card, seconds["miller_loop"], launches["miller_loop"], chains[
+        "miller_loop"] = _card_call(
         torch, lambda: pairing.miller_loop(*args), shapes)
-    f_cpu, want_miller = _counted_cpu(
+    f_cpu, want_miller, want_chains = _counted_cpu(
         lambda: pairing.miller_loop(*(a.cpu() for a in args)))
     f_host = f_card.cpu()
     subfield = []
@@ -5342,6 +5478,7 @@ def phase_twins(torch, dev, rng, imad_rate, card):
     # card against the plain product, limb for limb, on the same 8 rows
     card_vs_cpu = {"miller_loop": int((f_host - f_cpu).abs().max())}
     counts = {"miller_loop": want_miller}
+    chain_counts = {"miller_loop": want_chains}
     funcs = {"fq12_inv": towers.fq12_inv,
              **{f"fq12_frobenius_{k}": (lambda x, k=k:
                                         towers.fq12_frobenius(x, k))
@@ -5350,9 +5487,10 @@ def phase_twins(torch, dev, rng, imad_rate, card):
              "fq2_mul": lambda x: towers.fq2_mul(x[..., :2, :],
                                                  x[..., 2:4, :])}
     for name, fn in funcs.items():
-        out, seconds[name], launches[name] = _card_call(
+        out, seconds[name], launches[name], chains[name] = _card_call(
             torch, lambda: fn(f_card), shapes)
-        plain, counts[name] = _counted_cpu(lambda: fn(f_host))
+        plain, counts[name], chain_counts[name] = _counted_cpu(
+            lambda: fn(f_host))
         card_vs_cpu[name] = int((out.cpu() - plain).abs().max())
     _check(not any(card_vs_cpu.values()),
            f"twins: card != plain product: {card_vs_cpu}")
@@ -5361,12 +5499,16 @@ def phase_twins(torch, dev, rng, imad_rate, card):
            f"twins: kernel-2 calls a product {counts}")
     _check(all(launches[k] == counts[k] for k in counts),
            f"twins: kernel-2 launches {launches} != the code's {counts}")
+    _check(all(chains[k] == chain_counts[k] for k in chain_counts)
+           and chains["fq12_inv"] == 1,
+           f"twins: chain launches {chains} != the code's {chain_counts}")
 
     # subgroup checks: r * P on the 64 G1 points of the first pair
-    out, seconds["g1_subgroup_check"], launches["g1_subgroup_check"] = \
-        _card_call(torch, lambda: curve.scalar_mul_fixed(
-            curve.FQ_OPS, t["px1"], t["py1"], curve.subgroup_check_bits()),
-            shapes)
+    out, seconds["g1_subgroup_check"], launches["g1_subgroup_check"], \
+        chains["g1_subgroup_check"] = _card_call(
+            torch, lambda: curve.scalar_mul_fixed(
+                curve.FQ_OPS, t["px1"], t["py1"],
+                curve.subgroup_check_bits()), shapes)
     z_zero = fq.is_zero(out["z"]).tolist()
     _check(all(z_zero), f"twins: r*P not at infinity on rows "
            f"{[i for i, z in enumerate(z_zero) if not z]}")
@@ -5376,7 +5518,8 @@ def phase_twins(torch, dev, rng, imad_rate, card):
     # version, both timed
     mont = _mont_mul_at(torch, dev, rng, imad_rate, (2 * n, 12, 12))
     total = {"vm_step": cuda_step.LAUNCHES, "vm_step_steps": cuda_step.STEPS,
-             "mont_mul": cuda_fq.LAUNCHES}
+             "mont_mul": cuda_fq.LAUNCHES,
+             "pow_chain": cuda_fq.CHAIN_LAUNCHES}
     _check(total["vm_step"] == 0 and total["mont_mul"] > 0,
            f"twins: launches {total}")
     return {"phase": "twins", "rows": n, "planted": list(TWINS_PLANTED),
@@ -5388,11 +5531,12 @@ def phase_twins(torch, dev, rng, imad_rate, card):
             "mont_mul_calls_counted_on_cpu": counts,
             "mont_mul_products_per_launch": {str(k): v for k, v
                                              in sorted(shapes.items())},
-            "chain_graphs_captured": cuda_fq.CAPTURES,
+            "chain_launches_per_call": chains,
             "mont_mul_at_stacked_fq12_mul": mont,
             "phase_s": time.perf_counter() - t0,
             "step_kernel_launches": total["vm_step"],
             "mont_mul_kernel_launches": total["mont_mul"],
+            "chain_kernel_launches": total["pow_chain"],
             **card}, total, mont
 
 
@@ -5417,6 +5561,7 @@ def phase_finalexp(torch, card):
     t0 = time.perf_counter()
     fallbacks = vm_compile._COUNTERS["fallbacks"]
     cuda_step.LAUNCHES = cuda_step.STEPS = cuda_fq.LAUNCHES = 0
+    cuda_fq.CHAIN_LAUNCHES = 0
     exec_mode = os.environ.get("CONSENSUS_SPECS_TPU_VM_EXEC")
     buf = io.StringIO()
     with _env(FINALEXP_KNOBS), contextlib.redirect_stdout(buf):
@@ -5446,7 +5591,8 @@ def phase_finalexp(torch, card):
     _check(fallbacks == 0, f"finalexp: {fallbacks} vm/fused_fallback events")
     launches = {"vm_step": cuda_step.LAUNCHES,
                 "vm_step_steps": cuda_step.STEPS,
-                "mont_mul": cuda_fq.LAUNCHES}
+                "mont_mul": cuda_fq.LAUNCHES,
+                "pow_chain": cuda_fq.CHAIN_LAUNCHES}
     _check(bench_launches["vm_step"] > 0 and bench_launches["mont_mul"] > 0
            and launches["vm_step"] > bench_launches["vm_step"],
            f"finalexp: launches bench {bench_launches}, phase {launches}")
@@ -5460,6 +5606,7 @@ def phase_finalexp(torch, card):
             "step_kernel_launches": launches["vm_step"],
             "step_kernel_steps": launches["vm_step_steps"],
             "mont_mul_kernel_launches": launches["mont_mul"],
+            "chain_kernel_launches": launches["pow_chain"],
             **card}, launches
 
 
@@ -5499,12 +5646,12 @@ def _slot_step_timer(torch, sink):
 
 
 def _mesh_timed(torch, mesh, call):
-    """``call()`` with its wall, its kernel-1 and kernel-2 launches, the
-    step-kernel launches and ms by the stream (a slot's lane under
-    ``mesh``: CUDA events, the per-slot measure) and the occupancy
+    """``call()`` with its wall, its kernel-1, kernel-2 and chain
+    launches, the step-kernel launches and ms by the stream (a slot's lane
+    under ``mesh``: CUDA events, the per-slot measure) and the occupancy
     ledger's lane utilizations over the call (a sharded execute is noted
-    busy on every slot's lane for its whole wall, so the slots' lanes
-    read alike by construction)."""
+    busy on every slot's lane for its whole wall, so the slots' lanes read
+    alike by construction)."""
     from consensus_specs_tpu_torch.obs import devices
     from consensus_specs_tpu_torch.ops import cuda_fq, cuda_step
 
@@ -5515,7 +5662,8 @@ def _mesh_timed(torch, mesh, call):
     sink = []
     devices.reset_global()
     devices.global_ledger()  # its clock starts here, before the call's
-    k1, k2 = cuda_step.LAUNCHES, cuda_fq.LAUNCHES
+    k1, k2, k3 = (cuda_step.LAUNCHES, cuda_fq.LAUNCHES,
+                  cuda_fq.CHAIN_LAUNCHES)
     with _patched(cuda_step, "run_steps", _slot_step_timer(torch, sink)):
         t0 = time.perf_counter()
         out = call()
@@ -5530,6 +5678,7 @@ def _mesh_timed(torch, mesh, call):
     return out, {
         "wall_s": wall, "step_kernel_launches": cuda_step.LAUNCHES - k1,
         "mont_mul_kernel_launches": cuda_fq.LAUNCHES - k2,
+        "chain_kernel_launches": cuda_fq.CHAIN_LAUNCHES - k3,
         "step_kernel_ms_by_lane": per_lane,
         "step_kernel_launches_by_lane": launches_by_lane,
         "lane_utilization": {k: v["utilization"] for k, v in lanes.items()}}
@@ -5754,6 +5903,7 @@ def phase_mesh(torch, card):
             bls_backend._pow2_floor(n_cards))
     profiling.reset()
     cuda_step.LAUNCHES = cuda_step.STEPS = cuda_fq.LAUNCHES = 0
+    cuda_fq.CHAIN_LAUNCHES = 0
     fused_fallbacks = vm_compile._COUNTERS["fallbacks"]
     line = {"phase": "mesh", "slots": mesh.size,
             "distinct_devices": {k: m.distinct_devices
@@ -5818,7 +5968,8 @@ def phase_mesh(torch, card):
            f"mesh: {fused_fallbacks} vm/fused_fallback events")
     launches = {"vm_step": cuda_step.LAUNCHES,
                 "vm_step_steps": cuda_step.STEPS,
-                "mont_mul": cuda_fq.LAUNCHES}
+                "mont_mul": cuda_fq.LAUNCHES,
+                "pow_chain": cuda_fq.CHAIN_LAUNCHES}
     _check(launches["vm_step"] > 0 and launches["mont_mul"] > 0,
            f"mesh: launches {launches}")
     line.update(phase_s=time.perf_counter() - t0,
@@ -6059,25 +6210,32 @@ def _run_phases(torch, builds):
     # canary, the mesh phase and the wide AggregateVerify checks
     paths = {"slice": {"vm_step": launches["vm_step"],
                        "vm_step_steps": launches["vm_step_steps"],
-                       "mont_mul": launches["mont_mul"]},
+                       "mont_mul": launches["mont_mul"],
+                       "pow_chain": launches["pow_chain"]},
              "serve": serve_launches, **path_launches}
     for path, run in {**rlc_runs, **codec_runs}.items():
         paths[path] = {"vm_step": run["step_kernel_launches"],
                        "vm_step_steps": run["step_kernel_steps"],
-                       "mont_mul": run["mont_mul_kernel_launches"]}
+                       "mont_mul": run["mont_mul_kernel_launches"],
+                       "pow_chain": run["chain_kernel_launches"]}
     total = {k: sum(p[k] for p in paths.values()) for k in paths["slice"]}
     # kzg needs the step kernel only: its items are oracle points (no
-    # decode, no subgroup check, no hash to G2), so the Montgomery kernel
-    # has no work on that path
+    # decode, no subgroup check, no hash to G2), so neither Fq kernel has
+    # work on that path
     # the simnet launches none: its verdicts ride in the signature bytes;
     # the tower twins run no VM program, so no step kernel
-    idle = [f"{path} {k}" for path in ("wide", "epoch", "mainnet", "spec",
-                                       "kzg", "forks", "fleet", "lightclient",
-                                       "spec_tests", "gen", "bench",
-                                       "vmexec", "twins", "finalexp",
-                                       "mesh", "wide_aggregate")
-            for k in ("vm_step", "mont_mul") if paths[path][k] == 0
-            and (path, k) not in (("kzg", "mont_mul"), ("twins", "vm_step"))]
+    # the VM toolchain's cells run VM programs on inputs made on the host:
+    # no input codec, no inversion, so no chain
+    exempt = {("kzg", "mont_mul"), ("kzg", "pow_chain"), ("twins", "vm_step"),
+              ("vmexec", "pow_chain")}
+    idle = [f"{path} {k}" for path in ("slice", "codec", "codec_rlc",
+                                       "serve", "wide", "epoch", "mainnet",
+                                       "spec", "kzg", "forks", "fleet",
+                                       "lightclient", "spec_tests", "gen",
+                                       "bench", "vmexec", "twins",
+                                       "finalexp", "mesh", "wide_aggregate")
+            for k in ("vm_step", "mont_mul", "pow_chain")
+            if paths[path][k] == 0 and (path, k) not in exempt]
     if idle:
         print(f"chip_smoke: FAILED: kernels never launched on {idle}",
               file=sys.stderr)
@@ -6095,6 +6253,11 @@ def _run_phases(torch, builds):
     step_bound = _bound(head_bytes, head_imad, imad_rate)
     # mont_mul's line: the tower combine's 144-product shape
     mont = rlc_mont[0]
+    # pow_chain's line: the square-root chain at 512 rows (a slot's pubkey
+    # decode), every checked shape beside it
+    chains = codec_line["chains"]
+    chain = next(r for r in chains if r["chain"] == "sqrt"
+                 and r["rows"] == 512)
 
     kernels = [
         {"name": "vm_step", "route": "cuda",
@@ -6140,6 +6303,24 @@ def _run_phases(torch, builds):
                                               "bound_ms", "bound_by")}
          | {"launches_per_call": twins_line["mont_mul_launches_per_call"],
             "warm_s": twins_line["warm_s"]}},
+        {"name": "pow_chain", "route": "cuda",
+         "source": "consensus_specs_tpu_torch/csrc/pow_chain.cu",
+         "replaces": "consensus_specs_tpu/ops/fq.py:245",
+         "launches": total["pow_chain"],
+         "launches_by_path": {k: p["pow_chain"] for k, p in paths.items()},
+         "work": f"{chain['chain']} chain, {chain['products']} products "
+                 f"on {chain['rows']} rows",
+         "max_abs_err": max(r["max_abs_err"] for r in chains
+                            if "max_abs_err" in r),
+         "ms": chain["ms"], "plain_ms": chain["plain_ms"],
+         "bound_ms": chain["bound_ms"], "bound_by": chain["bound_by"],
+         "library_ms": None, "one_row_ms": chain["one_row_ms"],
+         # the earlier route: the step chain's CUDA graph, replayed
+         "graph_ms": chain["graph_ms"],
+         "shapes": {f"{r['chain']},{r['rows']}": {
+             k: r[k] for k in ("ms", "bound_ms", "one_row_ms", "steps_ms",
+                               "plain_ms", "graph_ms") if k in r}
+             for r in chains}},
     ]
     print(f"{name}, {power}", flush=True)
     _emit({"kernels": kernels})

@@ -8,9 +8,9 @@ Each mode prints ONE JSON line with the JAX package's ``bench.py`` keys
 own sections under the JAX names) plus ``platform`` ("gpu" or "cpu"),
 ``device`` (the card's name and power limit as ``nvidia-smi
 --query-gpu=name,power.limit`` gives them; null on the CPU) and
-``launches``: the step kernel's (``vm_step``, ``vm_step_steps``) and the
-Montgomery kernel's (``mont_mul``, ``mont_mul_captures``) counters over
-the mode's run in this process, counted from 0 when it starts (fleet
+``launches``: the step kernel's (``vm_step``, ``vm_step_steps``), the
+Montgomery kernel's (``mont_mul``) and the chain kernel's (``pow_chain``)
+counters over the mode's run in this process, counted from 0 when it starts (fleet
 workers report their own counts in their rows). Nothing else goes to
 stdout: a mode's own prints land on stderr.
 
@@ -98,14 +98,14 @@ def _counters():
 
     return {"vm_step": cuda_step.LAUNCHES, "vm_step_steps": cuda_step.STEPS,
             "mont_mul": cuda_fq.LAUNCHES,
-            "mont_mul_captures": cuda_fq.CAPTURES}
+            "pow_chain": cuda_fq.CHAIN_LAUNCHES}
 
 
 def _reset_counters():
     from ..ops import cuda_fq, cuda_step
 
     cuda_step.LAUNCHES = cuda_step.STEPS = 0
-    cuda_fq.LAUNCHES = cuda_fq.CAPTURES = 0
+    cuda_fq.LAUNCHES = cuda_fq.CHAIN_LAUNCHES = 0
 
 
 def run_committee(device) -> dict:

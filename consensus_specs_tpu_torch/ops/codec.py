@@ -6,9 +6,10 @@ pure-Python hash-to-G2 and a per-item decode + subgroup check before a
 byte reaches the card. This module prepares a whole batch at once:
 
 - **G1/G2 decompression**: vectorized limb decode (numpy bit unpack), then
-  ONE shared square-root chain per batch (``fq.pow_fixed`` runs the 380
-  static exponent bits once over the whole (N, 15) limb tensor) and sign
-  selection by vectorized limb compares.
+  ONE shared square-root chain per batch (``fq.pow_fixed`` runs the 379
+  static exponent bits once over the whole (N, 15) limb tensor; an Fq2
+  root's five chains go in two stacked calls) and sign selection by
+  vectorized limb compares.
 - **Montgomery batch inversion**: ``_fq_batch_inverse`` is the product
   ladder (two associative scans, ONE Fermat chain for the batch, two
   multiplies per element, inv(0) == 0). It backs every division: the
@@ -21,9 +22,9 @@ byte reaches the card. This module prepares a whole batch at once:
   addition and cofactor clearing as the ``h2g_finish`` VM program.
 
 Placement (``_use_device``): on a CUDA device the tensor path runs, every
-Montgomery product a launch of the Montgomery kernel (ops/cuda_fq.py; each
-exponentiation chain one replay of its CUDA graph of such launches,
-``cuda_fq.pow_chain``) and every VM program one launch of the step kernel
+Montgomery product a launch of the Montgomery kernel (ops/cuda_fq.py), each
+exponentiation chain one launch of the chain kernel (``cuda_fq.pow_chain``,
+csrc/pow_chain.cu) and every VM program one launch of the step kernel
 (ops/cuda_step.py). On the CPU the same algorithms run as a class-free
 raw-int host path, as the JAX package does on its CPU backend.
 ``CONSENSUS_SPECS_TPU_CODEC_DEVICE=1/0`` forces the tensor path (on the
@@ -223,23 +224,23 @@ def _fq2_sqrt(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched Fq2 square root, complex method, with the oracle's Fq2.sqrt
     root CHOICE (bit-identical, not merely +/- equivalent). v: (N, 2, L),
     loose ok. Returns (root canonical (N, 2, L), ok (N,)): ok is False
-    exactly where the oracle returns None. Five shared pow_fixed chains
-    and one batch inversion (b / 2x0)."""
+    exactly where the oracle returns None. Five square-root chains in two
+    stacked pow_fixed calls (each row's chain is its own, so stacking is
+    exact) and one batch inversion (b / 2x0)."""
     a, b = v[..., 0, :], v[..., 1, :]
     inv2 = _cb("inv2", a)
     norm = fq.add(fq.mont_mul(a, a), fq.mont_mul(b, b))
-    alpha = fq.pow_fixed(norm, _SQRT_BITS)
+    # alpha = sqrt(norm); the b == 0 lanes' sqrt(a) and sqrt(-a)
+    alpha, sa, sna = fq.pow_fixed(
+        torch.stack([norm, a, fq.neg(a)]), _SQRT_BITS).unbind(0)
     d1 = fq.mont_mul(fq.add(a, alpha), inv2)
-    x0a = fq.pow_fixed(d1, _SQRT_BITS)
-    ok_a = fq.eq(fq.mont_mul(x0a, x0a), d1)
     d2 = fq.mont_mul(fq.sub(a, alpha), inv2)
-    x0b = fq.pow_fixed(d2, _SQRT_BITS)
+    x0a, x0b = fq.pow_fixed(torch.stack([d1, d2]), _SQRT_BITS).unbind(0)
+    ok_a = fq.eq(fq.mont_mul(x0a, x0a), d1)
     x0 = fq.select(ok_a, x0a, x0b)
     x1 = fq.mont_mul(b, _fq_batch_inverse(fq.add(x0, x0)))
     # b == 0 lanes: (sqrt(a), 0) if a is a residue else (0, sqrt(-a))
-    sa = fq.pow_fixed(a, _SQRT_BITS)
     ok_sa = fq.eq(fq.mont_mul(sa, sa), a)
-    sna = fq.pow_fixed(fq.neg(a), _SQRT_BITS)
     zeros = torch.zeros_like(a)
     b_zero = fq.is_zero(b)
     r0 = fq.select(b_zero, fq.select(ok_sa, sa, zeros), x0)

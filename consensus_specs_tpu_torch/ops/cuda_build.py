@@ -17,7 +17,7 @@ from typing import Dict, Sequence, Tuple
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-KERNELS = ("mont_mul", "vm_step")
+KERNELS = ("mont_mul", "pow_chain", "vm_step")
 _HEADERS = ("mont.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,20 +1,22 @@
-"""Batched Montgomery multiply: the CUDA kernel (csrc/mont_mul.cu) and its
-dispatch — the port's counterpart of consensus_specs_tpu/ops/pallas_fq.py.
+"""The Fq kernels' wrappers: the batched Montgomery multiply
+(csrc/mont_mul.cu), the port's counterpart of
+consensus_specs_tpu/ops/pallas_fq.py, and the exponentiation chain
+(csrc/pow_chain.cu), the counterpart of the JAX package's ``fq.pow_fixed``
+(a lax.scan over that Pallas kernel).
 
 ``mont_mul(a, b)`` takes (..., 15) int64 limb tensors (limbs < 2^28). On a
 CUDA tensor it launches the kernel (or raises); on a CPU tensor it runs the
 plain version, ``fq.mont_mul_plain``. The two agree limb for limb.
 
-``pow_chain(a, bits)`` is ``fq.pow_fixed`` on the card: the chain of
-Montgomery products captured once per (device, stream, shape, exponent) as
-a CUDA graph whose every node is a launch of the kernel, then replayed, so
-a call costs one graph launch of host time instead of one wrapper call per
-product (the codec's square-root and inversion chains are ~750 products
-each and launch-bound otherwise).
+``pow_chain(a, bits)`` is ``fq.pow_fixed`` on the card: the whole chain of
+one exponent in one launch, each row's base and accumulator in registers,
+the product by the base made only where the bit is 1; limb for limb
+``fq.pow_fixed_steps``, which is what it runs on a CPU tensor. Independent
+chains of one exponent stack into one call (ops/codec.py's square roots).
 
-``capture`` and ``count_replay`` are that machinery for any graph of
-kernel launches: the fused VM lowering (ops/vm_compile.py) captures its
-units with them.
+``capture`` and ``count_replay`` are the machinery for a CUDA graph of
+Montgomery-kernel launches: the fused VM lowering (ops/vm_compile.py)
+captures its units with them.
 
 Threads: the counters are bumped under a lock, and a capture records its
 launches in a tally of the capturing thread (they are recorded into the
@@ -25,23 +27,21 @@ stream, which cannot capture), so another thread may launch, allocate
 and synchronize while it lasts.
 """
 import ctypes
+import functools
 import threading
 
 import torch
 
 from . import cuda_build, fq
 
-# kernel launches made by mont_mul and by pow_chain's graph replays, and
-# the chain graphs captured (tests and the chip smoke reset them to 0 and
+# kernel launches made by mont_mul (and by the graph replays of its
+# launches) and by pow_chain (tests and the chip smoke reset them to 0 and
 # read them back)
 LAUNCHES = 0
-CAPTURES = 0
+CHAIN_LAUNCHES = 0
 
 _LIB = None
-# (device, stream, shape, bits) -> (graph, static input, static output,
-# kernel launches in the graph)
-_CHAINS = {}
-_CHAINS_LOCK = threading.Lock()
+_CHAIN_LIB = None
 _COUNT_LOCK = threading.Lock()
 # per thread: ``capture`` is the launch tally of a capture in progress
 # (None outside one), ``side`` the side streams captures run on
@@ -85,6 +85,24 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         _LIB = bind(cuda_build.load("mont_mul"))
     return _LIB
+
+
+def bind_chain(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Type ``pow_chain_launch`` of a build of csrc/pow_chain.cu: (a, out,
+    rows, exponent words, exponent bits, stream) -> cudaError. Returns
+    ``lib``."""
+    lib.pow_chain_launch.restype = ctypes.c_int
+    lib.pow_chain_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.c_longlong, ctypes.c_void_p,
+                                     ctypes.c_int, ctypes.c_void_p]
+    return lib
+
+
+def _chain_lib() -> ctypes.CDLL:
+    global _CHAIN_LIB
+    if _CHAIN_LIB is None:
+        _CHAIN_LIB = bind_chain(cuda_build.load("pow_chain"))
+    return _CHAIN_LIB
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
@@ -156,32 +174,56 @@ def count_replay(launches: int) -> None:
         LAUNCHES += launches
 
 
+# exponent bits a launch takes after the top one (PC_MAX_BITS in
+# csrc/pow_chain.cu): every Fq exponent of the port has at most 381
+CHAIN_MAX_BITS = 512
+
+
+@functools.lru_cache(maxsize=None)
+def _chain_words(exp_bits: tuple) -> ctypes.Array:
+    """The kernel's exponent: the bits after the top one, first-processed
+    first, 32 to a uint32 word."""
+    tail = exp_bits[1:]
+    words = (ctypes.c_uint32 * max(1, -(-len(tail) // 32)))()
+    for i, bit in enumerate(tail):
+        if bit:
+            words[i // 32] |= 1 << (i % 32)
+    return words
+
+
 def pow_chain(a: torch.Tensor, exp_bits) -> torch.Tensor:
-    """``fq.pow_fixed_steps(a, exp_bits)`` on a CUDA tensor, limb for limb,
-    as one replay of the chain's CUDA graph. The first call of a key runs
-    the chain step by step (its result is returned) and then captures it;
-    the capture launches nothing, so LAUNCHES counts the graph's kernel
-    launches at each replay."""
-    global CAPTURES
+    """``fq.pow_fixed_steps(a, exp_bits)``, limb for limb: on a CUDA tensor
+    one launch of csrc/pow_chain.cu over every row, on a CPU tensor the
+    plain chain. ``a`` is a contiguous (..., 15) int64 tensor;
+    anything else raises, as does an exponent of more than
+    CHAIN_MAX_BITS + 1 bits."""
+    global CHAIN_LAUNCHES
+    if a.dtype != torch.int64:
+        raise TypeError("pow_chain: limb tensors must be torch.int64")
+    if a.dim() == 0 or a.shape[-1] != fq.NUM_LIMBS:
+        raise ValueError(f"pow_chain: last dim must be {fq.NUM_LIMBS}")
+    if not a.is_contiguous():
+        raise ValueError("pow_chain: the operand must be contiguous")
+    exp_bits = tuple(int(b) for b in exp_bits)
+    if len(exp_bits) > CHAIN_MAX_BITS + 1:
+        raise ValueError(f"pow_chain: {len(exp_bits)} exponent bits, at "
+                         f"most {CHAIN_MAX_BITS + 1}")
+    if a.device.type == "cpu":
+        return fq.pow_fixed_steps(a, exp_bits)
     if a.device.type != "cuda":
         raise ValueError(f"pow_chain: operand on {a.device}")
-    stream = torch.cuda.current_stream(a.device)
-    # keyed by the card's index: "cuda" and "cuda:0" are one card
-    key = (stream.device, stream.cuda_stream, tuple(a.shape),
-           tuple(exp_bits))
-    with _CHAINS_LOCK, torch.cuda.device(a.device):
-        entry = _CHAINS.get(key)
-        if entry is None:
-            out = fq.pow_fixed_steps(a, exp_bits)
-            static_in = a.clone()
-            graph, static_out, n = capture(
-                lambda: fq.pow_fixed_steps(static_in, exp_bits), stream)
-            _CHAINS[key] = (graph, static_in, static_out, n)
-            with _COUNT_LOCK:
-                CAPTURES += 1
-            return out
-        graph, static_in, static_out, n = entry
-        static_in.copy_(a)
-        graph.replay()
-        count_replay(n)
-        return static_out.clone()
+    out = torch.empty_like(a)
+    rows = a.numel() // fq.NUM_LIMBS
+    if rows == 0:
+        return out
+    words = _chain_words(exp_bits)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = _chain_lib().pow_chain_launch(
+            a.data_ptr(), out.data_ptr(), rows, ctypes.addressof(words),
+            max(0, len(exp_bits) - 1), stream)
+    if rc != 0:
+        raise RuntimeError(f"pow_chain kernel launch failed: cudaError {rc}")
+    with _COUNT_LOCK:
+        CHAIN_LAUNCHES += 1
+    return out

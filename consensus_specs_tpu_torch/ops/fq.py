@@ -252,24 +252,27 @@ def select(cond: torch.Tensor, a: torch.Tensor,
 
 def pow_fixed(a: torch.Tensor, exp_bits) -> torch.Tensor:
     """a^e for a static msb-first bit list (loose in, loose out). On a CUDA
-    tensor the chain is one replay of its captured CUDA graph
+    tensor the whole chain is one launch of csrc/pow_chain.cu
     (ops/cuda_fq.pow_chain); elsewhere ``pow_fixed_steps``."""
     if a.device.type == "cuda":
         from . import cuda_fq  # cuda_fq imports this module
 
-        return cuda_fq.pow_chain(a, exp_bits)
+        return cuda_fq.pow_chain(a.contiguous(), exp_bits)
     return pow_fixed_steps(a, exp_bits)
 
 
 def pow_fixed_steps(a: torch.Tensor, exp_bits) -> torch.Tensor:
     """The chain step by step: the top bit seeds the accumulator, each
-    later bit costs a square, a multiply and a select (the JAX package's
-    lax.scan body; the bits are static, so the select is made here)."""
+    later bit costs a square, and a 1 bit a multiply by the base as well
+    (the JAX package's lax.scan body computes that multiply at every bit
+    and selects it away at a 0; the bits are static, so the product whose
+    result the select drops is not made here, and the limbs are the
+    same)."""
     acc = a
     for bit in exp_bits[1:]:
         acc = mont_mul(acc, acc)
-        acc_mul = mont_mul(acc, a)
-        acc = acc_mul if bit else acc
+        if bit:
+            acc = mont_mul(acc, a)
     return acc
 
 

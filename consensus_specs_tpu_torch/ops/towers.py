@@ -291,7 +291,8 @@ def _fq2_mul_xi(a: torch.Tensor) -> torch.Tensor:
 
 def fq2_inv(a: torch.Tensor) -> torch.Tensor:
     """(a0 + a1 u)^-1 = (a0 - a1 u) / (a0^2 + a1^2); inv(0) == 0. The one
-    Fq inversion is ``fq.inv`` (on the card ``cuda_fq.pow_chain``)."""
+    Fq inversion is ``fq.inv`` (on the card one launch of the chain
+    kernel, ``cuda_fq.pow_chain``)."""
     sq = fq.mont_mul(a, a)  # a0^2, a1^2 in one product
     di = fq.inv(fq.add(sq[..., 0, :], sq[..., 1, :]))
     t = fq.mont_mul(a, di[..., None, :])

@@ -50,7 +50,7 @@ ladder rung, the injected faults fired, the resolved device (and on a
 card its name), whether this process initialized CUDA, the steps and
 registers of every program it resolved, and its kernel launch counts
 (``cuda_step.LAUNCHES`` / ``STEPS``, ``cuda_fq.LAUNCHES`` /
-``CAPTURES``; 0 where the kernel modules were never imported), so the
+``CHAIN_LAUNCHES``; 0 where the kernel modules were never imported), so the
 parent can show that the kernels ran in the workers, and ``warm_bg``,
 whether background warming of the fused VM lowering is armed
 (``CONSENSUS_SPECS_TPU_VM_WARM_BG``, which a worker defaults to 1, as the
@@ -81,7 +81,7 @@ _KERNEL_COUNTS = (
     ("consensus_specs_tpu_torch.ops.cuda_step", "LAUNCHES", "vm_step"),
     ("consensus_specs_tpu_torch.ops.cuda_step", "STEPS", "vm_step_steps"),
     ("consensus_specs_tpu_torch.ops.cuda_fq", "LAUNCHES", "mont_mul"),
-    ("consensus_specs_tpu_torch.ops.cuda_fq", "CAPTURES", "mont_mul_captures"),
+    ("consensus_specs_tpu_torch.ops.cuda_fq", "CHAIN_LAUNCHES", "pow_chain"),
 )
 
 

@@ -131,7 +131,7 @@ def test_epoch_replay_equal(tmp_path, monkeypatch):
         assert got[k] == v, k
     assert got["checks"] == len(triples) == 4
     assert got["launches"] == {"vm_step": 0, "vm_step_steps": 0,
-                               "mont_mul": 0, "mont_mul_captures": 0}
+                               "mont_mul": 0, "pow_chain": 0}
 
 
 def test_codec_outputs_equal():

@@ -276,24 +276,6 @@ def test_final_exp_full_on_the_card_agrees_with_the_structured_one(dev):
     assert full == pairing.final_exp_is_one(batch).tolist() == [True, False]
 
 
-@pytest.mark.parametrize("shape", [(15,), (7, 15), (64, 2, 15)])
-def test_pow_chain_replays_match_the_steps(dev, shape):
-    """fq.pow_fixed on the card (the chain's CUDA graph: a step-by-step
-    first call, then replays) against the plain chain on the CPU, raw limbs
-    equal; each replay counts its graph's kernel-2 launches."""
-    from consensus_specs_tpu_torch.ops import cuda_fq, fq
-
-    rng = np.random.default_rng(14 + len(shape))
-    bits = [1] + list(rng.integers(0, 2, 40))
-    for _ in range(3):
-        a = torch.from_numpy(_loose(rng, shape[:-1])).to(dev)
-        before = cuda_fq.LAUNCHES
-        got = fq.pow_fixed(a, bits)
-        assert cuda_fq.LAUNCHES == before + 2 * (len(bits) - 1)
-        want = fq.pow_fixed_steps(a.cpu(), bits)
-        assert torch.equal(got.cpu(), want)
-
-
 def test_codec_on_the_card_matches_the_host_path(dev):
     """The batch codecs on the card (tensor path) against the raw-int host
     path, item for item, invalid encodings included."""
@@ -319,75 +301,6 @@ def test_codec_on_the_card_matches_the_host_path(dev):
                           xs, bls_backend.DST, device), msgs)):
         got = [norm(v) for v in fn(items, device=dev)]
         assert got == [norm(v) for v in fn(items, device="cpu")]
-
-
-def test_chain_capture_beside_a_step_kernel_stream(dev):
-    """Two threads, each on its own stream: one runs and captures a new
-    exponentiation chain (cuda_fq.pow_chain, a thread-local capture) and
-    replays it, while the other launches the step kernel on the first 256
-    steps of a real program again and again, synchronizing its stream
-    after each launch. No CUDA error; every result equals its plain
-    version limb for limb; the launch counters equal the sums of what the
-    two threads launched."""
-    import threading
-
-    from consensus_specs_tpu_torch.ops import bls_backend, cuda_fq, cuda_step
-    from consensus_specs_tpu_torch.ops import fq, vm
-
-    rng = np.random.default_rng(41)
-    bits = [1] + list(rng.integers(0, 2, 47))  # an exponent no test shares
-    xs = [torch.from_numpy(_loose(rng, (33,))).to(dev) for _ in range(2)]
-    program, _ = bls_backend._program("hard_part_frobenius", 0, 1)
-    instr = tuple(x[:256].contiguous() for x in program.device_instr(dev))
-    regs = torch.from_numpy(_loose(rng, (2, program.n_regs), bits=381))
-    want_regs = vm._run_steps_plain(regs.clone(), tuple(
-        x.cpu() for x in instr))
-    regs = regs.to(dev)
-
-    chain_out, step_out, errors = [], [], []
-    chain_done = threading.Event()
-    start = threading.Barrier(2)
-
-    def chains():
-        try:
-            with torch.cuda.stream(torch.cuda.Stream(dev)):
-                start.wait()
-                for x in xs:  # the first call captures, the second replays
-                    chain_out.append(fq.pow_fixed(x, bits))
-                torch.cuda.current_stream().synchronize()
-        except Exception as e:  # reported below, not lost in the thread
-            errors.append(e)
-        finally:
-            chain_done.set()
-
-    def steps():
-        try:
-            with torch.cuda.stream(torch.cuda.Stream(dev)):
-                start.wait()
-                while not chain_done.is_set() or len(step_out) < 4:
-                    step_out.append(cuda_step.run_steps(regs.clone(), instr))
-                    torch.cuda.current_stream().synchronize()
-        except Exception as e:
-            errors.append(e)
-
-    fq0, cap0 = cuda_fq.LAUNCHES, cuda_fq.CAPTURES
-    st0, steps0 = cuda_step.LAUNCHES, cuda_step.STEPS
-    threads = [threading.Thread(target=f) for f in (chains, steps)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(300)
-    torch.cuda.synchronize()
-    assert not errors, errors
-    for x, got in zip(xs, chain_out):
-        assert torch.equal(got.cpu(), fq.pow_fixed_steps(x.cpu(), bits))
-    assert all(torch.equal(r.cpu(), want_regs) for r in step_out)
-    # the first call runs the chain step by step (counted), its capture
-    # launches nothing, the replay counts the graph's launches
-    assert cuda_fq.LAUNCHES - fq0 == 2 * 2 * (len(bits) - 1)
-    assert cuda_fq.CAPTURES - cap0 == 1
-    assert cuda_step.LAUNCHES - st0 == len(step_out)
-    assert cuda_step.STEPS - steps0 == 256 * len(step_out)
 
 
 def test_service_on_the_card_with_the_real_backend(dev, monkeypatch):

@@ -71,5 +71,5 @@ def test_finalexp_mode_on_the_cpu(monkeypatch, tmp_path):
     assert set(line["assembler"]) == assembler_keys
     assert line["assembler"]["native_kernel"] is True
     assert line["launches"] == {"vm_step": 0, "vm_step_steps": 0,
-                                "mont_mul": 0, "mont_mul_captures": 0}
+                                "mont_mul": 0, "pow_chain": 0}
     assert os.environ["CONSENSUS_SPECS_TPU_VM_EXEC"] == "interp"

@@ -610,7 +610,7 @@ def test_port_workers_report_their_device_and_no_kernel(fleets):
         assert extra["cuda_initialized"] is False
         assert extra["warm_bg"] is True
         assert extra["kernels"] == {"vm_step": 0, "vm_step_steps": 0,
-                                    "mont_mul": 0, "mont_mul_captures": 0}
+                                    "mont_mul": 0, "pow_chain": 0}
 
 
 def _replay(pkg):
