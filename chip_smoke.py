@@ -52,14 +52,13 @@ through twenty-six phases, each printing one JSON line:
                kernel at 512, 128 and 64 products; the chain kernel
                (csrc/pow_chain.cu, one launch a chain) at 1 to 8,192 rows
                and both exponents against the plain chain and the kernel-2
-               step chain, timed beside its throughput bound and its 1-row
-               time, the step chain's CUDA graph (the earlier route) timed;
-               then a
+               step chain, timed beside its bound (the larger of its
+               throughput bound and its latency floor, counted from its
+               probe's clocks a digit step) and its 1-row time; then a
                fresh slot (new messages and signatures from phase 4's key
                pool, pubkeys cached) through batch_fast_aggregate_verify
                and batch_verify_rlc, each with the codec prep (and with
-               its chains as graph replays and step by step) and with
-               per-item prep
+               its chains step by step) and with per-item prep
                (CONSENSUS_SPECS_TPU_BATCH_CODEC=0), verdicts
                equal to the planted ones, walls split into codec prep
                (decode, subgroup checks, hash), assembly, vm.execute and
@@ -1411,20 +1410,47 @@ def _codec_field_checks(torch, dev, rng, pks, sigs, msgs):
 
 
 CHAIN_ROWS = (1, 64, 128, 512)  # the codec's chain shapes, 1 a ladder's
-CHAIN_WIDE_ROWS = (2048, 8192)  # past the codec's: where the time leaves
-#                                 the 1-row time
+# past the codec's slot shapes: the widest at 8 lanes a row (pow_chain.cu's
+# PC_LATENCY_ROWS), the main path's widest decode (a 2,560-key aggregate's
+# fresh pubkeys in one chain) and 8,192, both at 4 lanes a row, where the
+# time leaves the 1-row time
+CHAIN_WIDE_ROWS = (2048, 2560, 8192)
+# serial REDC digit steps a product of a chain counts toward its latency
+# floor: m_0 .. m_14, and the carry out of column 14 into the first output
+# limb, which the next product's first digit waits on
+CHAIN_DIGITS_PER_PRODUCT = 16
+
+
+def _sm_clock_mhz_under(torch, fn, call_ms):
+    """nvidia-smi's clocks.sm (MHz), read while the card runs fn() (about
+    call_ms a call) back to back for about half a second."""
+    for _ in range(max(1, int(500 / max(call_ms, 1e-3)))):
+        fn()
+    mhz = float(_nvidia_smi("clocks.sm").split()[0])
+    torch.cuda.synchronize()
+    return mhz
+
+
+def _chain_floor_ms(products, digit_clocks, sm_mhz):
+    """The least time a chain of ``products`` dependent Montgomery products
+    can take on one row: CHAIN_DIGITS_PER_PRODUCT digit steps a product,
+    each the probe's clocks, at the SM clock."""
+    return products * CHAIN_DIGITS_PER_PRODUCT * digit_clocks / (sm_mhz * 1e3)
 
 
 def _chain_checks(torch, dev, rng, imad_rate):
     """fq.pow_fixed on the card, one launch of the chain kernel a call, at
-    both exponents: at CHAIN_ROWS against the plain version (every product
-    fq.mont_mul_plain, on the card) and the kernel-2 step chain
-    (fq.pow_fixed_steps, a launch a product), limb for limb; the kernel's
-    device time beside its throughput bound and its own 1-row time (the
-    time of one dependent chain, which the card cannot spread), the plain
-    chain's and the step chain's times, and the earlier route's time: the
-    step chain captured once with cuda_fq.capture, replayed. At
-    CHAIN_WIDE_ROWS: the kernel against the step chain, timed."""
+    both exponents and every row count of CHAIN_ROWS + CHAIN_WIDE_ROWS (so
+    both of the kernel's lane counts): against the plain version (every
+    product fq.mont_mul_plain, on the card) and the kernel-2 step chain
+    (fq.pow_fixed_steps, a launch a product), limb for limb. Each row: the
+    kernel's device time, its own 1-row time (the time of one dependent
+    chain, which the card cannot spread), the step chain's and the plain
+    chain's times, and its bound, the larger of the throughput bound and
+    the latency floor (a row's products x CHAIN_DIGITS_PER_PRODUCT digit
+    steps, each the clocks the kernel's probe times, at the SM clock
+    nvidia-smi reads under load), with the probe's clocks a shuffle, a
+    dependent wide multiply-add and a digit step."""
     from consensus_specs_tpu_torch.ops import codec, cuda_fq, fq
 
     def events_ms(fn):
@@ -1437,6 +1463,11 @@ def _chain_checks(torch, dev, rng, imad_rate):
         end.synchronize()
         return out, start.elapsed_time(end)
 
+    probe = cuda_fq.chain_probe(dev)
+    clocks = {"shfl_clocks": probe["shfl"],
+              "wide_mac_clocks": probe["wide_mac"],
+              "digit_clocks": probe["digit"]}
+    sm_mhz = None
     out = []
     for label, bits in (("sqrt", codec._SQRT_BITS),
                         ("inv", fq._P_MINUS_2_BITS)):
@@ -1456,26 +1487,26 @@ def _chain_checks(torch, dev, rng, imad_rate):
             row = {"chain": label, "rows": rows, "products": products,
                    "launches": 1, "steps_ms": steps_ms}
             row["ms"] = _cuda_ms(torch, lambda: cuda_fq.pow_chain(a, bits), 20)
+            if sm_mhz is None:
+                sm_mhz = _sm_clock_mhz_under(
+                    torch, lambda: cuda_fq.pow_chain(a, bits), row["ms"])
             n_ops = products * rows * WIDE_MACS_PER_MONT * IMAD_PER_WIDE_MAC
-            row.update(_bound(2 * rows * 15 * LIMB_BYTES, n_ops, imad_rate))
-            if rows in CHAIN_ROWS:
-                with _patched(cuda_fq, "mont_mul",
-                              lambda real: fq.mont_mul_plain):
-                    plain, row["plain_ms"] = events_ms(
-                        lambda: fq.pow_fixed_steps(a, bits))
-                err = int((got - plain).abs().max().item())
-                _check(err == 0, f"pow_chain ({label}, {rows} rows) differs "
-                                 f"from the plain chain: max |err| {err}")
-                row["max_abs_err"] = err
-                stream = torch.cuda.current_stream()
-                graph, static_out, nodes = cuda_fq.capture(
-                    lambda: fq.pow_fixed_steps(a, bits), stream)
-                row["graph_nodes"] = nodes
-                row["graph_ms"] = _cuda_ms(torch, graph.replay, 5)
-                _check(torch.equal(static_out, got),
-                       f"the step chain's graph ({label}, {rows} rows) "
-                       "differs from pow_chain")
-                del graph
+            through = _bound(2 * rows * 15 * LIMB_BYTES, n_ops, imad_rate)
+            floor = _chain_floor_ms(products, probe["digit"], sm_mhz)
+            row.update(clocks, sm_clock_mhz=sm_mhz,
+                       throughput_bound_ms=through["bound_ms"],
+                       latency_floor_ms=floor,
+                       bound_ms=max(through["bound_ms"], floor),
+                       bound_by=("latency" if floor > through["bound_ms"]
+                                 else through["bound_by"]))
+            with _patched(cuda_fq, "mont_mul",
+                          lambda real: fq.mont_mul_plain):
+                plain, row["plain_ms"] = events_ms(
+                    lambda: fq.pow_fixed_steps(a, bits))
+            err = int((got - plain).abs().max().item())
+            _check(err == 0, f"pow_chain ({label}, {rows} rows) differs "
+                             f"from the plain chain: max |err| {err}")
+            row["max_abs_err"] = err
             out.append(row)
         one_row = next(r["ms"] for r in out
                        if r["chain"] == label and r["rows"] == 1)
@@ -1717,31 +1748,6 @@ def _prep_kernel2_ms(torch, slot):
             "chain_ms": ms(chains)}
 
 
-def _graph_chains(torch):
-    """fq.pow_fixed as the earlier route ran it, for the kernel's gain in
-    one call: the step chain (a kernel-2 launch a product) captured once
-    a shape and exponent as a CUDA graph with cuda_fq.capture, then
-    replayed (its zero-bit products skipped, as the step chain does
-    now)."""
-    from consensus_specs_tpu_torch.ops import cuda_fq, fq
-
-    graphs = {}
-
-    def pow_fixed(a, bits):
-        key = (tuple(a.shape), tuple(bits))
-        if key not in graphs:
-            static_in = a.clone()
-            graphs[key] = (static_in,) + cuda_fq.capture(
-                lambda: fq.pow_fixed_steps(static_in, bits),
-                torch.cuda.current_stream())
-        static_in, graph, static_out, nodes = graphs[key]
-        static_in.copy_(a)
-        graph.replay()
-        cuda_fq.count_replay(nodes)
-        return static_out.clone()
-    return pow_fixed
-
-
 def _cold_pubkeys(torch, pool_pks):
     """The pool's pubkeys dropped from the cache and prepared again: by the
     codec on the card (one prewarm), then per item by the oracle."""
@@ -1823,19 +1829,11 @@ def phase_codec(torch, dev, rng, imad_rate, l2_ns, card):
     chains = _chain_checks(torch, dev, rng, imad_rate)
 
     runs, paths = {}, {}
-    # codec_chain_graphs: the same codec with every chain replayed from
-    # its captured graph of kernel-2 launches (the earlier route; the first
-    # run captures them), codec_chain_steps: every chain step by step, for
-    # the chain kernel's gain in this call
-    chain_routes = {"codec_chain_graphs_first": _graph_chains(torch),
-                    "codec_chain_steps": lambda a, bits:
-                        fq.pow_fixed_steps(a, bits)}
-    chain_routes["codec_chain_graphs"] = chain_routes[
-        "codec_chain_graphs_first"]
+    # codec_chain_steps: the same codec with every chain step by step (a
+    # kernel-2 launch a product), for the chain kernel's gain in this call
+    chain_routes = {"codec_chain_steps": lambda a, bits:
+                    fq.pow_fixed_steps(a, bits)}
     for entry, prep in (("batch_fast_aggregate_verify", "codec"),
-                        ("batch_fast_aggregate_verify",
-                         "codec_chain_graphs_first"),
-                        ("batch_fast_aggregate_verify", "codec_chain_graphs"),
                         ("batch_fast_aggregate_verify", "codec_chain_steps"),
                         ("batch_fast_aggregate_verify", "per_item"),
                         ("batch_verify_rlc", "codec"),
@@ -1864,10 +1862,9 @@ def phase_codec(torch, dev, rng, imad_rate, l2_ns, card):
         runs[entry + ".prep_speedup"] = (
             runs[entry + ".per_item"]["per_item_prep_s"]
             / runs[entry + ".codec"]["codec_prep_s"])
-    for route in ("codec_chain_graphs", "codec_chain_steps"):
-        runs[f"chain_kernel_prep_speedup_over_{route[12:]}"] = (
-            runs[f"batch_fast_aggregate_verify.{route}"]["codec_prep_s"]
-            / runs["batch_fast_aggregate_verify.codec"]["codec_prep_s"])
+    runs["chain_kernel_prep_speedup_over_steps"] = (
+        runs["batch_fast_aggregate_verify.codec_chain_steps"]["codec_prep_s"]
+        / runs["batch_fast_aggregate_verify.codec"]["codec_prep_s"])
     kernel2 = _prep_kernel2_ms(torch, slot)
     # a fresh slot's prep: the signatures' G2 decode, the messages' SSWU
     # map and their projective -> affine conversion, one batch each
@@ -6310,16 +6307,19 @@ def _run_phases(torch, builds):
          "launches_by_path": {k: p["pow_chain"] for k, p in paths.items()},
          "work": f"{chain['chain']} chain, {chain['products']} products "
                  f"on {chain['rows']} rows",
-         "max_abs_err": max(r["max_abs_err"] for r in chains
-                            if "max_abs_err" in r),
+         "max_abs_err": max(r["max_abs_err"] for r in chains),
          "ms": chain["ms"], "plain_ms": chain["plain_ms"],
          "bound_ms": chain["bound_ms"], "bound_by": chain["bound_by"],
          "library_ms": None, "one_row_ms": chain["one_row_ms"],
-         # the earlier route: the step chain's CUDA graph, replayed
-         "graph_ms": chain["graph_ms"],
+         "latency_floor_ms": chain["latency_floor_ms"],
+         "throughput_bound_ms": chain["throughput_bound_ms"],
+         "probe_clocks": {k: chain[k] for k in (
+             "shfl_clocks", "wide_mac_clocks", "digit_clocks",
+             "sm_clock_mhz")},
          "shapes": {f"{r['chain']},{r['rows']}": {
-             k: r[k] for k in ("ms", "bound_ms", "one_row_ms", "steps_ms",
-                               "plain_ms", "graph_ms") if k in r}
+             k: r[k] for k in ("ms", "bound_ms", "bound_by",
+                               "latency_floor_ms", "one_row_ms", "steps_ms",
+                               "plain_ms")}
              for r in chains}},
     ]
     print(f"{name}, {power}", flush=True)

@@ -14,6 +14,10 @@ the product by the base made only where the bit is 1; limb for limb
 ``fq.pow_fixed_steps``, which is what it runs on a CPU tensor. Independent
 chains of one exponent stack into one call (ops/codec.py's square roots).
 
+``chain_probe(device)`` runs csrc/pow_chain.cu's latency probe: the SM
+clocks of a dependent wide multiply-add, a dependent shuffle and the REDC
+digit step on one warp (the chain's latency floor counts digit steps).
+
 ``capture`` and ``count_replay`` are the machinery for a CUDA graph of
 Montgomery-kernel launches: the fused VM lowering (ops/vm_compile.py)
 captures its units with them.
@@ -103,6 +107,31 @@ def _chain_lib() -> ctypes.CDLL:
     if _CHAIN_LIB is None:
         _CHAIN_LIB = bind_chain(cuda_build.load("pow_chain"))
     return _CHAIN_LIB
+
+
+# the latency probe's chains (csrc/pow_chain.cu pow_chain_probe_kernel), in
+# its order: a dependent wide multiply-add, a dependent shuffle, the REDC
+# digit step
+PROBE_CHAINS = ("wide_mac", "shfl", "digit")
+
+
+def chain_probe(device: torch.device, steps: int = 4096) -> dict:
+    """SM clocks a step of each probe chain, timed with clock64() on one
+    warp of ``device``: {PROBE_CHAINS name: clocks}. A probe launch is not
+    a chain launch and is not counted."""
+    lib = _chain_lib()
+    lib.pow_chain_probe_launch.restype = ctypes.c_int
+    lib.pow_chain_probe_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                           ctypes.c_void_p]
+    out = torch.zeros(len(PROBE_CHAINS) + 1, dtype=torch.int64,
+                      device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.pow_chain_probe_launch(out.data_ptr(), steps, stream)
+    if rc != 0:
+        raise RuntimeError(f"pow_chain probe launch failed: cudaError {rc}")
+    clocks = out[:len(PROBE_CHAINS)].tolist()
+    return {name: c / steps for name, c in zip(PROBE_CHAINS, clocks)}
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:

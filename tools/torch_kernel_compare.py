@@ -4,13 +4,14 @@ NVIDIA GPU.
 
     python3 tools/torch_kernel_compare.py KERNEL NAME:SOURCE ...
 
-KERNEL is ``vm_step`` or ``mont_mul``. Each NAME:SOURCE names a build: a
-CUDA source with the C interface of consensus_specs_tpu_torch/csrc/
-KERNEL.cu, as a path from the repository's root (a variant of the kernel
-in a file of its own, or an earlier commit's source unpacked into a
-gitignored directory). All are compiled at once, one nvcc each. Every
-build runs the same inputs and is timed in turns, first to last and back,
-with chip_smoke.py's own timer (the best of each):
+KERNEL is ``vm_step``, ``mont_mul`` or ``pow_chain``. Each NAME:SOURCE
+names a build: a CUDA source with the C interface of
+consensus_specs_tpu_torch/csrc/KERNEL.cu, as a path from the repository's
+root (a variant of the kernel in a file of its own, or an earlier commit's
+source unpacked into a gitignored directory). All are compiled at once,
+one nvcc each. Every build runs the same inputs and is timed in turns,
+first to last and back, with chip_smoke.py's own timer (the best of
+each):
 
   vm_step   the verify path's two instruction streams
             (chip_smoke.MAIN_STREAMS) on random canonical inputs, each
@@ -18,7 +19,19 @@ with chip_smoke.py's own timer (the best of each):
             first build;
   mont_mul  65,536 products of random loose residues, 200 calls a timing
             (as chip_smoke.py's phase_mont_mul), held limb for limb against
-            the plain version.
+            the plain version;
+  pow_chain both exponents of the codec's chains (the square root, the
+            inversion) at chip_smoke.CHAIN_ROWS + CHAIN_WIDE_ROWS and
+            CHAIN_EXTRA_ROWS, each build held limb for limb against the
+            plain chain (every product fq.mont_mul_plain, on the card), 20
+            calls a timing; the 1-row lines add the port's own build's
+            latency probe, the SM clock under load and the latency floor.
+            A build that also exports ``pow_chain_issue_probe_launch``
+            (out, n, stream) -- a variant carrying an issue probe: clock64
+            around n steps of ISSUE_PROBE_INDEPENDENT independent
+            IMAD.WIDE, IMAD and IMAD.HI on one warp, out[k] the clocks of
+            chain k, out[3] a checksum -- gets a line of the clocks one
+            warp's issue gives each.
 
 Prints the card's name and power limit, one JSON line per build (ptxas
 registers and spill bytes) and one per workload (max |err| and ms of each
@@ -27,6 +40,15 @@ variant of it:
 
     python3 tools/torch_kernel_compare.py vm_step \\
         now:consensus_specs_tpu_torch/csrc/vm_step.cu other:path/to/variant.cu
+
+or the chain kernel against an earlier commit's, unpacked first:
+
+    mkdir -p _archive/old
+    git show REV:consensus_specs_tpu_torch/csrc/pow_chain.cu \\
+        > _archive/old/pow_chain.cu
+    python3 tools/torch_kernel_compare.py pow_chain \\
+        now:consensus_specs_tpu_torch/csrc/pow_chain.cu \\
+        old:_archive/old/pow_chain.cu
 """
 import ctypes
 import json
@@ -38,6 +60,14 @@ import numpy as np
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MONT_MUL_PRODUCTS = 65536
 MONT_MUL_REPS = 200
+# the chain workload's row counts beside chip_smoke's: past the codec's
+# widest and below the widest timed there, where a kernel's row threshold
+# falls (2,560: the main path's widest decode, one chain for a 2,560-key
+# aggregate's fresh pubkeys)
+CHAIN_EXTRA_ROWS = (2560, 3072, 4096)
+# independent multiply-adds a step of each chain of an issue probe
+ISSUE_PROBE_INDEPENDENT = 8
+ISSUE_PROBE_CHAINS = ("wide_mac", "imad", "imad_hi")
 
 
 def _compile(cs, kernel, argv):
@@ -125,7 +155,73 @@ def _mont_mul(cs, torch, dev, rng, libs):
                       "max_abs_err_vs_plain": err, "ms": ms}), flush=True)
 
 
-WORKLOADS = {"vm_step": _vm_step, "mont_mul": _mont_mul}
+def _pow_chain(cs, torch, dev, rng, libs):
+    from consensus_specs_tpu_torch.ops import codec, cuda_fq, fq
+
+    libs = {name: cuda_fq.bind_chain(lib) for name, lib in libs.items()}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for name, lib in libs.items():
+        if not hasattr(lib, "pow_chain_issue_probe_launch"):
+            continue
+        steps = 4096
+        out = torch.zeros(len(ISSUE_PROBE_CHAINS) + 1, dtype=torch.int64,
+                          device=dev)
+        rc = lib.pow_chain_issue_probe_launch(
+            ctypes.c_void_p(out.data_ptr()), steps, ctypes.c_void_p(stream))
+        if rc != 0:
+            raise RuntimeError(f"{name}: issue probe failed: cudaError {rc}")
+        clocks = out[:len(ISSUE_PROBE_CHAINS)].tolist()
+        print(json.dumps({"kernel": "pow_chain", "build": name,
+                          "issue_clocks": {
+                              chain: c / (steps * ISSUE_PROBE_INDEPENDENT)
+                              for chain, c in zip(ISSUE_PROBE_CHAINS,
+                                                  clocks)}}), flush=True)
+    # the port's own build: its latency probe, and the SM clock under load
+    probe = cuda_fq.chain_probe(dev)
+    for label, bits in (("sqrt", codec._SQRT_BITS),
+                        ("inv", fq._P_MINUS_2_BITS)):
+        words = cuda_fq._chain_words(tuple(bits))
+        products = len(bits) - 1 + sum(bits[1:])
+        for rows in sorted(set(cs.CHAIN_ROWS + cs.CHAIN_WIDE_ROWS
+                               + CHAIN_EXTRA_ROWS)):
+            a = torch.from_numpy(cs._canonical_limbs(rng, (rows,))).to(dev)
+
+            def call(lib, out):
+                rc = lib.pow_chain_launch(a.data_ptr(), out.data_ptr(), rows,
+                                          ctypes.addressof(words),
+                                          len(bits) - 1, stream)
+                if rc != 0:
+                    raise RuntimeError(
+                        f"pow_chain launch failed: cudaError {rc}")
+
+            outs = {}
+            for name, lib in libs.items():
+                outs[name] = torch.empty_like(a)
+                call(lib, outs[name])
+            with cs._patched(cuda_fq, "mont_mul",
+                             lambda real: fq.mont_mul_plain):
+                want = fq.pow_fixed_steps(a, bits)
+            torch.cuda.synchronize()
+            err = {name: int((out - want).abs().max().item())
+                   for name, out in outs.items()}
+            ms = _in_turns(cs, torch, {
+                name: (lambda lib=lib, out=outs[name]: call(lib, out))
+                for name, lib in libs.items()}, 20)
+            line = {"kernel": "pow_chain", "chain": label, "rows": rows,
+                    "products": products, "max_abs_err_vs_plain": err,
+                    "ms": ms}
+            if rows == 1:
+                first = next(iter(libs))
+                mhz = cs._sm_clock_mhz_under(
+                    torch, lambda: call(libs[first], outs[first]), ms[first])
+                line.update(sm_clock_mhz=mhz, probe_clocks=probe,
+                            latency_floor_ms=cs._chain_floor_ms(
+                                products, probe["digit"], mhz))
+            print(json.dumps(line), flush=True)
+
+
+WORKLOADS = {"vm_step": _vm_step, "mont_mul": _mont_mul,
+             "pow_chain": _pow_chain}
 
 
 def main(argv):
