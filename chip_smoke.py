@@ -35,12 +35,18 @@ through twenty-six phases, each printing one JSON line:
                step-kernel launch per vm.execute), the per-item path on it
                warm in the same call, the planted slot
                (verdicts equal to the planted ones and to phase 4's), and
-               the tower combine (every Fq12 product a Montgomery-kernel
-               launch) equal to the VM combine on the same inputs; then the
-               first 256 steps of the real rlc_combine call, fed PROG A's
-               loose outputs, limb for limb against the plain version, and
-               the Montgomery kernel against its plain version at the tower
-               combine's shapes;
+               the tower combine (one launch of the Fq12 ladder kernel,
+               then one of the fold kernel a tree level, counted exactly)
+               equal to the VM combine on the same inputs; the ladder and
+               a tree level on the combine's own inputs, and the whole
+               combine, against their plain versions (every Fq12 product
+               Montgomery-kernel launches) limb for limb, each timed beside
+               its bound (its throughput bound or its latency floor, the
+               dependent products' REDC digit steps at the chain probe's
+               clocks); then the first 256 steps of the real rlc_combine
+               call, fed PROG A's loose outputs, limb for limb against the
+               plain version, and the Montgomery kernel against its plain
+               version at the plain tower combine's shapes;
   7. codec   -- the batched input codec (ops/codec.py) at a slot's prep
                sizes (512 pubkeys, 64 signatures, 64 messages = 128 SSWU
                draws, with invalid encodings, points outside the subgroup
@@ -289,23 +295,33 @@ pool of spawned processes (utils/keygen.py).
                route on the CPU (the plain product). Any vm/fused_fallback
                event fails it.
  22. twins   -- the tower twins (ops/towers.py, curve.py, pairing.py) at
-               the slot's width, every Fq product one Montgomery-kernel
-               launch and no step kernel: pairing_product_is_one over
-               e(a_i P, Q) * e(-P, a_i Q) for 64 distinct scalars a_i (one
-               row a committee aggregate of phase 4's slot), 4 rows
-               planted with (a_i + 1) P; the verdicts must be the planted
-               ones and the exact-int oracle's on the 4 planted rows and 4
-               valid ones. The Miller loop on those 8 rows against the
-               oracle's up to an Fq2 subfield factor (the ratio fixed by
-               Frobenius^2); the Miller loop, fq12_inv, fq12_frobenius
-               (n = 1, 2, 3), fq12_mul and fq2_mul on the card equal limb
-               for limb to the same functions on the CPU (the plain
-               product), each call's kernel-2 launches equal to the calls
-               the CPU run makes (fq2_mul 5, fq12_mul 3, from the code);
-               r * P on the 64 G1 points at infinity. Warm seconds a
-               function, launches a call, the products each launch ran
-               at, and kernel 2 at the stacked loop's 18,432-product Fq12
-               shape against its plain version.
+               the slot's width, no step kernel: pairing_product_is_one
+               over e(a_i P, Q) * e(-P, a_i Q) for 64 distinct scalars a_i
+               (one row a committee aggregate of phase 4's slot), 4 rows
+               planted with (a_i + 1) P, its Miller loops one launch of
+               the Miller kernel, their product one of the fold kernel,
+               the final exponentiation's five x-chains one ladder launch
+               each and its easy part torch over the Montgomery and chain
+               kernels; the verdicts must be the planted ones and the
+               exact-int oracle's on the 4 planted rows and 4 valid ones,
+               and the CPU's (the plain versions) on those 8. The Miller
+               loop on those 8 rows against the oracle's up to an Fq2
+               subfield factor (the ratio fixed by Frobenius^2) and
+               against the plain loop; fq12_inv, fq12_frobenius (n = 1,
+               2, 3), fq12_mul and fq2_mul on the card equal limb for limb
+               to the same functions on the CPU (the plain product); each
+               call's kernel-2, chain and tower-kernel launches equal to
+               the calls the CPU run makes (fq2_mul 5 kernel-2 launches,
+               fq12_mul 3, the pairing product 1 Miller, 1 fold and 5
+               ladder launches); every tower-kernel call of the CPU's
+               pairing product replayed through its kernel on the card,
+               limb for limb; r * P on the 64 G1 points at infinity. Then
+               the Miller kernel at the stacked 128 rows, the fold at 2 x
+               64 and an x-chain at 64 rows against their plain versions
+               on the card, timed beside their bounds; warm seconds a
+               function, launches a call, the products each kernel-2
+               launch ran at, and kernel 2 at the stacked loop's
+               18,432-product Fq12 shape against its plain version.
  23. finalexp -- the bench entry's finalexp mode at the JAX bench's
                defaults (rows 1, 2, 4, 8; fused rows 1, 8; 1 rep; seed 7)
                in this process: the host oracle against the bit_serial,
@@ -328,14 +344,20 @@ pool of spawned processes (utils/keygen.py).
                committees of 146, a 512-key sync aggregate and 2 proposer
                checks (attestation #1 corrupted); P2, mesh_reduce.
                aggregate_pubkeys of a 2,048-key committee against the
-               oracle's bytes, [P, -P] and an invalid key; the Fq12 and G1
-               butterflies on the card against a CPU mesh limb for limb;
+               oracle's bytes, [P, -P] and an invalid key (a launch of the
+               G1 fold kernel a slot); the Fq12 and G1 butterflies on the
+               card against a CPU mesh (the plain folds) limb for limb;
                phase 4's slot (all valid) through both entry points
                sharded and unsharded, warm (walls, launches, step-kernel
                ms a slot lane, the butterfly's kernel-2 launches, each
-               lane's utilization); P3, VerificationService(mesh=) on the
-               P1 checks and serve/mesh_smoke.main. Any mesh-reduce
-               fallback, degraded, retry or ladder record fails it.
+               lane's utilization; the sharded RLC's chunk products a
+               launch of the Fq12 fold kernel a slot); P3,
+               VerificationService(mesh=) on the P1 checks and
+               serve/mesh_smoke.main. Then, outside the path's counts, the
+               G1 fold on a slot's 512-point P2 shard and the Fq12 fold on
+               a slot's chunk products against their plain versions,
+               timed. Any mesh-reduce fallback, degraded, retry or ladder
+               record fails it, as does a tower kernel never launched.
  25. wide_aggregate -- the wide AggregateVerify programs, PROG A
                aggregate_verify k512 fold 2 and k2048 fold 1 (121,600
                and 241,920 steps): built cold from the start of the smoke
@@ -361,8 +383,12 @@ pool of spawned processes (utils/keygen.py).
                random canonical inputs limb for limb against the plain
                version, then each whole stream timed, as in phase 5.
 
-Then it prints the card's name and power limit, a ``{"kernels": [...]}``
-line, and last ``{"ok": true, "device": {...}}``. Any failure exits
+Every phase's path counts each kernel's launches from 0 (the tower
+kernels of ops/cuda_tower.py too); the tower combine, the twins and the
+mesh must launch the tower kernels TOWER_PATHS names. Then it prints the
+card's name and power limit, a ``{"kernels": [...]}`` line (the step
+kernel, the Montgomery kernel, the chain kernel and the four tower
+kernels), and last ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero before the last line. Without a CUDA device, or without the
 package beside this script, it exits non-zero and prints no result.
 """
@@ -1043,6 +1069,7 @@ def _rlc_timed(torch, items):
     before = dict(bls_backend.RLC_STATS)
     cuda_step.LAUNCHES = cuda_step.STEPS = cuda_fq.LAUNCHES = 0
     cuda_fq.CHAIN_LAUNCHES = 0
+    _tower_reset()
     with _patched(bls_backend, "_program", _host_timer(asm)), \
             _patched(vm, "execute", _host_timer(execs)), \
             _patched(bls_backend, "_easy_part_flat", _host_timer(easy)), \
@@ -1056,6 +1083,7 @@ def _rlc_timed(torch, items):
     launches, n_steps, monts_n, chains_n = (
         cuda_step.LAUNCHES, cuda_step.STEPS, cuda_fq.LAUNCHES,
         cuda_fq.CHAIN_LAUNCHES)
+    tower = _tower_launches()
     split = {"wall_s": wall, "assemble_s": sum(asm),
              "vm_execute_s": sum(execs), "vm_executions": len(execs),
              "step_kernel_ms": sum(steps), "easy_part_s": sum(easy),
@@ -1065,6 +1093,7 @@ def _rlc_timed(torch, items):
              "step_kernel_steps": n_steps,
              "mont_mul_kernel_launches": monts_n,
              "chain_kernel_launches": chains_n,
+             "tower_kernel_launches": tower,
              "rlc_stats": {k: bls_backend.RLC_STATS[k] - before[k]
                            for k in before}}
     split["other_host_s"] = wall - split["assemble_s"] \
@@ -1173,8 +1202,249 @@ def _mont_mul_at(torch, dev, rng, imad_rate, batch):
             **_bound(n_bytes, n_ops, imad_rate)}
 
 
+# ---------------------------------------------------------------------------
+# the tower kernels (ops/cuda_tower.py): work, bounds and checks
+# ---------------------------------------------------------------------------
+
+# the paths that must launch each tower kernel (the per-path gate): the
+# tower combine of phase rlc, the twins, the mesh phase
+TOWER_PATHS = {"fq12_ladder": ("tower", "twins"),
+               "fq12_fold": ("tower", "twins", "mesh"),
+               "miller_loop": ("twins",), "g1_fold": ("mesh",)}
+
+
+def _tower_launches():
+    from consensus_specs_tpu_torch.ops import cuda_tower
+
+    return cuda_tower.launches()
+
+
+def _tower_reset():
+    from consensus_specs_tpu_torch.ops import cuda_tower
+
+    cuda_tower.reset()
+
+
+def _tower_into(launches):
+    """A path's launch counts with the tower kernels' launches since the
+    last _tower_reset (set to 0 just before the path's phase), where its
+    phase did not count them itself."""
+    for k, v in _tower_launches().items():
+        launches.setdefault(k, v)
+    return launches
+
+
+# an input's limbs in _chain_depth: a depth above every constant's limbs
+_DEPTH0 = 1 << 40
+# the torch operations that sum or subtract limbs (in place or not), which
+# _chain_depth reads as the larger of their terms' depths
+_DEPTH_SUMS = {"add", "add_", "sub", "sub_", "rsub", "__add__", "__radd__",
+               "__iadd__", "__sub__", "__rsub__", "__isub__"}
+
+
+def _chain_depth(fn, *args):
+    """The Montgomery products on the longest dependent path through
+    fn(*args), a plain version on CPU tensors: an argument given as a
+    tuple is a fresh input of that shape of 15-limb rows, any other is
+    passed as it is. Every limb holds its element's depth in place of its
+    value: fq.mont_mul gives the larger of its operands' depths plus one
+    (so fq.sub's compress of its subtrahend counts, and so does a product
+    by a constant), a carry the largest of its limbs', a sum or difference
+    the larger of its terms' (constants, whose limbs lie below _DEPTH0,
+    add none). The largest over the result's elements and rows."""
+    import torch
+    from consensus_specs_tpu_torch.ops import cuda_fq, fq
+
+    def plain(x):
+        return x.as_subclass(torch.Tensor)
+
+    class Depth(torch.Tensor):
+        @classmethod
+        def __torch_function__(cls, func, types, args=(), kwargs=None):
+            name = getattr(func, "__name__", "")
+            if name not in _DEPTH_SUMS:
+                return super().__torch_function__(func, types, args,
+                                                  kwargs or {})
+            a, b = (plain(x) if isinstance(x, torch.Tensor)
+                    else torch.tensor(x) for x in args[:2])
+            m = torch.maximum(a, b)
+            if name in ("add_", "sub_", "__iadd__", "__isub__"):
+                a.copy_(m)
+                return args[0]
+            return m.as_subclass(Depth)
+
+    def mont_mul(a, b):
+        a, b = plain(a), plain(b)
+        shape = torch.broadcast_shapes(a.shape, b.shape)
+        m = torch.maximum(a.amax(-1, keepdim=True), b.amax(-1, keepdim=True))
+        return (m + 1).expand(shape).clone().as_subclass(Depth)
+
+    def carry(t, out_limbs=fq.NUM_LIMBS):
+        t = plain(t)
+        return t.amax(-1, keepdim=True).expand(
+            t.shape[:-1] + (out_limbs,)).clone().as_subclass(Depth)
+
+    args = [torch.full(a + (fq.NUM_LIMBS,), _DEPTH0,
+                       dtype=torch.int64).as_subclass(Depth)
+            if isinstance(a, tuple) else a for a in args]
+    with _patched(cuda_fq, "mont_mul", lambda real: mont_mul), \
+            _patched(fq, "_carry_limbs", lambda real: carry):
+        out = fn(*args)
+    return int(plain(out).max()) - _DEPTH0
+
+
+def _tower_work(kernel, shape, bits=None):
+    """(Montgomery products, the dependent ones on the longest path
+    (``_chain_depth`` of the plain version on this call's data, at one row
+    where rows are independent), bytes read and written once) of one call
+    of a tower kernel: fq12_ladder at (rows, B) with ``bits`` the (rows, B)
+    runtime bits, or at (rows,) with ``bits`` the static exponent;
+    rlc_combine (the ladder and its tree) at (rows, B) with its bits;
+    fq12_fold at ("seq", K, M, from_one) or ("level", N); miller_loop at
+    (rows,); g1_fold at (K,). Products as ops/cuda_tower.MONTS counts them
+    (held to the plain versions' in tests/test_torch_tower_kernels.py)."""
+    import torch
+    from consensus_specs_tpu_torch.ops import (cuda_tower, mesh_reduce,
+                                               mesh_rlc, pairing)
+
+    mul = cuda_tower.MONTS["fq12_mul"]
+    fq12 = 12 * 15 * LIMB_BYTES
+    if kernel in ("fq12_ladder", "rlc_combine") and len(shape) == 2:
+        rows, b = shape
+        words = -(-b // 32) * 4
+        rs = torch.from_numpy(np.asarray(bits, dtype=bool))
+        if kernel == "fq12_ladder":
+            return (rows * 2 * b * mul,
+                    _chain_depth(pairing._rlc_ladder_plain, (rows, 12), rs),
+                    rows * (2 * fq12 + words))
+        return ((rows * 2 * b + rows - 1) * mul,
+                _chain_depth(pairing.rlc_combine_plain, (rows, 12), rs),
+                rows * (fq12 + words) + fq12)
+    if kernel == "fq12_ladder":
+        products = len(bits) - 1 + sum(bits[1:])
+        return (shape[0] * products * mul,
+                _chain_depth(pairing._pow_fixed_plain, (1, 12), bits),
+                shape[0] * 2 * fq12)
+    if kernel == "fq12_fold":
+        if shape[0] == "level":
+            n = shape[1]
+            return ((n // 2) * mul,
+                    _chain_depth(pairing._fq12_tree_level_plain, (n, 12)),
+                    (n + -(-n // 2)) * fq12)
+        _, k, m, from_one = shape
+        plain = (mesh_rlc._local_fold_plain if from_one
+                 else pairing._fq12_product_plain)
+        return (m * (k if from_one else k - 1) * mul,
+                _chain_depth(plain, (k, 1, 12)), (k + 1) * m * fq12)
+    if kernel == "miller_loop":
+        bits = pairing._ATE_BITS
+        per_row = (3 * len(bits) * mul
+                   + len(bits) * cuda_tower.MONTS["dbl_step"]
+                   + sum(bits) * cuda_tower.MONTS["add_step"]
+                   + cuda_tower.MONTS["conjugate"])
+        return (shape[0] * per_row,
+                _chain_depth(pairing.miller_loop_plain, (1, 2), (1, 2), (1,),
+                             (1,)),
+                shape[0] * (6 * 15 * LIMB_BYTES + fq12))
+    k = shape[0]
+    return (k * cuda_tower.MONTS["g1_add"],
+            _chain_depth(mesh_reduce._local_fold_plain, (k, 3)),
+            (k + 1) * 3 * 15 * LIMB_BYTES)
+
+
+def _tower_probe(torch, dev):
+    """The clocks of a REDC digit step (cuda_fq.chain_probe) and the SM
+    clock nvidia-smi reads while a 64-row ladder of 128 runtime bits runs
+    back to back: what the tower kernels' latency floors count with."""
+    from consensus_specs_tpu_torch.ops import cuda_fq, cuda_tower
+
+    rng = np.random.default_rng(SEED + 21)
+    fs = torch.from_numpy(_rand_loose_limbs(rng, (64, 12), bits=382)).to(dev)
+    bits = torch.from_numpy(rng.random((64, 128)) < 0.5).to(dev)
+
+    def call():
+        return cuda_tower.fq12_ladder(fs, bits)
+
+    ms = _cuda_ms(torch, call, 3)
+    return {"digit_clocks": cuda_fq.chain_probe(dev)["digit"],
+            "sm_clock_mhz": _sm_clock_mhz_under(torch, call, ms)}
+
+
+def _tower_check(torch, kernel, label, call, plain, work, imad_rate, probe,
+                 reps=3):
+    """call() (one launch of ``kernel``) against plain() (its plain
+    version, on the card) on the same inputs, limb for limb; the kernel
+    timed by CUDA events over ``reps`` calls, the plain version once; the
+    bound, the larger of the throughput bound (the products' IMADs at the
+    card's rate, or the bytes) and the latency floor (the dependent
+    products of a row, CHAIN_DIGITS_PER_PRODUCT digit steps each at the
+    probe's clocks and the SM clock under load)."""
+    got = call()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = plain()
+    end.record()
+    end.synchronize()
+    err = int((got.cpu() - want.cpu()).abs().max().item())
+    _check(err == 0, f"{kernel} ({label}) differs from its plain version: "
+                     f"max |err| {err}")
+    monts, depth, n_bytes = work
+    through = _bound(n_bytes, monts * WIDE_MACS_PER_MONT * IMAD_PER_WIDE_MAC,
+                     imad_rate)
+    floor = _chain_floor_ms(depth, probe["digit_clocks"],
+                            probe["sm_clock_mhz"])
+    return {"kernel": kernel, "shape": label, "max_abs_err": err,
+            "ms": _cuda_ms(torch, call, reps),
+            "plain_ms": start.elapsed_time(end),
+            "montgomery_products": monts, "dependent_products": depth,
+            "throughput_bound_ms": through["bound_ms"],
+            "latency_floor_ms": floor,
+            "bound_ms": max(through["bound_ms"], floor),
+            "bound_by": ("latency" if floor > through["bound_ms"]
+                         else through["bound_by"])}
+
+
+def _tower_plain():
+    """Each tower kernel's plain versions: [(module, function, kernel, the
+    wrapper call that launches the kernel on the function's arguments)]."""
+    from consensus_specs_tpu_torch.ops import (cuda_tower, mesh_reduce,
+                                               mesh_rlc, pairing)
+
+    return [
+        (pairing, "_rlc_ladder_plain", "fq12_ladder", cuda_tower.fq12_ladder),
+        (pairing, "_pow_fixed_plain", "fq12_ladder", cuda_tower.fq12_pow),
+        (mesh_rlc, "_local_fold_plain", "fq12_fold",
+         lambda fs: cuda_tower.fq12_fold(fs, True)),
+        (pairing, "_fq12_product_plain", "fq12_fold",
+         lambda fs: cuda_tower.fq12_fold(fs, False)),
+        (pairing, "_fq12_tree_level_plain", "fq12_fold",
+         cuda_tower.fq12_fold_level),
+        (pairing, "miller_loop_plain", "miller_loop",
+         lambda *a: cuda_tower.miller_loop(*a, pairing._ATE_BITS)),
+        (mesh_reduce, "_local_fold_plain", "g1_fold", cuda_tower.g1_fold)]
+
+
+def _tower_replays(torch, dev, records):
+    """Each plain-version call ``_counted_cpu`` recorded, again through its
+    kernel on the card on the same inputs: {kernel: max |err|} over them,
+    every one 0 or the phase fails. These launches are comparisons, not a
+    path's."""
+    errs = {}
+    for kernel, card, args, out in records:
+        got = card(
+            *(a.to(dev) if isinstance(a, torch.Tensor) else a for a in args))
+        err = int((got.cpu() - out).abs().max().item())
+        errs[kernel] = max(errs.get(kernel, 0), err)
+    _check(not any(errs.values()),
+           f"tower kernels differ from their plain versions: {errs}")
+    return errs
+
+
 def phase_rlc(torch, dev, rng, imad_rate, card, slice_run, slice_warm_s):
-    from consensus_specs_tpu_torch.ops import bls_backend
+    from consensus_specs_tpu_torch.ops import (bls_backend, cuda_tower, fq,
+                                               pairing)
 
     t0 = time.perf_counter()
     pubkey_sets, messages, signatures, valid, _ = make_slot(plant=False)
@@ -1236,8 +1506,12 @@ def phase_rlc(torch, dev, rng, imad_rate, card, slice_run, slice_warm_s):
     finally:
         os.environ.pop("CONSENSUS_SPECS_TPU_RLC_BACKEND", None)
     _check(bool(got.all()), "tower combine: verdicts not all True")
-    _check(tower["mont_mul_kernel_launches"] > 0,
-           "tower combine: the Montgomery kernel was never launched")
+    levels = (n - 1).bit_length()
+    want_tower = {"fq12_ladder": 1, "fq12_fold": levels, "miller_loop": 0,
+                  "g1_fold": 0}
+    _check(tower["tower_kernel_launches"] == want_tower,
+           f"tower combine: launches {tower['tower_kernel_launches']}, "
+           f"expected {want_tower} (one ladder, a fold a tree level)")
     _check(len(seen) == 1, f"tower combine ran {len(seen)} times, expected 1")
     fs, bits, tower_coeffs = seen[0]
     vm_coeffs = bls_backend._rlc_combine_vm(fs, bits, dev)
@@ -1245,9 +1519,38 @@ def phase_rlc(torch, dev, rng, imad_rate, card, slice_run, slice_warm_s):
            "tower combine differs from the VM combine on the same inputs")
     tower["equals_vm_combine"] = True
 
+    # the tower combine's kernels on its own inputs against their plain
+    # versions (every Fq12 product kernel-2 launches, the combine before
+    # these kernels), limb for limb, timed
+    probe = _tower_probe(torch, dev)
+    fs_t = fq.limbs_from_numpy(fs, dev)
+    bits_t = torch.from_numpy(bits.astype(bool)).to(dev)
+    powered = cuda_tower.fq12_ladder(fs_t, bits_t)
+    tower_kernels = [
+        _tower_check(torch, "fq12_ladder",
+                     f"runtime bits {n}x{bits.shape[1]}",
+                     lambda: cuda_tower.fq12_ladder(fs_t, bits_t),
+                     lambda: pairing._rlc_ladder_plain(fs_t, bits_t),
+                     _tower_work("fq12_ladder", bits.shape, bits), imad_rate,
+                     probe),
+        _tower_check(torch, "fq12_fold", f"level {n}",
+                     lambda: cuda_tower.fq12_fold_level(powered),
+                     lambda: pairing._fq12_tree_level_plain(powered),
+                     _tower_work("fq12_fold", ("level", n)), imad_rate,
+                     probe)]
+    combine = _tower_check(
+        torch, "rlc_combine", f"{n}x{bits.shape[1]}",
+        lambda: pairing.rlc_combine(fs_t, bits_t),
+        lambda: pairing.rlc_combine_plain(fs_t, bits_t),
+        _tower_work("rlc_combine", bits.shape, bits), imad_rate, probe)
+    tower["combine"] = {"launches": {"fq12_ladder": 1, "fq12_fold": levels},
+                        "ms": combine["ms"], "plain_ms": combine["plain_ms"],
+                        "max_abs_err": combine["max_abs_err"]}
+    tower["probe"] = probe
+
     head = _loose_head_check(torch, dev, rng, fs, bits, imad_rate)
-    # kernel 2 at the tower combine's shapes: the 144 products of each
-    # Fq12 product, and the compress of each reduction batch
+    # kernel 2 at the plain tower combine's shapes: the 144 products of
+    # each Fq12 product, and the compress of each reduction batch
     mont = [_mont_mul_at(torch, dev, rng, imad_rate, (n, 12, 12)),
             _mont_mul_at(torch, dev, rng, imad_rate, (n, 6))]
 
@@ -1258,6 +1561,7 @@ def phase_rlc(torch, dev, rng, imad_rate, card, slice_run, slice_warm_s):
         "rlc_chunk": bls_backend._rlc_chunk(n), "setup_s": setup_s,
         "all_valid": valid_line,
         "planted": planted_line, "tower": tower,
+        "tower_kernels": tower_kernels,
         "per_item_planted_warm_wall_s": slice_warm_s, **card,
     }, head, mont, {"rlc": warm, "tower": tower}
 
@@ -1658,6 +1962,7 @@ def _split_run(torch, call):
     prep0 = dict(bls_backend.PREP_STATS)
     cuda_step.LAUNCHES = cuda_step.STEPS = cuda_fq.LAUNCHES = 0
     cuda_fq.CHAIN_LAUNCHES = 0
+    _tower_reset()
     with contextlib.ExitStack() as stack:
         for module, name, wrap in patches:
             stack.enter_context(_patched(module, name, wrap))
@@ -1668,6 +1973,7 @@ def _split_run(torch, call):
     launches, n_steps, monts, chains = (
         cuda_step.LAUNCHES, cuda_step.STEPS, cuda_fq.LAUNCHES,
         cuda_fq.CHAIN_LAUNCHES)
+    tower = _tower_launches()
     total = {k: sum(v) for k, v in sinks.items()}
     split = {
         "wall_s": wall, "codec_prep_s": total["prep"],
@@ -1687,6 +1993,7 @@ def _split_run(torch, call):
             "execute", "execute_prep", "execute_fold")),
         "step_kernel_launches": launches, "step_kernel_steps": n_steps,
         "mont_mul_kernel_launches": monts, "chain_kernel_launches": chains,
+        "tower_kernel_launches": tower,
         "prep_step_kernel_launches": prep_launches["vm_step"],
         "prep_mont_mul_kernel_launches": prep_launches["mont_mul"],
         "prep_chain_kernel_launches": prep_launches["pow_chain"],
@@ -5367,47 +5674,73 @@ def _twins_oracle(points, rows):
 
 
 def _counted_cpu(fn):
-    """(fn(), its kernel-2 calls, its chains) on CPU tensors: every call of
-    ``cuda_fq.mont_mul`` (the kernel's wrapper; on the card one launch
-    each) outside a chain is counted, and every chain
+    """(fn(), its kernel-2 calls, its chains, its tower-kernel calls, the
+    records of those) on CPU tensors: every call of ``cuda_fq.mont_mul``
+    (the kernel's wrapper; on the card one launch each) outside a chain
+    and outside a tower kernel's plain version is counted; every chain
     (``fq.pow_fixed_steps``: on the card one launch of the chain kernel,
-    product by product on the CPU) once."""
-    from consensus_specs_tpu_torch.ops import cuda_fq, fq
+    product by product on the CPU) once; every call of a tower kernel's
+    plain version (``_tower_plain``; on the card one launch of its kernel)
+    once under its kernel's name, recorded as (kernel, the wrapper call,
+    arguments, result)."""
+    from consensus_specs_tpu_torch.ops import cuda_fq, cuda_tower, fq
 
-    calls, chains, in_chain = [0], [0], [False]
+    calls, chains, inside = [0], [0], [0]
+    tower = {k: 0 for k in cuda_tower.KERNELS}
+    records = []
 
     def counted(mont_mul):
         def run(a, b):
-            calls[0] += not in_chain[0]
+            calls[0] += not inside[0]
             return mont_mul(a, b)
         return run
 
     def chain(steps):
         def run(a, bits):
             chains[0] += 1
-            in_chain[0] = True
+            inside[0] += 1
             try:
                 return steps(a, bits)
             finally:
-                in_chain[0] = False
+                inside[0] -= 1
         return run
 
-    with _patched(cuda_fq, "mont_mul", counted), \
-            _patched(fq, "pow_fixed_steps", chain):
+    def plain(kernel, card):
+        def wrap(real):
+            def run(*args):
+                outer = not inside[0]
+                inside[0] += 1
+                try:
+                    out = real(*args)
+                finally:
+                    inside[0] -= 1
+                if outer:
+                    tower[kernel] += 1
+                    records.append((kernel, card, args, out))
+                return out
+            return run
+        return wrap
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(_patched(cuda_fq, "mont_mul", counted))
+        stack.enter_context(_patched(fq, "pow_fixed_steps", chain))
+        for module, name, kernel, card in _tower_plain():
+            stack.enter_context(_patched(module, name, plain(kernel, card)))
         out = fn()
-    return out, calls[0], chains[0]
+    return out, calls[0], chains[0], tower, records
 
 
 def _card_call(torch, fn, shapes):
-    """(fn() on the card, warm seconds, kernel-2 launches and chain
-    launches of the warm call): a cold call first, then the warm call
-    timed; the products of each kernel-2 launch are tallied into
-    ``shapes``."""
+    """(fn() on the card, warm seconds, kernel-2 launches, chain launches
+    and tower-kernel launches of the warm call): a cold call first, then
+    the warm call timed; the products of each kernel-2 launch are tallied
+    into ``shapes``."""
     from consensus_specs_tpu_torch.ops import cuda_fq
 
     fn()
     torch.cuda.synchronize()
     before, chains = cuda_fq.LAUNCHES, cuda_fq.CHAIN_LAUNCHES
+    tower = _tower_launches()
 
     def tally(mont_mul):
         def run(a, b):
@@ -5420,15 +5753,18 @@ def _card_call(torch, fn, shapes):
     with _patched(cuda_fq, "mont_mul", tally):
         out = fn()
     torch.cuda.synchronize()
+    after = _tower_launches()
     return (out, time.perf_counter() - t, cuda_fq.LAUNCHES - before,
-            cuda_fq.CHAIN_LAUNCHES - chains)
+            cuda_fq.CHAIN_LAUNCHES - chains,
+            {k: after[k] - tower[k] for k in after})
 
 
 def phase_twins(torch, dev, rng, imad_rate, card):
     """The port's tower twins on the card at the slot's width; see the
     module docstring, phase 22."""
-    from consensus_specs_tpu_torch.ops import (cuda_fq, cuda_step, curve,
-                                               fq, pairing, towers)
+    from consensus_specs_tpu_torch.ops import (cuda_fq, cuda_step,
+                                               cuda_tower, curve, fq, pairing,
+                                               towers)
 
     t0 = time.perf_counter()
     n = TWINS_ROWS
@@ -5440,30 +5776,32 @@ def phase_twins(torch, dev, rng, imad_rate, card):
            "twins: the oracle disagrees with the planted verdicts")
     cuda_step.LAUNCHES = cuda_step.STEPS = cuda_fq.LAUNCHES = 0
     cuda_fq.CHAIN_LAUNCHES = 0
+    _tower_reset()
     t = {k: torch.from_numpy(v.astype(np.int64)).to(dev)
          for k, v in limbs.items()}
     pairs = [(t["px1"], t["py1"], t["qx1"], t["qy1"]),
              (t["px2"], t["py2"], t["qx2"], t["qy2"])]
-    shapes, seconds, launches, chains = {}, {}, {}, {}
+    shapes, seconds, launches, chains, towers_l = {}, {}, {}, {}, {}
 
     # pairing products: 64 rows, both Miller loops as one stacked loop
+    # (one Miller launch), their product (one fold launch), the final
+    # exponentiation's easy part in torch and its five x-chains (a ladder
+    # launch each)
     got, seconds["pairing_product_is_one"], launches[
-        "pairing_product_is_one"], chains["pairing_product_is_one"] = \
-        _card_call(torch, lambda: pairing.pairing_product_is_one(pairs),
-                   shapes)
+        "pairing_product_is_one"], chains["pairing_product_is_one"], \
+        towers_l["pairing_product_is_one"] = _card_call(
+            torch, lambda: pairing.pairing_product_is_one(pairs), shapes)
     verdicts = got.tolist()
     _check(verdicts == want, f"twins: pairing verdicts "
            f"{[i for i in range(n) if verdicts[i] != want[i]]} wrong")
 
     # the Miller loop on the oracle's 8 rows, against the oracle up to an
-    # Fq2 subfield factor, and against the plain product on the CPU
+    # Fq2 subfield factor
     sel = list(TWINS_ORACLE_ROWS)
     args = [t[k][sel] for k in ("qx1", "qy1", "px1", "py1")]
     f_card, seconds["miller_loop"], launches["miller_loop"], chains[
-        "miller_loop"] = _card_call(
+        "miller_loop"], towers_l["miller_loop"] = _card_call(
         torch, lambda: pairing.miller_loop(*args), shapes)
-    f_cpu, want_miller, want_chains = _counted_cpu(
-        lambda: pairing.miller_loop(*(a.cpu() for a in args)))
     f_host = f_card.cpu()
     subfield = []
     for j, i in enumerate(sel):
@@ -5472,10 +5810,28 @@ def phase_twins(torch, dev, rng, imad_rate, card):
     _check(all(subfield), f"twins: Miller outputs off the oracle's beyond "
            f"a subfield factor at rows {subfield}")
 
-    # card against the plain product, limb for limb, on the same 8 rows
+    # the pairing product on the same 8 rows on the CPU: the plain
+    # versions of every tower kernel it runs (recorded, then replayed
+    # through the kernels on the card), its verdicts, and the launches
+    # a call makes on the card, counted from the code
+    pairs8 = [tuple(x[sel].cpu() for x in pair) for pair in pairs]
+    verdicts8, counts_pp, chains_pp, tower_pp, records = _counted_cpu(
+        lambda: pairing.pairing_product_is_one(pairs8))
+    _check(verdicts8.tolist() == [want[i] for i in sel],
+           f"twins: the CPU's verdicts on rows {sel}: {verdicts8.tolist()}")
+    f_cpu = next(out for kernel, _, _, out in records
+                 if kernel == "miller_loop")[0]
     card_vs_cpu = {"miller_loop": int((f_host - f_cpu).abs().max())}
-    counts = {"miller_loop": want_miller}
-    chain_counts = {"miller_loop": want_chains}
+    counts = {"pairing_product_is_one": counts_pp, "miller_loop": 0}
+    chain_counts = {"pairing_product_is_one": chains_pp, "miller_loop": 0}
+    tower_counts = {"pairing_product_is_one": tower_pp,
+                    "miller_loop": {k: int(k == "miller_loop")
+                                    for k in cuda_tower.KERNELS}}
+    _check(tower_pp == {"miller_loop": 1, "fq12_fold": 1, "fq12_ladder": 5,
+                        "g1_fold": 0},
+           f"twins: the pairing product's tower calls {tower_pp}")
+
+    # the torch functions on the card against the plain product on the CPU
     funcs = {"fq12_inv": towers.fq12_inv,
              **{f"fq12_frobenius_{k}": (lambda x, k=k:
                                         towers.fq12_frobenius(x, k))
@@ -5484,10 +5840,10 @@ def phase_twins(torch, dev, rng, imad_rate, card):
              "fq2_mul": lambda x: towers.fq2_mul(x[..., :2, :],
                                                  x[..., 2:4, :])}
     for name, fn in funcs.items():
-        out, seconds[name], launches[name], chains[name] = _card_call(
-            torch, lambda: fn(f_card), shapes)
-        plain, counts[name], chain_counts[name] = _counted_cpu(
-            lambda: fn(f_host))
+        out, seconds[name], launches[name], chains[name], towers_l[name] = \
+            _card_call(torch, lambda: fn(f_card), shapes)
+        plain, counts[name], chain_counts[name], tower_counts[name], _ = \
+            _counted_cpu(lambda: fn(f_host))
         card_vs_cpu[name] = int((out.cpu() - plain).abs().max())
     _check(not any(card_vs_cpu.values()),
            f"twins: card != plain product: {card_vs_cpu}")
@@ -5497,43 +5853,83 @@ def phase_twins(torch, dev, rng, imad_rate, card):
     _check(all(launches[k] == counts[k] for k in counts),
            f"twins: kernel-2 launches {launches} != the code's {counts}")
     _check(all(chains[k] == chain_counts[k] for k in chain_counts)
-           and chains["fq12_inv"] == 1,
+           and chains["fq12_inv"] == chains["pairing_product_is_one"] == 1,
            f"twins: chain launches {chains} != the code's {chain_counts}")
+    _check(all(towers_l[k] == tower_counts[k] for k in tower_counts),
+           f"twins: tower-kernel launches {towers_l} != the code's "
+           f"{tower_counts}")
 
     # subgroup checks: r * P on the 64 G1 points of the first pair
     out, seconds["g1_subgroup_check"], launches["g1_subgroup_check"], \
-        chains["g1_subgroup_check"] = _card_call(
-            torch, lambda: curve.scalar_mul_fixed(
-                curve.FQ_OPS, t["px1"], t["py1"],
-                curve.subgroup_check_bits()), shapes)
+        chains["g1_subgroup_check"], towers_l["g1_subgroup_check"] = \
+        _card_call(torch, lambda: curve.scalar_mul_fixed(
+            curve.FQ_OPS, t["px1"], t["py1"],
+            curve.subgroup_check_bits()), shapes)
     z_zero = fq.is_zero(out["z"]).tolist()
     _check(all(z_zero), f"twins: r*P not at infinity on rows "
            f"{[i for i, z in enumerate(z_zero) if not z]}")
     torch.cuda.synchronize()
+    total = {"vm_step": cuda_step.LAUNCHES, "vm_step_steps": cuda_step.STEPS,
+             "mont_mul": cuda_fq.LAUNCHES,
+             "pow_chain": cuda_fq.CHAIN_LAUNCHES, **_tower_launches()}
+    _check(total["vm_step"] == 0 and total["mont_mul"] > 0,
+           f"twins: launches {total}")
+
+    # every tower-kernel call of the CPU's pairing product again on the
+    # card, limb for limb; then each kernel at the 64-row call's shapes
+    # against its plain version on the card, timed
+    ts = time.perf_counter()
+    replay_err = _tower_replays(torch, dev, records)
+    probe = _tower_probe(torch, dev)
+    stacked = [torch.stack(torch.broadcast_tensors(*col))
+               for col in zip(*pairs)]  # px, py, qx, qy: (2, 64, ...)
+    qpx = (stacked[2], stacked[3], stacked[0], stacked[1])
+    ate, x_bits = pairing._ATE_BITS, pairing._ABS_X_BITS
+    millers = cuda_tower.miller_loop(*qpx, ate)
+    f64 = cuda_tower.fq12_fold(millers, False)
+    tower_kernels = [
+        _tower_check(torch, "miller_loop", f"{2 * n} rows",
+                     lambda: cuda_tower.miller_loop(*qpx, ate),
+                     lambda: pairing.miller_loop_plain(*qpx),
+                     _tower_work("miller_loop", (2 * n,)), imad_rate, probe,
+                     reps=2),
+        _tower_check(torch, "fq12_fold", f"from the first, 2 x {n}",
+                     lambda: cuda_tower.fq12_fold(millers, False),
+                     lambda: pairing._fq12_product_plain(millers),
+                     _tower_work("fq12_fold", ("seq", 2, n, False)),
+                     imad_rate, probe),
+        _tower_check(torch, "fq12_ladder", f"|x| chain, {n} rows",
+                     lambda: cuda_tower.fq12_pow(f64, x_bits),
+                     lambda: pairing._pow_fixed_plain(f64, x_bits),
+                     _tower_work("fq12_ladder", (n,), x_bits), imad_rate,
+                     probe)]
+    checks_s = time.perf_counter() - ts
 
     # kernel 2 at the stacked loop's Fq12 product shape against its plain
     # version, both timed
     mont = _mont_mul_at(torch, dev, rng, imad_rate, (2 * n, 12, 12))
-    total = {"vm_step": cuda_step.LAUNCHES, "vm_step_steps": cuda_step.STEPS,
-             "mont_mul": cuda_fq.LAUNCHES,
-             "pow_chain": cuda_fq.CHAIN_LAUNCHES}
-    _check(total["vm_step"] == 0 and total["mont_mul"] > 0,
-           f"twins: launches {total}")
     return {"phase": "twins", "rows": n, "planted": list(TWINS_PLANTED),
             "verdicts_ok": True, "oracle_rows": sel,
             "oracle_s": oracle_s, "miller_subfield_ok": True,
             "card_vs_cpu_max_abs_err": card_vs_cpu,
+            "tower_replays_max_abs_err": replay_err,
+            "tower_kernels": tower_kernels, "tower_probe": probe,
+            "tower_checks_s": checks_s,
             "subgroup_rows_at_infinity": sum(z_zero),
             "warm_s": seconds, "mont_mul_launches_per_call": launches,
             "mont_mul_calls_counted_on_cpu": counts,
             "mont_mul_products_per_launch": {str(k): v for k, v
                                              in sorted(shapes.items())},
             "chain_launches_per_call": chains,
+            "tower_launches_per_call": towers_l,
+            "tower_calls_counted_on_cpu": tower_counts,
             "mont_mul_at_stacked_fq12_mul": mont,
             "phase_s": time.perf_counter() - t0,
             "step_kernel_launches": total["vm_step"],
             "mont_mul_kernel_launches": total["mont_mul"],
             "chain_kernel_launches": total["pow_chain"],
+            "tower_kernel_launches": {k: total[k] for k in
+                                      cuda_tower.KERNELS},
             **card}, total, mont
 
 
@@ -5845,6 +6241,42 @@ def _mesh_slot(torch, bls_backend, mesh_rlc, mesh):
     return runs
 
 
+def _mesh_tower_checks(torch, dev, line):
+    """The per-slot folds on one slot's shard of the mesh phase, on the
+    card against their plain versions: P2's G1 fold (MESH_P2_KEYS / slots
+    points of its committee, decoded by the codec) and the sharded RLC
+    slot's Fq12 fold of its chunk products (random Fq12 values of that
+    count)."""
+    from consensus_specs_tpu_torch.ops import (bls_backend, cuda_tower, fq,
+                                               mesh_reduce, mesh_rlc)
+
+    _, _, committee = key_pool(MESH_SEED, MESH_P2_KEYS)
+    k = MESH_P2_KEYS // MESH_SLOTS
+    pts = np.zeros((k, 3, fq.NUM_LIMBS), dtype=np.uint64)
+    for i, pk in enumerate(committee[:k]):
+        pts[i, 0], pts[i, 1] = bls_backend._pubkey_limbs(bytes(pk))
+        pts[i, 2] = fq.to_mont_int(1)
+    pts = fq.limbs_from_numpy(pts, dev)
+    chunks = line["slot"]["rlc_sharded"]["butterfly"]["chunks"]
+    kf = max(1, chunks // MESH_SLOTS)
+    rng = np.random.default_rng(MESH_SEED)
+    fs = torch.from_numpy(_rand_loose_limbs(rng, (kf, 12), bits=382)).to(dev)
+    probe = _tower_probe(torch, dev)
+    imad_rate = (torch.cuda.get_device_properties(0).multi_processor_count
+                 * IMAD_PER_SM_CLOCK * 1e6
+                 * float(_nvidia_smi("clocks.max.sm").split()[0]))
+    return [
+        _tower_check(torch, "g1_fold", f"P2 shard, {k} points",
+                     lambda: cuda_tower.g1_fold(pts),
+                     lambda: mesh_reduce._local_fold_plain(pts),
+                     _tower_work("g1_fold", (k,)), imad_rate, probe),
+        _tower_check(torch, "fq12_fold", f"from one, {kf} chunk products",
+                     lambda: cuda_tower.fq12_fold(fs, True),
+                     lambda: mesh_rlc._local_fold_plain(fs),
+                     _tower_work("fq12_fold", ("seq", kf, 1, True)),
+                     imad_rate, probe)]
+
+
 def _mesh_service(bls_backend, mesh, p1, want):
     """The P1 checks through VerificationService(mesh=): the same verdicts,
     the mesh armed, no mesh fallback."""
@@ -5901,6 +6333,7 @@ def phase_mesh(torch, card):
     profiling.reset()
     cuda_step.LAUNCHES = cuda_step.STEPS = cuda_fq.LAUNCHES = 0
     cuda_fq.CHAIN_LAUNCHES = 0
+    _tower_reset()
     fused_fallbacks = vm_compile._COUNTERS["fallbacks"]
     line = {"phase": "mesh", "slots": mesh.size,
             "distinct_devices": {k: m.distinct_devices
@@ -5966,13 +6399,22 @@ def phase_mesh(torch, card):
     launches = {"vm_step": cuda_step.LAUNCHES,
                 "vm_step_steps": cuda_step.STEPS,
                 "mont_mul": cuda_fq.LAUNCHES,
-                "pow_chain": cuda_fq.CHAIN_LAUNCHES}
-    _check(launches["vm_step"] > 0 and launches["mont_mul"] > 0,
+                "pow_chain": cuda_fq.CHAIN_LAUNCHES, **_tower_launches()}
+    _check(launches["vm_step"] > 0 and launches["mont_mul"] > 0
+           and launches["fq12_fold"] > 0 and launches["g1_fold"] > 0,
            f"mesh: launches {launches}")
+    # the folds a slot runs, at the path's shapes, against their plain
+    # versions (comparisons: after the path's counts were read)
+    ts = time.perf_counter()
+    line["tower_kernels"] = _mesh_tower_checks(torch, torch.device("cuda"),
+                                               line)
+    line["tower_checks_s"] = time.perf_counter() - ts
     line.update(phase_s=time.perf_counter() - t0,
                 step_kernel_launches=launches["vm_step"],
                 step_kernel_steps=launches["vm_step_steps"],
-                mont_mul_kernel_launches=launches["mont_mul"], **card)
+                mont_mul_kernel_launches=launches["mont_mul"],
+                tower_kernel_launches={k: launches[k] for k in TOWER_PATHS},
+                **card)
     return line, launches
 
 
@@ -6039,7 +6481,9 @@ def _run_phases(torch, builds):
         _emit({**phase_program(torch, dev, rng),
                "elapsed_s": time.perf_counter() - t0, **card})
 
+        _tower_reset()
         slice_line, launches, slice_run = phase_slice(torch, card)
+        _tower_into(launches)
         _emit({**slice_line, "elapsed_s": time.perf_counter() - t0})
 
         # after the slice, whose cold call assembles the same programs
@@ -6062,7 +6506,9 @@ def _run_phases(torch, builds):
         _emit({"phase": "kernels", "results": codec_streams + codec_mont,
                "elapsed_s": time.perf_counter() - t0, **card})
 
+        _tower_reset()
         serve_line, serve_launches, serve_input = phase_serve(torch, card)
+        _tower_into(serve_launches)
         _emit({**serve_line, "elapsed_s": time.perf_counter() - t0})
 
         # the later phases' keys and signatures, built in spawned processes;
@@ -6081,7 +6527,9 @@ def _run_phases(torch, builds):
                 program_wrap, execute_wrap = _recording_launch_shapes(shapes)
                 with _patched(bls_backend, "_program", program_wrap), \
                         _patched(vm, "execute", execute_wrap):
+                    _tower_reset()
                     line, path_launches[path] = phase(torch, pool, card)
+                    _tower_into(path_launches[path])
                 if "_fleet_slot" in line:
                     mainnet_slot = line.pop("_fleet_slot")
                 _emit({**line, "elapsed_s": time.perf_counter() - t0})
@@ -6092,8 +6540,10 @@ def _run_phases(torch, builds):
 
             # the serve fleet: worker processes on the card; their launch
             # shapes come home in their snapshots
+            _tower_reset()
             line, path_launches["fleet"], path_shapes["fleet"] = phase_fleet(
                 torch, card, serve_input, serve_line["main"], mainnet_slot)
+            _tower_into(path_launches["fleet"])
             _emit({**line, "elapsed_s": time.perf_counter() - t0})
 
             # the light-client proof plane: its own launch shapes, and
@@ -6102,14 +6552,18 @@ def _run_phases(torch, builds):
             program_wrap, execute_wrap = _recording_launch_shapes(shapes)
             with _patched(bls_backend, "_program", program_wrap), \
                     _patched(vm, "execute", execute_wrap):
+                _tower_reset()
                 line, path_launches["lightclient"], smoke_shapes = \
                     phase_lightclient(torch, pool, card)
+                _tower_into(path_launches["lightclient"])
             for key, shape in smoke_shapes.items():
                 shapes.setdefault(key, shape)
             _emit({**line, "elapsed_s": time.perf_counter() - t0})
 
         # the simnet: crypto-free, no kernel launched by design
+        _tower_reset()
         line, path_launches["sim"] = phase_sim(torch, card)
+        _tower_into(path_launches["sim"])
         _emit({**line, "elapsed_s": time.perf_counter() - t0})
 
         # the spec tests' @always_bls cases, signatures on the card
@@ -6117,7 +6571,9 @@ def _run_phases(torch, builds):
         program_wrap, execute_wrap = _recording_launch_shapes(shapes)
         with _patched(bls_backend, "_program", program_wrap), \
                 _patched(vm, "execute", execute_wrap):
+            _tower_reset()
             line, path_launches["spec_tests"] = phase_spec_tests(torch, card)
+            _tower_into(path_launches["spec_tests"])
         line["new_shapes"] = new_launch_shapes(path_shapes, "spec_tests",
                                                streams)
         _emit({**line, "elapsed_s": time.perf_counter() - t0})
@@ -6127,7 +6583,9 @@ def _run_phases(torch, builds):
         program_wrap, execute_wrap = _recording_launch_shapes(shapes)
         with _patched(bls_backend, "_program", program_wrap), \
                 _patched(vm, "execute", execute_wrap):
+            _tower_reset()
             line, path_launches["gen"] = phase_gen(torch, card)
+            _tower_into(path_launches["gen"])
         line["new_shapes"] = new_launch_shapes(path_shapes, "gen", streams)
         _emit({**line, "elapsed_s": time.perf_counter() - t0})
 
@@ -6136,15 +6594,20 @@ def _run_phases(torch, builds):
         program_wrap, execute_wrap = _recording_launch_shapes(shapes)
         with _patched(bls_backend, "_program", program_wrap), \
                 _patched(vm, "execute", execute_wrap):
+            _tower_reset()
             line, path_launches["bench"] = phase_bench(torch, card, shapes)
+            _tower_into(path_launches["bench"])
         _emit({**line, "elapsed_s": time.perf_counter() - t0})
 
         # the VM toolchain: the native scheduler, the interpreter against
         # the fused lowering (kernel 2 in CUDA graphs), a cold child
+        _tower_reset()
         vmexec_line, path_launches["vmexec"] = phase_vmexec(torch, card)
+        _tower_into(path_launches["vmexec"])
         _emit({**vmexec_line, "elapsed_s": time.perf_counter() - t0})
 
-        # the tower twins at the slot's width: kernel 2 alone
+        # the tower twins at the slot's width: the tower kernels, kernel 2
+        # and the chain kernel (phase_twins counts its own launches)
         twins_line, path_launches["twins"], twins_mont = phase_twins(
             torch, dev, rng, imad_rate, card)
         _emit({**twins_line, "elapsed_s": time.perf_counter() - t0})
@@ -6154,8 +6617,10 @@ def _run_phases(torch, builds):
         program_wrap, execute_wrap = _recording_launch_shapes(shapes)
         with _patched(bls_backend, "_program", program_wrap), \
                 _patched(vm, "execute", execute_wrap):
+            _tower_reset()
             finalexp_line, path_launches["finalexp"] = phase_finalexp(
                 torch, card)
+            _tower_into(path_launches["finalexp"])
         finalexp_line["new_shapes"] = new_launch_shapes(
             path_shapes, "finalexp", streams)
         _emit({**finalexp_line, "elapsed_s": time.perf_counter() - t0})
@@ -6175,8 +6640,10 @@ def _run_phases(torch, builds):
         program_wrap, execute_wrap = _recording_launch_shapes(shapes)
         with _patched(bls_backend, "_program", program_wrap), \
                 _patched(vm, "execute", execute_wrap):
+            _tower_reset()
             line, path_launches["wide_aggregate"] = phase_wide_aggregate(
                 torch, card, wide_agg_inputs, builds)
+            _tower_into(path_launches["wide_aggregate"])
         line["new_shapes"] = new_launch_shapes(path_shapes, "wide_aggregate",
                                                streams)
         _emit({**line, "elapsed_s": time.perf_counter() - t0})
@@ -6208,13 +6675,15 @@ def _run_phases(torch, builds):
     paths = {"slice": {"vm_step": launches["vm_step"],
                        "vm_step_steps": launches["vm_step_steps"],
                        "mont_mul": launches["mont_mul"],
-                       "pow_chain": launches["pow_chain"]},
+                       "pow_chain": launches["pow_chain"],
+                       **{k: launches[k] for k in TOWER_PATHS}},
              "serve": serve_launches, **path_launches}
     for path, run in {**rlc_runs, **codec_runs}.items():
         paths[path] = {"vm_step": run["step_kernel_launches"],
                        "vm_step_steps": run["step_kernel_steps"],
                        "mont_mul": run["mont_mul_kernel_launches"],
-                       "pow_chain": run["chain_kernel_launches"]}
+                       "pow_chain": run["chain_kernel_launches"],
+                       **run["tower_kernel_launches"]}
     total = {k: sum(p[k] for p in paths.values()) for k in paths["slice"]}
     # kzg needs the step kernel only: its items are oracle points (no
     # decode, no subgroup check, no hash to G2), so neither Fq kernel has
@@ -6233,6 +6702,10 @@ def _run_phases(torch, builds):
                                        "finalexp", "mesh", "wide_aggregate")
             for k in ("vm_step", "mont_mul", "pow_chain")
             if paths[path][k] == 0 and (path, k) not in exempt]
+    # each tower kernel on the paths that run it: the tower combine, the
+    # twins' pairing product, the mesh's per-slot folds
+    idle += [f"{path} {k}" for k, required in TOWER_PATHS.items()
+             for path in required if paths[path][k] == 0]
     if idle:
         print(f"chip_smoke: FAILED: kernels never launched on {idle}",
               file=sys.stderr)
@@ -6322,6 +6795,40 @@ def _run_phases(torch, builds):
                                "plain_ms")}
              for r in chains}},
     ]
+    # the tower kernels' lines: each at its main shape, every checked shape
+    # and the twins' replays beside it
+    checks = (rlc_line["tower_kernels"] + twins_line["tower_kernels"]
+              + mesh_line["tower_kernels"])
+    replays = twins_line["tower_replays_max_abs_err"]
+    main_shape = {"fq12_ladder": "runtime bits", "fq12_fold": "from one",
+                  "miller_loop": "rows", "g1_fold": "P2 shard"}
+    replaced = {
+        "fq12_ladder": ("consensus_specs_tpu/ops/pairing.py:190",
+                        ["consensus_specs_tpu/ops/pairing.py:126"]),
+        "fq12_fold": ("consensus_specs_tpu/ops/mesh_rlc.py:43",
+                      ["consensus_specs_tpu/ops/pairing.py:213"]),
+        "miller_loop": ("consensus_specs_tpu/ops/pairing.py:93", []),
+        "g1_fold": ("consensus_specs_tpu/ops/mesh_reduce.py:76", [])}
+    for k in TOWER_PATHS:
+        rows = [c for c in checks if c["kernel"] == k]
+        main_row = next(c for c in rows if main_shape[k] in c["shape"])
+        kernels.append({
+            "name": k, "route": "cuda",
+            "source": f"consensus_specs_tpu_torch/csrc/{k}.cu",
+            "replaces": replaced[k][0], "also_replaces": replaced[k][1],
+            "launches": total[k],
+            "launches_by_path": {p: v[k] for p, v in paths.items()},
+            "work": main_row["shape"],
+            "max_abs_err": max([c["max_abs_err"] for c in rows]
+                               + [replays.get(k, 0)]),
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"], "library_ms": None,
+            "latency_floor_ms": main_row["latency_floor_ms"],
+            "throughput_bound_ms": main_row["throughput_bound_ms"],
+            "shapes": {c["shape"]: {f: c[f] for f in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "latency_floor_ms",
+                "max_abs_err")} for c in rows}})
     print(f"{name}, {power}", flush=True)
     _emit({"kernels": kernels})
     _emit({"ok": True, "device": {"platform": "gpu",

@@ -7,7 +7,10 @@ block; pubkey aggregation per verify, reference specs/altair/bls.md:
 its local shard of the key set with branchless complete additions, then a
 log2(n)-round XOR butterfly (``mesh_rlc.butterfly_reduce``) exchanges
 partial sums between slots, a psum with the G1 group law as the monoid.
-Every Fq product is one ``fq.mont_mul`` (kernel 2 on the card).
+The local fold is one launch of csrc/g1_fold.cu a slot on the card
+(``cuda_tower.g1_fold``, the JAX package's per-device ``lax.scan``;
+``_local_fold_plain`` on the CPU); in the butterfly every Fq product is
+one ``fq.mont_mul`` (kernel 2 on the card).
 
 Point representation: projective (X:Y:Z) Montgomery limb tensors
 (..., 3, 15); infinity = (0:1:0). The Renes-Costello-Batina complete
@@ -24,7 +27,7 @@ import numpy as np
 import torch
 
 from ..utils import bls12_381 as O
-from . import fq
+from . import cuda_tower, fq
 from .mesh_rlc import _mesh_reduce
 
 _B3 = 12  # 3*b for y^2 = x^3 + 4
@@ -71,7 +74,17 @@ def infinity_point(batch_shape=()) -> np.ndarray:
 
 
 def _local_fold(points: torch.Tensor) -> torch.Tensor:
-    """Sequential fold of a slot-local (k, 3, L) shard, from infinity."""
+    """Sequential fold of a slot-local (k, 3, L) shard, from infinity: one
+    launch of csrc/g1_fold.cu on the card, ``_local_fold_plain`` on the
+    CPU."""
+    if points.is_cuda:
+        return cuda_tower.g1_fold(points)
+    return _local_fold_plain(points)
+
+
+def _local_fold_plain(points: torch.Tensor) -> torch.Tensor:
+    """Sequential fold of a slot-local (k, 3, L) shard, from infinity
+    (inf + P_0 computed, as the JAX scan computes it)."""
     acc = fq.limbs_from_numpy(infinity_point(), points.device)
     for i in range(points.shape[0]):
         acc = g1_complete_add(acc, points[i])

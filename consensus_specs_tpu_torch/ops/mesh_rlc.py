@@ -6,11 +6,13 @@ per-chunk RLC ladders data-parallel over the mesh's slots
 (``ops/vm.execute(mesh=)``), which leaves one sequential tail: multiplying
 the per-chunk Fq12 products into the single element the combined final
 exponentiation consumes. Each slot folds its LOCAL shard of chunk
-products with ``towers.fq12_mul``, then a log2(n)-round XOR butterfly
+products (``cuda_tower.fq12_fold``: one launch of csrc/fq12_fold.cu a
+slot on the card, the JAX package's per-device ``lax.scan``;
+``_local_fold_plain`` on the CPU), then a log2(n)-round XOR butterfly
 exchanges partial products between slots (``i -> i ^ step``), the
 counterpart of the JAX package's ``ppermute`` rounds: an all-reduce whose
-monoid is the Fq12 multiply. Every Fq product is one ``fq.mont_mul``
-(kernel 2 on the card).
+monoid is the Fq12 multiply, ``towers.fq12_mul`` (every Fq product one
+``fq.mont_mul``, kernel 2 on the card).
 
 The operand order is the JAX package's, so the limbs are too: each fold
 starts from the identity and multiplies every element (``one * f`` is
@@ -24,7 +26,7 @@ f = 1, which cannot perturb the combined element.
 import numpy as np
 import torch
 
-from . import fq
+from . import cuda_tower, fq
 from . import towers as tw
 
 
@@ -37,7 +39,16 @@ def fq12_identity(batch_shape=()) -> np.ndarray:
 
 def _local_fold(fs: torch.Tensor) -> torch.Tensor:
     """Sequential Fq12 product of a slot-local (k, 12, L) shard, from the
-    identity."""
+    identity: one launch of csrc/fq12_fold.cu on the card,
+    ``_local_fold_plain`` on the CPU."""
+    if fs.is_cuda:
+        return cuda_tower.fq12_fold(fs, from_one=True)
+    return _local_fold_plain(fs)
+
+
+def _local_fold_plain(fs: torch.Tensor) -> torch.Tensor:
+    """Sequential Fq12 product of a slot-local (k, ..., 12, L) shard, from
+    the identity (one * fs[0] computed, as the JAX scan computes it)."""
     acc = tw.fq12_one((), fs.device)
     for i in range(fs.shape[0]):
         acc = tw.fq12_mul(acc, fs[i])

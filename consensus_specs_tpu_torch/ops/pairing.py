@@ -27,11 +27,20 @@ Two final exponentiations decide f^((p^12-1)/r) == 1: the reference-slow
 ``final_exp_is_one_full`` (square-and-multiply over the whole ~4314-bit
 exponent, no inversion) and the structured ``final_exp_is_one`` (easy
 part with one Fq12 inversion, then the Hayashida-Hayasaka-Teruya hard
-part). Every ``lax.scan`` of the JAX package over static bits is a loop
-over the bits here: a set bit takes the multiply (or the addition step),
-a clear bit keeps the accumulator (the select's other side), so the limbs
-are the JAX package's. Every Fq product is one ``fq.mont_mul``: on the
-card, a launch of the Montgomery kernel.
+part). The JAX package's device loops over the Pallas product (each a
+``lax.scan``) are one launch of a hand-written kernel each on the card
+(ops/cuda_tower.py): the Miller loop (csrc/miller_loop.cu), ``_pow_fixed``
+and ``rlc_combine``'s ladder (csrc/fq12_ladder.cu), ``rlc_combine``'s tree
+and the pairs' product (csrc/fq12_fold.cu). On CPU tensors the functions
+here run the plain versions beside them (``miller_loop_plain``,
+``_pow_fixed_plain``, ``rlc_combine_plain``'s ladder and tree levels,
+``_fq12_product_plain``), torch loops whose every Fq product is one
+``fq.mont_mul``: a set bit takes
+the multiply (or the addition step), a clear bit of a static exponent
+keeps the accumulator (the select's other side), so the limbs are the JAX
+package's. The easy part (``fq12_inv``, Frobenius) and the products
+between the chains stay torch operations over the Montgomery kernel and
+the chain kernel.
 
 ``rlc_combine`` is the tower twin of the VM program
 ``vmlib.build_rlc_combine`` (the backend's ``_rlc_combine_tower``).
@@ -39,6 +48,7 @@ card, a launch of the Montgomery kernel.
 import torch
 
 from ..utils.bls12_381 import P, R, X_PARAM
+from . import cuda_tower
 from . import towers as tw
 from .curve import FQ2_OPS, double, point
 
@@ -103,9 +113,18 @@ def miller_loop(qx, qy, px, py):
 
     qx, qy: (..., 2, L) Fq2 affine twist coords of Q (must not be infinity)
     px, py: (..., L) Fq affine coords of P (must not be infinity)
-    Returns flat Fq12 (..., 12, L). On a clear bit the JAX package
-    multiplies f by the selected identity and keeps T; so does this, and
-    skips the addition step whose outputs that select drops."""
+    Returns flat Fq12 (..., 12, L): one launch of csrc/miller_loop.cu on
+    the card, ``miller_loop_plain`` on the CPU."""
+    if px.is_cuda:
+        return cuda_tower.miller_loop(qx, qy, px, py, _ATE_BITS)
+    return miller_loop_plain(qx, qy, px, py)
+
+
+def miller_loop_plain(qx, qy, px, py):
+    """The Miller loop's plain version, step by step. On a clear bit the
+    JAX package multiplies f by the selected identity and keeps T; so does
+    this (a product by one is not a no-op on limbs), and skips the
+    addition step whose outputs that select drops."""
     batch = px.shape[:-1]
     one2 = tw.fq2_const(1, 0, batch, device=px.device)
     T = point(qx, qy, one2)
@@ -125,7 +144,17 @@ def miller_loop(qx, qy, px, py):
 
 
 def _pow_fixed(f, bits_msb_first):
-    """f^e for a STATIC bit list: square, and multiply on a set bit."""
+    """f^e for a STATIC bit list: one launch of csrc/fq12_ladder.cu on the
+    card, ``_pow_fixed_plain`` on the CPU."""
+    if f.is_cuda:
+        return cuda_tower.fq12_pow(f, bits_msb_first)
+    return _pow_fixed_plain(f, bits_msb_first)
+
+
+def _pow_fixed_plain(f, bits_msb_first):
+    """f^e for a STATIC bit list: square, and multiply on a set bit (the
+    JAX scan's select keeps acc on a clear bit, so its product is not
+    made)."""
     acc = f  # the MSB is absorbed by the start
     for bit in bits_msb_first[1:]:
         acc = tw.fq12_square(acc)
@@ -189,23 +218,58 @@ def rlc_combine(fs: torch.Tensor, rs_bits: torch.Tensor) -> torch.Tensor:
     fs: (N, 12, 15) flat Fq12 batch (loose Montgomery limbs); rs_bits:
     (N, B) exponent bits, msb-first, on fs' device. Returns (12, 15). Each
     item runs the square-and-multiply ladder with its bits as RUNTIME
-    values (a select per item per bit, one Python step per bit column in
-    place of the JAX package's ``lax.scan``); the powered values then
-    tree-reduce pairwise into one element. Every Fq12 product is one
-    batched ``fq.mont_mul``: the CUDA kernel on the card."""
+    values (``cuda_tower.fq12_ladder``: one launch of csrc/fq12_ladder.cu
+    on the card); the powered values then tree-reduce pairwise into one
+    element (``cuda_tower.fq12_fold_level``: a launch of csrc/fq12_fold.cu
+    a level, ceil(log2 N) in all). On CPU tensors ``rlc_combine_plain``."""
+    if not fs.is_cuda:
+        return rlc_combine_plain(fs, rs_bits)
+    acc = cuda_tower.fq12_ladder(fs, rs_bits)
+    while acc.shape[0] > 1:
+        acc = cuda_tower.fq12_fold_level(acc)
+    return acc[0]
+
+
+def rlc_combine_plain(fs: torch.Tensor, rs_bits: torch.Tensor) -> torch.Tensor:
+    """``rlc_combine``'s plain version: the ladder (``_rlc_ladder_plain``),
+    then the pairwise tree (``_fq12_tree_level_plain``), every Fq12
+    product one batched ``fq.mont_mul`` (the Montgomery kernel on the
+    card)."""
+    acc = _rlc_ladder_plain(fs, rs_bits)
+    while acc.shape[0] > 1:
+        acc = _fq12_tree_level_plain(acc)
+    return acc[0]
+
+
+def _rlc_ladder_plain(fs: torch.Tensor, rs_bits: torch.Tensor) -> torch.Tensor:
+    """(N, 12, 15), (N, B) -> f_i^{r_i}: from one, at every bit column a
+    square and a product by select(bit, f, one), the product by one taken
+    on a clear bit as the JAX scan takes it (one Python step a bit column
+    in place of the scan)."""
     n = fs.shape[0]
     ident = tw.fq12_one((n,), fs.device)
     acc = ident
     for bit_col in rs_bits.to(torch.bool).T:
         acc = tw.fq12_square(acc)
         acc = tw.fq12_mul(acc, tw.fq12_select(bit_col, fs, ident))
-    # log-depth pairwise tree reduce of the N powered values
-    while acc.shape[0] > 1:
-        m = acc.shape[0] // 2
-        head = tw.fq12_mul(acc[: 2 * m : 2], acc[1 : 2 * m : 2])
-        acc = head if acc.shape[0] % 2 == 0 else torch.cat(
-            [head, acc[-1:]], dim=0)
-    return acc[0]
+    return acc
+
+
+def _fq12_tree_level_plain(acc: torch.Tensor) -> torch.Tensor:
+    """One level of the pairwise tree: acc[2m] * acc[2m + 1], an odd tail
+    carried up unmultiplied."""
+    m = acc.shape[0] // 2
+    head = tw.fq12_mul(acc[: 2 * m : 2], acc[1 : 2 * m : 2])
+    return head if acc.shape[0] % 2 == 0 else torch.cat([head, acc[-1:]],
+                                                        dim=0)
+
+
+def _fq12_product_plain(fs: torch.Tensor) -> torch.Tensor:
+    """(K, ..., 12, 15) -> fs[0] * fs[1] * ... in list order, from fs[0]."""
+    f = fs[0]
+    for fi in fs[1:]:
+        f = tw.fq12_mul(f, fi)
+    return f
 
 
 def pairing_product_is_one(pairs):
@@ -213,11 +277,14 @@ def pairing_product_is_one(pairs):
     coordinates. The pairs' Miller loops run as ONE loop over the stacked
     pairs (each coordinate broadcast to the pairs' common shape; every
     row sees the same operations, so the limbs are those of the loops run
-    one by one); the outputs multiply in list order."""
+    one by one; one Miller-kernel launch on the card); the outputs
+    multiply in list order (``cuda_tower.fq12_fold`` from the first: one
+    fold-kernel launch on the card; ``_fq12_product_plain`` on the CPU),
+    then the final exponentiation (its five x-chains a ladder launch
+    each)."""
     px, py, qx, qy = (torch.stack(torch.broadcast_tensors(*col))
                       for col in zip(*pairs))
-    fs = list(miller_loop(qx, qy, px, py).unbind(0))
-    f = fs[0]
-    for fi in fs[1:]:
-        f = tw.fq12_mul(f, fi)
+    fs = miller_loop(qx, qy, px, py)
+    f = (cuda_tower.fq12_fold(fs, from_one=False) if fs.is_cuda
+         else _fq12_product_plain(fs))
     return final_exp_is_one(f)

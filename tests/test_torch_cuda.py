@@ -230,27 +230,31 @@ def test_fq_mont_mul_launches_kernel_on_cuda_tensors(dev):
 
 
 def test_tower_combine_on_the_card_matches_cpu(dev):
-    """The tower combine (every Fq12 product a kernel 2 launch) on the card
-    against the same function on the CPU, raw limbs equal."""
-    from consensus_specs_tpu_torch.ops import cuda_fq, pairing
+    """The tower combine (one ladder launch, then a fold launch a tree
+    level, no kernel-2 launch) on the card against the same function on
+    the CPU (the plain loops), raw limbs equal."""
+    from consensus_specs_tpu_torch.ops import cuda_fq, cuda_tower, pairing
 
     rng = np.random.default_rng(13)
     fs = _loose(rng, (3, 12), bits=382)
     bits = rng.random((3, 128)) < 0.5
-    before = cuda_fq.LAUNCHES
+    before, tower = cuda_fq.LAUNCHES, cuda_tower.launches()
     got = pairing.rlc_combine(torch.from_numpy(fs).to(dev),
                               torch.from_numpy(bits).to(dev))
-    assert cuda_fq.LAUNCHES > before
+    after = cuda_tower.launches()
+    assert cuda_fq.LAUNCHES == before
+    assert after["fq12_ladder"] - tower["fq12_ladder"] == 1
+    assert after["fq12_fold"] - tower["fq12_fold"] == 2
     want = pairing.rlc_combine(torch.from_numpy(fs), torch.from_numpy(bits))
     assert torch.equal(got.cpu(), want)
 
 
 def test_final_exp_full_on_the_card_agrees_with_the_structured_one(dev):
     """The reference-slow final exponentiation (the whole ~4314-bit
-    exponent, ~19,000 kernel-2 launches) and the structured one on the
-    card, on a valid Miller product e(6P, Q) * e(-P, 6Q) and on a
-    corrupted one: both True, then both False."""
-    from consensus_specs_tpu_torch.ops import cuda_fq, fq, pairing, towers
+    exponent, one ladder launch) and the structured one on the card, on a
+    valid Miller product e(6P, Q) * e(-P, 6Q) and on a corrupted one: both
+    True, then both False."""
+    from consensus_specs_tpu_torch.ops import cuda_tower, fq, pairing, towers
     from consensus_specs_tpu_torch.utils import bls12_381 as O
 
     def limbs(pt):
@@ -270,9 +274,9 @@ def test_final_exp_full_on_the_card_agrees_with_the_structured_one(dev):
     noise = torch.from_numpy(_loose(np.random.default_rng(17), (12,),
                                     bits=380)).to(dev)
     batch = torch.cat([f, towers.fq12_mul(f, noise)])
-    before = cuda_fq.LAUNCHES
+    before = cuda_tower.LADDER_LAUNCHES
     full = pairing.final_exp_is_one_full(batch).tolist()
-    assert cuda_fq.LAUNCHES - before > 4314 * 3
+    assert cuda_tower.LADDER_LAUNCHES - before == 1
     assert full == pairing.final_exp_is_one(batch).tolist() == [True, False]
 
 

@@ -4,7 +4,9 @@ NVIDIA GPU.
 
     python3 tools/torch_kernel_compare.py KERNEL NAME:SOURCE ...
 
-KERNEL is ``vm_step``, ``mont_mul`` or ``pow_chain``. Each NAME:SOURCE
+KERNEL is ``vm_step``, ``mont_mul``, ``pow_chain`` or one of the tower
+kernels, ``fq12_ladder``, ``fq12_fold``, ``miller_loop`` and ``g1_fold``.
+Each NAME:SOURCE
 names a build: a CUDA source with the C interface of
 consensus_specs_tpu_torch/csrc/KERNEL.cu, as a path from the repository's
 root (a variant of the kernel in a file of its own, or an earlier commit's
@@ -31,7 +33,17 @@ each):
             around n steps of ISSUE_PROBE_INDEPENDENT independent
             IMAD.WIDE, IMAD and IMAD.HI on one warp, out[k] the clocks of
             chain k, out[3] a checksum -- gets a line of the clocks one
-            warp's issue gives each.
+            warp's issue gives each;
+  the tower kernels (ops/cuda_tower.py), each build through the port's
+            wrapper at the main path's shapes, held limb for limb against
+            the plain version (on the card), 3 calls a timing:
+            fq12_ladder the tower combine's 64 rows x 128 runtime bits and
+                        an x-chain (static |x|) on 64 rows;
+            fq12_fold   a slot's 16 chunk products from one, the pairing
+                        product's 2 x 64 from the first, a tree level of 64;
+            miller_loop the twins' stacked 128 rows and 8 rows;
+            g1_fold     a mesh slot's 512-point shard (P2's 2,048 keys on
+                        4 slots).
 
 Prints the card's name and power limit, one JSON line per build (ptxas
 registers and spill bytes) and one per workload (max |err| and ms of each
@@ -220,8 +232,83 @@ def _pow_chain(cs, torch, dev, rng, libs):
             print(json.dumps(line), flush=True)
 
 
+def _tower_cases(cs, torch, dev, rng, kernel):
+    """[(label, the wrapper's call, its plain version's call)] at the main
+    path's shapes."""
+    from consensus_specs_tpu_torch.ops import (cuda_tower, fq, mesh_reduce,
+                                               mesh_rlc, pairing)
+    from consensus_specs_tpu_torch.utils import bls12_381 as O
+
+    fs = torch.from_numpy(cs._rand_loose_limbs(rng, (64, 12), bits=382)
+                          ).to(dev)
+    if kernel == "fq12_ladder":
+        bits = torch.from_numpy(rng.random((64, 128)) < 0.5).to(dev)
+        x = pairing._ABS_X_BITS
+        return [("runtime bits 64x128",
+                 lambda: cuda_tower.fq12_ladder(fs, bits),
+                 lambda: pairing._rlc_ladder_plain(fs, bits)),
+                ("|x| chain, 64 rows", lambda: cuda_tower.fq12_pow(fs, x),
+                 lambda: pairing._pow_fixed_plain(fs, x))]
+    if kernel == "fq12_fold":
+        seq, pair = fs[:16, None], fs.view(2, 32, 12, 15)
+        return [("from one, 16 x 1", lambda: cuda_tower.fq12_fold(seq, True),
+                 lambda: mesh_rlc._local_fold_plain(seq)),
+                ("from the first, 2 x 32",
+                 lambda: cuda_tower.fq12_fold(pair, False),
+                 lambda: pairing._fq12_product_plain(pair)),
+                ("level 64", lambda: cuda_tower.fq12_fold_level(fs),
+                 lambda: pairing._fq12_tree_level_plain(fs))]
+    if kernel == "miller_loop":
+        _, limbs, _ = cs._twins_inputs(64, set(), cs.TWINS_SEED)
+        t = {k: torch.from_numpy(v.astype(np.int64)).to(dev)
+             for k, v in limbs.items()}
+        qpx = [torch.stack([t[f"{c}1"], t[f"{c}2"]])
+               for c in ("qx", "qy", "px", "py")]
+        few = [x[0, :8] for x in qpx]
+        ate = pairing._ATE_BITS
+        return [("128 rows", lambda: cuda_tower.miller_loop(*qpx, ate),
+                 lambda: pairing.miller_loop_plain(*qpx)),
+                ("8 rows", lambda: cuda_tower.miller_loop(*few, ate),
+                 lambda: pairing.miller_loop_plain(*few))]
+    pts = np.zeros((512, 3, fq.NUM_LIMBS), dtype=np.uint64)
+    for i in range(512):
+        k = int(rng.integers(1, 1 << 62))
+        x, y = O.ec_to_affine(O.ec_mul(O.G1_GEN, k))
+        pts[i] = [fq.to_mont_int(x.n), fq.to_mont_int(y.n), fq.to_mont_int(1)]
+    pts = fq.limbs_from_numpy(pts, dev)
+    return [("512 points", lambda: cuda_tower.g1_fold(pts),
+             lambda: mesh_reduce._local_fold_plain(pts))]
+
+
+def _tower(cs, torch, dev, rng, libs, kernel):
+    from consensus_specs_tpu_torch.ops import cuda_tower
+
+    libs = {name: cuda_tower.bind(kernel, lib) for name, lib in libs.items()}
+
+    def through(lib, call):
+        cuda_tower._LIBS[kernel] = lib  # the wrapper launches this build
+        return call()
+
+    for label, call, plain in _tower_cases(cs, torch, dev, rng, kernel):
+        want = plain()
+        outs = {name: through(lib, call) for name, lib in libs.items()}
+        torch.cuda.synchronize()
+        err = {name: int((out - want).abs().max().item())
+               for name, out in outs.items()}
+        ms = _in_turns(cs, torch, {
+            name: (lambda lib=lib: through(lib, call))
+            for name, lib in libs.items()}, 3)
+        print(json.dumps({"kernel": kernel, "shape": label,
+                          "max_abs_err_vs_plain": err, "ms": ms}),
+              flush=True)
+
+
 WORKLOADS = {"vm_step": _vm_step, "mont_mul": _mont_mul,
-             "pow_chain": _pow_chain}
+             "pow_chain": _pow_chain,
+             **{k: (lambda cs, torch, dev, rng, libs, k=k:
+                    _tower(cs, torch, dev, rng, libs, k))
+                for k in ("fq12_ladder", "fq12_fold", "miller_loop",
+                          "g1_fold")}}
 
 
 def main(argv):

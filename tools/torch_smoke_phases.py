@@ -16,7 +16,10 @@ chip_smoke's JSON line for it, with every (program,
 rows) the phase launched the step kernel at noted, and last the
 ``kernels`` line that holds each such shape's first 256 steps against the
 plain steps (max |err| 0 required) and times the whole stream, as
-chip_smoke's last phase does; ``--no-kernels`` leaves that line out, to
+chip_smoke's last phase does, with each phase's launches of every kernel
+(the tower kernels of ops/cuda_tower.py counted from 0 at each phase;
+``twins`` and ``mesh`` hold them against their plain versions and time
+them, as in the whole smoke); ``--no-kernels`` leaves that line out, to
 time the phases alone. Programs are assembled
 cold (nothing earlier ran), so a phase's first card calls take longer
 than inside the whole smoke. Exit 0 when every phase passed.
@@ -75,14 +78,17 @@ def main(names):
                   "build_s": time.perf_counter() - t0, **card})
         path_shapes, launches = {}, {}
         for phase in names:
+            cs._tower_reset()
             if phase == "twins":
                 line, launches[phase], _ = cs.phase_twins(
                     torch, dev, rng, imad_rate, card)
+                cs._tower_into(launches[phase])
                 cs._emit({**line, "elapsed_s": time.perf_counter() - t0})
                 continue
             if phase in ("sim", "vmexec"):
                 run = cs.phase_sim if phase == "sim" else cs.phase_vmexec
                 line, launches[phase] = run(torch, card)
+                cs._tower_into(launches[phase])
                 cs._emit({**line, "elapsed_s": time.perf_counter() - t0})
                 continue
             shapes = path_shapes[phase] = {}
@@ -92,6 +98,7 @@ def main(names):
                         cs._patched(vm, "execute", execute_wrap):
                     line, launches[phase] = cs.phase_bench(torch, card,
                                                            shapes)
+                cs._tower_into(launches[phase])
                 cs._emit({**line, "elapsed_s": time.perf_counter() - t0})
                 continue
             if phase == "wide_aggregate":
@@ -104,6 +111,7 @@ def main(names):
                         deadline_s=WIDE_AGG_ALONE_DEADLINE_S)
                 line["new_shapes"] = cs.new_launch_shapes(path_shapes, phase,
                                                           [])
+                cs._tower_into(launches[phase])
                 cs._emit({**line, "elapsed_s": time.perf_counter() - t0})
                 continue
             if phase in ("spec_tests", "gen", "finalexp", "mesh"):
@@ -116,6 +124,7 @@ def main(names):
                     line, launches[phase] = run(torch, card)
                 line["new_shapes"] = cs.new_launch_shapes(path_shapes, phase,
                                                           [])
+                cs._tower_into(launches[phase])
                 cs._emit({**line, "elapsed_s": time.perf_counter() - t0})
                 continue
             with KeyPool() as pool, \
@@ -130,6 +139,7 @@ def main(names):
                         cs.phase_lightclient(torch, pool, card)
             for key, shape in smoke_shapes.items():
                 shapes.setdefault(key, shape)
+            cs._tower_into(launches[phase])
             cs._emit({**line, "elapsed_s": time.perf_counter() - t0})
         if not kernels_line:
             print(json.dumps({"ok": True, "phases": names}))
