@@ -315,10 +315,17 @@ pool of spawned processes (utils/keygen.py).
                fq12_mul 3, the pairing product 1 Miller, 1 fold and 5
                ladder launches); every tower-kernel call of the CPU's
                pairing product replayed through its kernel on the card,
-               limb for limb; r * P on the 64 G1 points at infinity. Then
-               the Miller kernel at the stacked 128 rows, the fold at 2 x
-               64 and an x-chain at 64 rows against their plain versions
-               on the card, timed beside their bounds; warm seconds a
+               limb for limb. The subgroup checks r * P over the 64 G1
+               points and r * Q over the 64 twist points a_i Q, each with
+               4 points off the subgroup: one scalar_mul launch a call and
+               no kernel-2 launch, at infinity on exactly the subgroup
+               rows, as the oracle says on 8 of them and the 4 off (the
+               oracle's pairings and the bounds' traces run in worker
+               processes beside the card work). Then the Miller kernel at the stacked 128 rows, the
+               fold at 2 x 64, an x-chain at 64 rows, and scalar_mul over
+               r's bits on the 68 G1 rows and on the 68 G2 rows against
+               their plain versions on the card, timed beside their
+               bounds; warm seconds a
                function, launches a call, the products each kernel-2
                launch ran at, and kernel 2 at the stacked loop's
                18,432-product Fq12 shape against its plain version.
@@ -387,7 +394,7 @@ Every phase's path counts each kernel's launches from 0 (the tower
 kernels of ops/cuda_tower.py too); the tower combine, the twins and the
 mesh must launch the tower kernels TOWER_PATHS names. Then it prints the
 card's name and power limit, a ``{"kernels": [...]}`` line (the step
-kernel, the Montgomery kernel, the chain kernel and the four tower
+kernel, the Montgomery kernel, the chain kernel and the five tower
 kernels), and last ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero before the last line. Without a CUDA device, or without the
 package beside this script, it exits non-zero and prints no result.
@@ -1210,8 +1217,8 @@ def _mont_mul_at(torch, dev, rng, imad_rate, batch):
 # tower combine of phase rlc, the twins, the mesh phase
 TOWER_PATHS = {"fq12_ladder": ("tower", "twins"),
                "fq12_fold": ("tower", "twins", "mesh"),
-               "miller_loop": ("twins",), "g1_fold": ("mesh",)}
-
+               "miller_loop": ("twins",), "g1_fold": ("mesh",),
+               "scalar_mul": ("twins",)}
 
 def _tower_launches():
     from consensus_specs_tpu_torch.ops import cuda_tower
@@ -1251,20 +1258,55 @@ def _chain_depth(fn, *args):
     (so fq.sub's compress of its subtrahend counts, and so does a product
     by a constant), a carry the largest of its limbs', a sum or difference
     the larger of its terms' (constants, whose limbs lie below _DEPTH0,
-    add none). The largest over the result's elements and rows."""
+    add none). A truth value computed from traced values (a comparison,
+    and what &, |, ~, all or indexing make of it) carries the largest
+    depth of what it was computed from, so a zero test is one product
+    past the value it tests (fq.canonical); a select (torch.where) gives
+    the largest of its condition's depth and its two sides'. The largest
+    over the result's elements and rows (over every value of a dict
+    result; a truth value's own depth)."""
     import torch
     from consensus_specs_tpu_torch.ops import cuda_fq, fq
 
     def plain(x):
         return x.as_subclass(torch.Tensor)
 
+    def depth_of(x):
+        """A traced value's depth: a truth value's tag, a tensor of depths
+        its largest, anything else 0 (below every input's)."""
+        if isinstance(x, (list, tuple)):
+            return max(map(depth_of, x), default=0)
+        if not isinstance(x, torch.Tensor):
+            return 0
+        tag = getattr(x, "depth_tag", None)
+        if tag is not None:
+            return tag
+        x = plain(x)
+        if x.dtype == torch.bool or not x.numel():
+            return 0
+        return int(x.max())
+
     class Depth(torch.Tensor):
         @classmethod
         def __torch_function__(cls, func, types, args=(), kwargs=None):
             name = getattr(func, "__name__", "")
+            if func is torch.where and len(args) == 3:
+                a, b = (plain(x) if isinstance(x, torch.Tensor)
+                        else torch.tensor(x) for x in args[1:])
+                shape = torch.broadcast_shapes(plain(args[0]).shape,
+                                               a.shape, b.shape)
+                m = torch.maximum(a, b)
+                cond = depth_of(args[0])
+                if cond:
+                    m = m.clamp(min=cond)
+                return m.expand(shape).clone().as_subclass(Depth)
             if name not in _DEPTH_SUMS:
-                return super().__torch_function__(func, types, args,
-                                                  kwargs or {})
+                out = super().__torch_function__(func, types, args,
+                                                 kwargs or {})
+                if isinstance(out, Depth) and plain(out).dtype == torch.bool:
+                    out.depth_tag = depth_of(
+                        list(args) + list((kwargs or {}).values()))
+                return out
             a, b = (plain(x) if isinstance(x, torch.Tensor)
                     else torch.tensor(x) for x in args[:2])
             m = torch.maximum(a, b)
@@ -1290,7 +1332,40 @@ def _chain_depth(fn, *args):
     with _patched(cuda_fq, "mont_mul", lambda real: mont_mul), \
             _patched(fq, "_carry_limbs", lambda real: carry):
         out = fn(*args)
-    return int(plain(out).max()) - _DEPTH0
+    outs = out.values() if isinstance(out, dict) else [out]
+    return max(map(depth_of, outs)) - _DEPTH0
+
+
+def _scalar_mul_products(group, bits, order):
+    """The Montgomery products csrc/scalar_mul.cu makes on one row of
+    ``group`` ("g1" or "g2") for the msb-first ``bits``, the row's point of
+    order ``order`` (None: a multiple of r at least 3r, beyond every
+    multiple the bits reach). Before the addition at a set bit the
+    accumulator is m Q (m twice the bits so far): at infinity (m = 0 mod
+    the order) the addition is its infinity test alone; at Q (m = 1) its
+    zero tests of H and R, then one more doubling; at -Q those tests alone;
+    else the generic branch (ops/cuda_tower.MONTS)."""
+    from consensus_specs_tpu_torch.ops import cuda_tower
+
+    mont = {k: cuda_tower.MONTS[f"{group}_{k}"]
+            for k in ("double", "inf", "hr", "add_mixed")}
+    m = products = 0
+    for bit in bits:
+        m *= 2
+        products += mont["double"]
+        if not bit:
+            continue
+        at = m % order if order else m
+        if at == 0:
+            products += mont["inf"]
+        elif at == 1:
+            products += mont["hr"] + mont["double"]
+        elif order and at == order - 1:
+            products += mont["hr"]
+        else:
+            products += mont["add_mixed"]
+        m += 1
+    return products
 
 
 def _tower_work(kernel, shape, bits=None):
@@ -1301,11 +1376,14 @@ def _tower_work(kernel, shape, bits=None):
     runtime bits, or at (rows,) with ``bits`` the static exponent;
     rlc_combine (the ladder and its tree) at (rows, B) with its bits;
     fq12_fold at ("seq", K, M, from_one) or ("level", N); miller_loop at
-    (rows,); g1_fold at (K,). Products as ops/cuda_tower.MONTS counts them
-    (held to the plain versions' in tests/test_torch_tower_kernels.py)."""
+    (rows,); g1_fold at (K,); scalar_mul at (group, the rows' point
+    orders as ``_scalar_mul_products`` takes them) with ``bits`` the
+    scalar's. Products as ops/cuda_tower.MONTS counts them (held to the
+    plain versions' in tests/test_torch_tower_kernels.py and
+    tests/test_torch_scalar_mul.py)."""
     import torch
-    from consensus_specs_tpu_torch.ops import (cuda_tower, mesh_reduce,
-                                               mesh_rlc, pairing)
+    from consensus_specs_tpu_torch.ops import (cuda_tower, curve,
+                                               mesh_reduce, mesh_rlc, pairing)
 
     mul = cuda_tower.MONTS["fq12_mul"]
     fq12 = 12 * 15 * LIMB_BYTES
@@ -1346,6 +1424,15 @@ def _tower_work(kernel, shape, bits=None):
                 _chain_depth(pairing.miller_loop_plain, (1, 2), (1, 2), (1,),
                              (1,)),
                 shape[0] * (6 * 15 * LIMB_BYTES + fq12))
+    if kernel == "scalar_mul":
+        group, orders = shape
+        F, one = ((curve.FQ_OPS, (1,)) if group == "g1"
+                  else (curve.FQ2_OPS, (1, 2)))
+        coord = len(one) * 15 * LIMB_BYTES
+        return (sum(_scalar_mul_products(group, bits, o) for o in orders),
+                _chain_depth(lambda x, y: curve.scalar_mul_fixed_plain(
+                    F, x, y, bits), one, one),
+                len(orders) * 5 * coord + -(-len(bits) // 32) * 4)
     k = shape[0]
     return (k * cuda_tower.MONTS["g1_add"],
             _chain_depth(mesh_reduce._local_fold_plain, (k, 3)),
@@ -1379,26 +1466,32 @@ def _tower_check(torch, kernel, label, call, plain, work, imad_rate, probe,
     card's rate, or the bytes) and the latency floor (the dependent
     products of a row, CHAIN_DIGITS_PER_PRODUCT digit steps each at the
     probe's clocks and the SM clock under load)."""
-    got = call()
+    got = _limbs_of(call())
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    want = plain()
+    want = _limbs_of(plain())
     end.record()
     end.synchronize()
     err = int((got.cpu() - want.cpu()).abs().max().item())
     _check(err == 0, f"{kernel} ({label}) differs from its plain version: "
                      f"max |err| {err}")
+    return {"kernel": kernel, "shape": label, "max_abs_err": err,
+            "ms": _cuda_ms(torch, call, reps),
+            "plain_ms": start.elapsed_time(end),
+            **_tower_bound(work, imad_rate, probe)}
+
+
+def _tower_bound(work, imad_rate, probe):
+    """A tower kernel call's bound from its ``_tower_work``: the larger of
+    the throughput bound and the latency floor (``_tower_check``)."""
     monts, depth, n_bytes = work
     through = _bound(n_bytes, monts * WIDE_MACS_PER_MONT * IMAD_PER_WIDE_MAC,
                      imad_rate)
     floor = _chain_floor_ms(depth, probe["digit_clocks"],
                             probe["sm_clock_mhz"])
-    return {"kernel": kernel, "shape": label, "max_abs_err": err,
-            "ms": _cuda_ms(torch, call, reps),
-            "plain_ms": start.elapsed_time(end),
-            "montgomery_products": monts, "dependent_products": depth,
+    return {"montgomery_products": monts, "dependent_products": depth,
             "throughput_bound_ms": through["bound_ms"],
             "latency_floor_ms": floor,
             "bound_ms": max(through["bound_ms"], floor),
@@ -1409,7 +1502,7 @@ def _tower_check(torch, kernel, label, call, plain, work, imad_rate, probe,
 def _tower_plain():
     """Each tower kernel's plain versions: [(module, function, kernel, the
     wrapper call that launches the kernel on the function's arguments)]."""
-    from consensus_specs_tpu_torch.ops import (cuda_tower, mesh_reduce,
+    from consensus_specs_tpu_torch.ops import (cuda_tower, curve, mesh_reduce,
                                                mesh_rlc, pairing)
 
     return [
@@ -1423,7 +1516,19 @@ def _tower_plain():
          cuda_tower.fq12_fold_level),
         (pairing, "miller_loop_plain", "miller_loop",
          lambda *a: cuda_tower.miller_loop(*a, pairing._ATE_BITS)),
-        (mesh_reduce, "_local_fold_plain", "g1_fold", cuda_tower.g1_fold)]
+        (mesh_reduce, "_local_fold_plain", "g1_fold", cuda_tower.g1_fold),
+        (curve, "scalar_mul_fixed_plain", "scalar_mul",
+         lambda F, qx, qy, bits: cuda_tower.scalar_mul(
+             qx, qy, bits, g2=F is curve.FQ2_OPS))]
+
+
+def _limbs_of(v):
+    """A kernel's result as one tensor: a Jacobian point {x, y, z} stacked,
+    any other result as it is."""
+    import torch
+
+    return torch.stack([v["x"], v["y"], v["z"]]) if isinstance(v, dict) \
+        else v
 
 
 def _tower_replays(torch, dev, records):
@@ -1435,7 +1540,7 @@ def _tower_replays(torch, dev, records):
     for kernel, card, args, out in records:
         got = card(
             *(a.to(dev) if isinstance(a, torch.Tensor) else a for a in args))
-        err = int((got.cpu() - out).abs().max().item())
+        err = int((_limbs_of(got).cpu() - _limbs_of(out)).abs().max().item())
         errs[kernel] = max(errs.get(kernel, 0), err)
     _check(not any(errs.values()),
            f"tower kernels differ from their plain versions: {errs}")
@@ -1508,7 +1613,7 @@ def phase_rlc(torch, dev, rng, imad_rate, card, slice_run, slice_warm_s):
     _check(bool(got.all()), "tower combine: verdicts not all True")
     levels = (n - 1).bit_length()
     want_tower = {"fq12_ladder": 1, "fq12_fold": levels, "miller_loop": 0,
-                  "g1_fold": 0}
+                  "g1_fold": 0, "scalar_mul": 0}
     _check(tower["tower_kernel_launches"] == want_tower,
            f"tower combine: launches {tower['tower_kernel_launches']}, "
            f"expected {want_tower} (one ladder, a fold a tree level)")
@@ -5619,6 +5724,8 @@ TWINS_SEED = SEED + 6
 # product), fq12_mul one 144-way product and 2 subtractions
 TWINS_FQ2_MUL_LAUNCHES = 3 + 2
 TWINS_FQ12_MUL_LAUNCHES = 1 + 2
+# the subgroup checks' rows off the subgroup, after a group's 64
+TWINS_OFF_SUBGROUP = 4
 
 
 def _twins_inputs(n, planted, seed):
@@ -5658,6 +5765,39 @@ def _twins_inputs(n, planted, seed):
     points = {"p1": [p[:2] for p in p1], "q1": q1[:2], "p2": p2[:2],
               "q2": [q[:2] for q in q2]}
     return scalars, limbs, points
+
+
+def _cpu_worker():
+    """A CPU worker's initializer: no CUDA device visible, one torch
+    thread."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    import torch
+
+    torch.set_num_threads(1)
+
+
+def _timed(fn, *args):
+    """(fn(*args), the seconds it took): a worker's job, timed where it
+    ran, so the phase shows what the job would add to it inline."""
+    t = time.perf_counter()
+    out = fn(*args)
+    return out, time.perf_counter() - t
+
+
+def _twins_off_subgroup(affine):
+    """Phase twins' rows off the subgroup, TWINS_OFF_SUBGROUP a group, and
+    the oracle's subgroup verdicts on ``affine``'s rows ({group: affine
+    points}) and on them: {group: (points, verdicts)}."""
+    from consensus_specs_tpu_torch.utils import bls12_381 as O
+
+    out = {}
+    for g, group, inside in (("g1", 1, O.is_in_g1_subgroup),
+                             ("g2", 2, O._is_in_g2_subgroup_scalar)):
+        off = O.off_subgroup_points(group, TWINS_OFF_SUBGROUP,
+                                    TWINS_SEED + group)
+        out[g] = (off, [inside(O.ec_from_affine(p))
+                        for p in affine[g] + off])
+    return out
 
 
 def _twins_oracle(points, rows):
@@ -5761,19 +5901,49 @@ def _card_call(torch, fn, shapes):
 
 def phase_twins(torch, dev, rng, imad_rate, card):
     """The port's tower twins on the card at the slot's width; see the
-    module docstring, phase 22."""
+    module docstring, phase 22. Its longer CPU work (the exact-int
+    oracle's pairings, the traces of the subgroup checks' bounds) runs in
+    worker processes beside the card work; they are stopped before it
+    returns."""
+    import concurrent.futures
+    import multiprocessing
+
+    with concurrent.futures.ProcessPoolExecutor(
+            3, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_cpu_worker) as pool:
+        return _twins(torch, dev, rng, imad_rate, card, pool)
+
+
+def _twins(torch, dev, rng, imad_rate, card, pool):
     from consensus_specs_tpu_torch.ops import (cuda_fq, cuda_step,
                                                cuda_tower, curve, fq, pairing,
                                                towers)
+    from consensus_specs_tpu_torch.utils import bls12_381 as O
 
     t0 = time.perf_counter()
     n = TWINS_ROWS
     scalars, limbs, points = _twins_inputs(n, set(TWINS_PLANTED), TWINS_SEED)
     want = [i not in TWINS_PLANTED for i in range(n)]
-    oracle = _twins_oracle(points, TWINS_ORACLE_ROWS)
-    oracle_s = time.perf_counter() - t0
-    _check(all(oracle[i][1] == want[i] for i in TWINS_ORACLE_ROWS),
-           "twins: the oracle disagrees with the planted verdicts")
+    # the subgroup checks' rows: the pairs' 64 G1 points a_i P (or (a_i +
+    # 1) P) and 64 twist points a_i Q, then TWINS_OFF_SUBGROUP points off
+    # the subgroup. The phase's longer CPU work (the oracle's pairings, the
+    # traces of the subgroup checks' bounds) starts now in the workers
+    r_bits = curve.subgroup_check_bits()
+    orders = (O.R,) * n + (None,) * TWINS_OFF_SUBGROUP
+    sub_oracle_rows = list(TWINS_ORACLE_ROWS) + list(
+        range(n, n + TWINS_OFF_SUBGROUP))
+    jobs = {"oracle": pool.submit(_timed, _twins_oracle, points,
+                                  TWINS_ORACLE_ROWS),
+            **{g: pool.submit(_timed, _tower_work, "scalar_mul", (g, orders),
+                              r_bits) for g in ("g1", "g2")}}
+    job_s, job_wait_s = {}, {}
+
+    def result(job):
+        tw = time.perf_counter()
+        out, job_s[job] = jobs[job].result()
+        job_wait_s[job] = time.perf_counter() - tw
+        return out
+
     cuda_step.LAUNCHES = cuda_step.STEPS = cuda_fq.LAUNCHES = 0
     cuda_fq.CHAIN_LAUNCHES = 0
     _tower_reset()
@@ -5795,20 +5965,15 @@ def phase_twins(torch, dev, rng, imad_rate, card):
     _check(verdicts == want, f"twins: pairing verdicts "
            f"{[i for i in range(n) if verdicts[i] != want[i]]} wrong")
 
-    # the Miller loop on the oracle's 8 rows, against the oracle up to an
-    # Fq2 subfield factor
+    # the Miller loop on the oracle's 8 rows (held to the oracle, up to an
+    # Fq2 subfield factor, last: the oracle's pairings take a worker
+    # seconds)
     sel = list(TWINS_ORACLE_ROWS)
     args = [t[k][sel] for k in ("qx1", "qy1", "px1", "py1")]
     f_card, seconds["miller_loop"], launches["miller_loop"], chains[
         "miller_loop"], towers_l["miller_loop"] = _card_call(
         torch, lambda: pairing.miller_loop(*args), shapes)
     f_host = f_card.cpu()
-    subfield = []
-    for j, i in enumerate(sel):
-        ratio = towers.fq12_to_oracle(f_host[j]) * oracle[i][0].inverse()
-        subfield.append(ratio.frobenius().frobenius() == ratio)
-    _check(all(subfield), f"twins: Miller outputs off the oracle's beyond "
-           f"a subfield factor at rows {subfield}")
 
     # the pairing product on the same 8 rows on the CPU: the plain
     # versions of every tower kernel it runs (recorded, then replayed
@@ -5828,7 +5993,7 @@ def phase_twins(torch, dev, rng, imad_rate, card):
                     "miller_loop": {k: int(k == "miller_loop")
                                     for k in cuda_tower.KERNELS}}
     _check(tower_pp == {"miller_loop": 1, "fq12_fold": 1, "fq12_ladder": 5,
-                        "g1_fold": 0},
+                        "g1_fold": 0, "scalar_mul": 0},
            f"twins: the pairing product's tower calls {tower_pp}")
 
     # the torch functions on the card against the plain product on the CPU
@@ -5859,15 +6024,38 @@ def phase_twins(torch, dev, rng, imad_rate, card):
            f"twins: tower-kernel launches {towers_l} != the code's "
            f"{tower_counts}")
 
-    # subgroup checks: r * P on the 64 G1 points of the first pair
-    out, seconds["g1_subgroup_check"], launches["g1_subgroup_check"], \
-        chains["g1_subgroup_check"], towers_l["g1_subgroup_check"] = \
-        _card_call(torch, lambda: curve.scalar_mul_fixed(
-            curve.FQ_OPS, t["px1"], t["py1"],
-            curve.subgroup_check_bits()), shapes)
-    z_zero = fq.is_zero(out["z"]).tolist()
-    _check(all(z_zero), f"twins: r*P not at infinity on rows "
-           f"{[i for i, z in enumerate(z_zero) if not z]}")
+    # subgroup checks, r * P over G1 and r * Q over G2: one scalar_mul
+    # launch a call, no kernel-2 or chain launch; the result at infinity
+    # (z == 0 mod p) on the subgroup rows and nowhere else, as the oracle
+    # says on its rows and the rows off the subgroup
+    off_points = _twins_off_subgroup({
+        "g1": [points["p1"][i] for i in TWINS_ORACLE_ROWS],
+        "g2": [points["q2"][i] for i in TWINS_ORACLE_ROWS]})
+    at_infinity, sub = {}, {}
+    for g, F, is_zero, xs, ys in (
+            ("g1", curve.FQ_OPS, fq.is_zero, "px1", "py1"),
+            ("g2", curve.FQ2_OPS, towers.fq2_is_zero, "qx2", "qy2")):
+        off, want_in = off_points[g]
+        ox, oy = curve.affine_limbs(off)
+        qx, qy = sub[g] = tuple(
+            torch.cat([t[k], torch.from_numpy(o).to(dev)])
+            for k, o in ((xs, ox), (ys, oy)))
+        name = f"{g}_subgroup_check"
+        out, seconds[name], launches[name], chains[name], towers_l[name] = \
+            _card_call(torch, lambda: curve.scalar_mul_fixed(
+                F, qx, qy, r_bits), shapes)
+        z = is_zero(out["z"]).tolist()
+        at_infinity[g] = sum(z)
+        _check(z == [True] * n + [False] * TWINS_OFF_SUBGROUP,
+               f"twins: {g} r * P at infinity on rows "
+               f"{[i for i, v in enumerate(z) if v]}")
+        _check([z[i] for i in sub_oracle_rows] == want_in,
+               f"twins: {g} subgroup verdicts differ from the oracle's on "
+               f"rows {sub_oracle_rows}")
+        _check(launches[name] == chains[name] == 0 and towers_l[name] == {
+            k: int(k == "scalar_mul") for k in cuda_tower.KERNELS},
+            f"twins: the {g} check launched kernel 2 {launches[name]}, "
+            f"chains {chains[name]}, tower kernels {towers_l[name]}")
     torch.cuda.synchronize()
     total = {"vm_step": cuda_step.LAUNCHES, "vm_step_steps": cuda_step.STEPS,
              "mont_mul": cuda_fq.LAUNCHES,
@@ -5903,19 +6091,45 @@ def phase_twins(torch, dev, rng, imad_rate, card):
                      lambda: pairing._pow_fixed_plain(f64, x_bits),
                      _tower_work("fq12_ladder", (n,), x_bits), imad_rate,
                      probe)]
+    # the subgroup checks' kernel over r's bits on each group's 68 rows
+    # against its plain loop on the card
+    rows = n + TWINS_OFF_SUBGROUP
+    for g, F in (("g1", curve.FQ_OPS), ("g2", curve.FQ2_OPS)):
+        qx, qy = sub[g]
+        tower_kernels.append(_tower_check(
+            torch, "scalar_mul", f"{g.upper()} r bits, {rows} rows",
+            lambda: cuda_tower.scalar_mul(qx, qy, r_bits,
+                                          g2=F is curve.FQ2_OPS),
+            lambda: curve.scalar_mul_fixed_plain(F, qx, qy, r_bits),
+            result(g), imad_rate, probe))
     checks_s = time.perf_counter() - ts
+
+    # the oracle's verdicts on its 8 rows, and the card's Miller outputs
+    # on them against the oracle's up to an Fq2 subfield factor
+    oracle = result("oracle")
+    _check(all(oracle[i][1] == want[i] for i in TWINS_ORACLE_ROWS),
+           "twins: the oracle disagrees with the planted verdicts")
+    subfield = []
+    for j, i in enumerate(sel):
+        ratio = towers.fq12_to_oracle(f_host[j]) * oracle[i][0].inverse()
+        subfield.append(ratio.frobenius().frobenius() == ratio)
+    _check(all(subfield), f"twins: Miller outputs off the oracle's beyond "
+           f"a subfield factor at rows {subfield}")
 
     # kernel 2 at the stacked loop's Fq12 product shape against its plain
     # version, both timed
     mont = _mont_mul_at(torch, dev, rng, imad_rate, (2 * n, 12, 12))
     return {"phase": "twins", "rows": n, "planted": list(TWINS_PLANTED),
             "verdicts_ok": True, "oracle_rows": sel,
-            "oracle_s": oracle_s, "miller_subfield_ok": True,
+            "oracle_s": job_s["oracle"], "miller_subfield_ok": True,
             "card_vs_cpu_max_abs_err": card_vs_cpu,
             "tower_replays_max_abs_err": replay_err,
             "tower_kernels": tower_kernels, "tower_probe": probe,
             "tower_checks_s": checks_s,
-            "subgroup_rows_at_infinity": sum(z_zero),
+            "subgroup_rows": rows, "subgroup_off_rows": TWINS_OFF_SUBGROUP,
+            "subgroup_at_infinity": at_infinity,
+            "subgroup_oracle_rows": sub_oracle_rows,
+            "cpu_jobs_s": job_s, "cpu_jobs_wait_s": job_wait_s,
             "warm_s": seconds, "mont_mul_launches_per_call": launches,
             "mont_mul_calls_counted_on_cpu": counts,
             "mont_mul_products_per_launch": {str(k): v for k, v
@@ -6801,14 +7015,16 @@ def _run_phases(torch, builds):
               + mesh_line["tower_kernels"])
     replays = twins_line["tower_replays_max_abs_err"]
     main_shape = {"fq12_ladder": "runtime bits", "fq12_fold": "from one",
-                  "miller_loop": "rows", "g1_fold": "P2 shard"}
+                  "miller_loop": "rows", "g1_fold": "P2 shard",
+                  "scalar_mul": "G1 r bits"}
     replaced = {
         "fq12_ladder": ("consensus_specs_tpu/ops/pairing.py:190",
                         ["consensus_specs_tpu/ops/pairing.py:126"]),
         "fq12_fold": ("consensus_specs_tpu/ops/mesh_rlc.py:43",
                       ["consensus_specs_tpu/ops/pairing.py:213"]),
         "miller_loop": ("consensus_specs_tpu/ops/pairing.py:93", []),
-        "g1_fold": ("consensus_specs_tpu/ops/mesh_reduce.py:76", [])}
+        "g1_fold": ("consensus_specs_tpu/ops/mesh_reduce.py:76", []),
+        "scalar_mul": ("consensus_specs_tpu/ops/curve.py:130", [])}
     for k in TOWER_PATHS:
         rows = [c for c in checks if c["kernel"] == k]
         main_row = next(c for c in rows if main_shape[k] in c["shape"])

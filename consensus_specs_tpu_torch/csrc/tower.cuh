@@ -1,5 +1,6 @@
-// The tower field's device arithmetic, shared by the four tower kernels
-// (fq12_ladder.cu, fq12_fold.cu, miller_loop.cu, g1_fold.cu): the port's
+// The tower field's device arithmetic, shared by the five tower kernels
+// (fq12_ladder.cu, fq12_fold.cu, miller_loop.cu, g1_fold.cu,
+// scalar_mul.cu): the port's
 // torch functions (ops/fq.py, ops/towers.py, ops/curve.py, ops/pairing.py,
 // ops/mesh_reduce.py) operation for operation, so every value a kernel
 // computes has the limbs its torch function gives, which are the JAX
@@ -18,7 +19,12 @@
 //                   fq_lin(a, compress(b), sub). fq_lin alone is the VM's
 //                   LIN unit, whose operands never need the compress;
 //   tw_neg(a)     = fq.neg: sub(0, a);
-//   tw_mul(a, b)  = fq.mont_mul (mont.cuh fq_mont_mul).
+//   tw_mul(a, b)  = fq.mont_mul (mont.cuh fq_mont_mul);
+//   tw_canonical(a) = fq.canonical: a product by ONE_MONT, then one
+//                   conditional subtraction of p; tw_is_zero(a) =
+//                   fq.is_zero, a value's test mod p (its limbs may be
+//                   a non-zero multiple of p: doubling the point at
+//                   infinity leaves such X and Y).
 // A product by ONE_MONT is not a no-op on limbs: the compress changes a
 // value's representative, so every product by an identity that the torch
 // code takes (one * f, f * line2 on a clear bit) is taken here too.
@@ -135,6 +141,46 @@ __device__ __forceinline__ TwFq tw_neg(const TwFq& a) {
   return tw_sub(tw_zero(), a);
 }
 
+// a >= p on carried limbs, the most significant limb first (fq._geq_p)
+__device__ __forceinline__ bool tw_geq_p(const TwFq& a) {
+  bool ge = true, gt = false;
+#pragma unroll
+  for (int k = FQ_LIMBS - 1; k >= 0; --k) {
+    gt = gt || (ge && a.v[k] > FQ_P[k]);
+    ge = ge && a.v[k] == FQ_P[k];
+  }
+  return gt || ge;
+}
+
+// a - p with borrows, on the carried limbs of a value >= p (fq._sub_p):
+// each limb's a + 2^28 - p_k - borrow lies in [0, 2^29)
+__device__ __forceinline__ TwFq tw_sub_p(const TwFq& a) {
+  TwFq r;
+  unsigned int borrow = 0u;
+#pragma unroll
+  for (int k = 0; k < FQ_LIMBS; ++k) {
+    const unsigned int cur = a.v[k] + (1u << FQ_LIMB_BITS) - FQ_P[k] - borrow;
+    r.v[k] = cur & FQ_MASK;
+    borrow = 1u - (cur >> FQ_LIMB_BITS);
+  }
+  return r;
+}
+
+// fq.canonical: the representative in [0, p)
+__device__ __forceinline__ TwFq tw_canonical(const TwFq& a) {
+  const TwFq r = tw_mul(a, tw_load(TW_ONE));
+  return tw_geq_p(r) ? tw_sub_p(r) : r;
+}
+
+// fq.is_zero: a == 0 mod p
+__device__ __forceinline__ bool tw_is_zero(const TwFq& a) {
+  const TwFq c = tw_canonical(a);
+  unsigned int any = 0u;
+#pragma unroll
+  for (int k = 0; k < FQ_LIMBS; ++k) any |= c.v[k];
+  return any == 0u;
+}
+
 // ---------------------------------------------------------------------------
 // Fq2 = Fq[u]/(u^2 + 1) on one thread (ops/towers.py fq2_*)
 
@@ -171,6 +217,14 @@ __device__ __forceinline__ TwFq2 tw2_mul(const TwFq2& a, const TwFq2& b) {
 __device__ __forceinline__ TwFq2 tw2_square(const TwFq2& a) {
   const TwFq c1 = tw_mul(a.c0, a.c1);
   return {tw_mul(tw_add(a.c0, a.c1), tw_sub(a.c0, a.c1)), tw_add(c1, c1)};
+}
+
+// towers.fq2_is_zero: both coefficients canonicalized (two products,
+// both made), then tested
+__device__ __forceinline__ bool tw2_is_zero(const TwFq2& a) {
+  const bool z0 = tw_is_zero(a.c0);
+  const bool z1 = tw_is_zero(a.c1);
+  return z0 && z1;
 }
 
 // an Fq2 by an Fq scalar: both coefficients times s
@@ -310,6 +364,117 @@ __device__ __forceinline__ TwG1 tw_g1_add(const TwG1& p1, const TwG1& p2) {
   Z3 = tw_mul(Z3, t4);
   Z3 = tw_add(Z3, t0);
   return {X3, Y3, Z3};
+}
+
+// ---------------------------------------------------------------------------
+// Jacobian curve arithmetic over Fq (G1) and Fq2 (G2) on one thread
+// (ops/curve.py double and add_mixed). The cv_* overloads name one
+// field's operations (curve.FQ_OPS, curve.FQ2_OPS), so one template
+// serves both groups; the second argument of cv_one and cv_zero only
+// picks the field.
+
+__device__ __forceinline__ TwFq cv_add(const TwFq& a, const TwFq& b) {
+  return tw_add(a, b);
+}
+__device__ __forceinline__ TwFq2 cv_add(const TwFq2& a, const TwFq2& b) {
+  return tw2_add(a, b);
+}
+__device__ __forceinline__ TwFq cv_sub(const TwFq& a, const TwFq& b) {
+  return tw_sub(a, b);
+}
+__device__ __forceinline__ TwFq2 cv_sub(const TwFq2& a, const TwFq2& b) {
+  return tw2_sub(a, b);
+}
+__device__ __forceinline__ TwFq cv_mul(const TwFq& a, const TwFq& b) {
+  return tw_mul(a, b);
+}
+__device__ __forceinline__ TwFq2 cv_mul(const TwFq2& a, const TwFq2& b) {
+  return tw2_mul(a, b);
+}
+__device__ __forceinline__ TwFq cv_sq(const TwFq& a) { return tw_mul(a, a); }
+__device__ __forceinline__ TwFq2 cv_sq(const TwFq2& a) {
+  return tw2_square(a);
+}
+__device__ __forceinline__ bool cv_is_zero(const TwFq& a) {
+  return tw_is_zero(a);
+}
+__device__ __forceinline__ bool cv_is_zero(const TwFq2& a) {
+  return tw2_is_zero(a);
+}
+__device__ __forceinline__ TwFq cv_one(const TwFq&) {
+  return tw_load(TW_ONE);
+}
+__device__ __forceinline__ TwFq2 cv_one(const TwFq2&) {
+  return {tw_load(TW_ONE), tw_zero()};
+}
+__device__ __forceinline__ TwFq cv_zero(const TwFq&) { return tw_zero(); }
+__device__ __forceinline__ TwFq2 cv_zero(const TwFq2&) {
+  return {tw_zero(), tw_zero()};
+}
+
+template <class F>
+struct TwJac {
+  F x, y, z;
+};
+
+// curve.double (a = 0). A point with Y == 0, or at infinity, doubles to
+// Z == 0 (Z3 = 2YZ); infinity's X and Y become non-zero multiples of p.
+// 8C is (2C + 2C) + (2C + 2C), whose limbs are curve.py's sum of eight
+// (a sum is exact mod 2^420, so its grouping leaves the limbs alone).
+template <class F>
+__device__ __forceinline__ TwJac<F> tw_jac_double(const TwJac<F>& p) {
+  const F A = cv_sq(p.x);
+  const F B = cv_sq(p.y);
+  const F C = cv_sq(B);
+  const F t = cv_add(p.x, B);
+  const F t2 = cv_sub(cv_sub(cv_sq(t), A), C);
+  const F D = cv_add(t2, t2);
+  const F E = cv_add(cv_add(A, A), A);
+  const F Fv = cv_sq(E);
+  const F X3 = cv_sub(Fv, cv_add(D, D));
+  const F c2 = cv_add(C, C);
+  const F C8 = cv_add(cv_add(c2, c2), cv_add(c2, c2));
+  const F Y3 = cv_sub(cv_mul(E, cv_sub(D, X3)), C8);
+  const F YZ = cv_mul(p.y, p.z);
+  return {X3, Y3, cv_add(YZ, YZ)};
+}
+
+// curve.add_mixed(p, (qx, qy)), only the branch its selects keep made, in
+// their priority order: p at infinity -> (qx, qy, 1); H == 0 and R == 0
+// (p == Q) -> double(p), left to the caller (TW_ADD_DOUBLE: the doubling
+// keeps one call site in a kernel); H == 0 (p == -Q) -> all-zero limbs;
+// else the generic formula. Every zero test is mod p, as the selects'.
+#define TW_ADD_DONE 0
+#define TW_ADD_DOUBLE 1
+
+template <class F>
+__device__ __forceinline__ int tw_jac_add_mixed(TwJac<F>& p, const F& qx,
+                                                const F& qy) {
+  if (cv_is_zero(p.z)) {
+    p = {qx, qy, cv_one(qx)};
+    return TW_ADD_DONE;
+  }
+  const F Z2 = cv_sq(p.z);
+  const F Z3 = cv_mul(Z2, p.z);
+  const F U2 = cv_mul(qx, Z2);
+  const F S2 = cv_mul(qy, Z3);
+  const F H = cv_sub(U2, p.x);
+  const F R = cv_sub(S2, p.y);
+  const bool h_zero = cv_is_zero(H);
+  const bool r_zero = cv_is_zero(R);
+  if (h_zero) {
+    if (r_zero) return TW_ADD_DOUBLE;
+    p = {cv_zero(qx), cv_zero(qx), cv_zero(qx)};
+    return TW_ADD_DONE;
+  }
+  const F H2 = cv_sq(H);
+  const F H3 = cv_mul(H2, H);
+  const F V = cv_mul(p.x, H2);
+  const F R2 = cv_sq(R);
+  const F X3 = cv_sub(cv_sub(R2, H3), cv_add(V, V));
+  const F Y3 = cv_sub(cv_mul(R, cv_sub(V, X3)), cv_mul(p.y, H3));
+  p = {X3, Y3, cv_mul(p.z, H)};
+  return TW_ADD_DONE;
 }
 
 // ---------------------------------------------------------------------------

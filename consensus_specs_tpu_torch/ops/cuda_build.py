@@ -18,7 +18,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 KERNELS = ("mont_mul", "pow_chain", "vm_step", "fq12_ladder", "fq12_fold",
-           "miller_loop", "g1_fold")
+           "miller_loop", "g1_fold", "scalar_mul")
 _HEADERS = ("mont.cuh", "tower.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

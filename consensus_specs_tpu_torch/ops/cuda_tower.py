@@ -15,10 +15,14 @@ shared arithmetic, the port's torch functions operation for operation):
 - ``miller_loop(qx, qy, px, py, ate_bits)`` (csrc/miller_loop.cu):
   ``pairing.miller_loop``;
 - ``g1_fold(points)`` (csrc/g1_fold.cu): the mesh's per-slot G1 fold
-  (``mesh_reduce._local_fold``).
+  (``mesh_reduce._local_fold``);
+- ``scalar_mul(qx, qy, bits, g2=)`` (csrc/scalar_mul.cu): ``curve.
+  scalar_mul_fixed``'s double-and-add over static bits, G1 or G2 (the
+  subgroup checks r * P).
 
 The wrappers take CUDA tensors only: each launches its kernel or
-raises. The callers (ops/pairing.py, mesh_rlc.py, mesh_reduce.py) call a
+raises. The callers (ops/pairing.py, mesh_rlc.py, mesh_reduce.py,
+curve.py) call a
 wrapper on a CUDA tensor and, on a CPU tensor, the plain version beside
 it (the torch loop the kernel replaces, limb for limb what the kernel
 computes). There is no fallback: a refused launch raises.
@@ -26,7 +30,7 @@ computes). There is no fallback: a refused launch raises.
 Each kernel has a launch counter, a plain integer bumped under a lock
 where the wrapper launches (tests and the chip smoke set them to 0 and
 read them back): LADDER_LAUNCHES, FOLD_LAUNCHES, MILLER_LAUNCHES,
-G1_FOLD_LAUNCHES.
+G1_FOLD_LAUNCHES, SCALAR_MUL_LAUNCHES.
 """
 import ctypes
 import functools
@@ -37,24 +41,40 @@ import torch
 from . import cuda_build, fq
 from .cuda_fq import _chain_words
 
-KERNELS = ("fq12_ladder", "fq12_fold", "miller_loop", "g1_fold")
+KERNELS = ("fq12_ladder", "fq12_fold", "miller_loop", "g1_fold",
+           "scalar_mul")
 # Montgomery products (compresses included) of the kernels' steps, as
 # csrc/tower.cuh and the plain versions make them: an Fq12 product (144,
 # and one compress for each of the 11 folded degrees), the Miller loop's
-# doubling and addition steps, the conjugation, a G1 complete addition
+# doubling and addition steps, the conjugation, a G1 complete addition;
+# per group (g1 over Fq, g2 over Fq2, whose zero test is 2 products) the
+# Jacobian doubling, and the mixed addition's branches as tw_jac_add_mixed
+# makes them: "inf" the infinity test alone (acc at infinity: Q taken),
+# "hr" through the zero tests of H and R (p == -Q: zeros; p == Q: then a
+# doubling), "add" the generic branch (11 products and 6 compresses on
+# G1, the three zero tests)
 MONTS = {"fq12_mul": 144 + 11, "dbl_step": 80, "add_step": 87,
-         "conjugate": 6, "g1_add": 19}
+         "conjugate": 6, "g1_add": 19,
+         "g1_double": 7 + 5, "g1_inf": 1, "g1_hr": 1 + 4 + 2 + 2,
+         "g1_add_mixed": 11 + 6 + 3,
+         "g2_double": 35, "g2_inf": 2, "g2_hr": 2 + 18 + 4 + 4,
+         "g2_add_mixed": 67}
 # static exponent bits after the top one a ladder launch takes
 # (TW_MAX_WORDS x 32 in csrc/tower.cuh): final_exp_is_one_full's 4,313
 POW_MAX_BITS = 136 * 32
+# scalar bits a scalar_mul launch takes (SM_MAX_WORDS x 32 in
+# csrc/scalar_mul.cu): r's 255
+SCALAR_MUL_MAX_BITS = 16 * 32
 FQ12 = (12, fq.NUM_LIMBS)
 
 LADDER_LAUNCHES = 0
 FOLD_LAUNCHES = 0
 MILLER_LAUNCHES = 0
 G1_FOLD_LAUNCHES = 0
+SCALAR_MUL_LAUNCHES = 0
 _COUNTER = {"fq12_ladder": "LADDER_LAUNCHES", "fq12_fold": "FOLD_LAUNCHES",
-            "miller_loop": "MILLER_LAUNCHES", "g1_fold": "G1_FOLD_LAUNCHES"}
+            "miller_loop": "MILLER_LAUNCHES", "g1_fold": "G1_FOLD_LAUNCHES",
+            "scalar_mul": "SCALAR_MUL_LAUNCHES"}
 _COUNT_LOCK = threading.Lock()
 
 _vp, _ll, _int = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -66,6 +86,8 @@ _LAUNCH = {
     "miller_loop": ("miller_loop_launch",
                     [_vp, _vp, _vp, _vp, _vp, _ll, _vp, _int, _vp]),
     "g1_fold": ("g1_fold_launch", [_vp, _vp, _ll, _vp]),
+    "scalar_mul": ("scalar_mul_launch",
+                   [_vp, _vp, _vp, _vp, _vp, _ll, _int, _vp, _int, _vp]),
 }
 _LIBS = {}
 _LIB_LOCK = threading.Lock()
@@ -79,9 +101,10 @@ def launches() -> dict:
 def reset() -> None:
     """Set every kernel's launch counter to 0."""
     global LADDER_LAUNCHES, FOLD_LAUNCHES, MILLER_LAUNCHES, G1_FOLD_LAUNCHES
+    global SCALAR_MUL_LAUNCHES
     with _COUNT_LOCK:
         LADDER_LAUNCHES = FOLD_LAUNCHES = MILLER_LAUNCHES = 0
-        G1_FOLD_LAUNCHES = 0
+        G1_FOLD_LAUNCHES = SCALAR_MUL_LAUNCHES = 0
 
 
 def bind(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -275,4 +298,43 @@ def g1_fold(points: torch.Tensor) -> torch.Tensor:
     out = points.new_empty((3, fq.NUM_LIMBS))
     _launch("g1_fold", points.device, points.data_ptr(), out.data_ptr(),
             points.shape[0])
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _scalar_words(bits: tuple):
+    """Every bit of a scalar, the first one included, 32 to a word
+    (``_chain_words`` drops a top bit, so it gets a 1 put before)."""
+    return _chain_words((1,) + bits)
+
+
+def scalar_mul(qx: torch.Tensor, qy: torch.Tensor, bits, *,
+               g2: bool) -> dict:
+    """(k)Q for affine Q, k's static msb-first ``bits``: {x, y, z}
+    Jacobian, broadcast over qx's and qy's batch. G1 (``g2`` false) on
+    (..., 15) coordinates, G2 on (..., 2, 15); the caller names the group,
+    since a (..., 2, 15) tensor is also a batch of G1 rows. One launch of
+    csrc/scalar_mul.cu, none for an empty bit list, which gives the point
+    at infinity (0, 0, 0) (``curve.scalar_mul_fixed_plain`` is its plain
+    version)."""
+    tail = (2, fq.NUM_LIMBS) if g2 else (fq.NUM_LIMBS,)
+    for name, x in (("qx", qx), ("qy", qy)):
+        _limbs(f"scalar_mul {name}", x, tail)
+    bits = tuple(int(b) for b in bits)
+    if len(bits) > SCALAR_MUL_MAX_BITS:
+        raise ValueError(f"scalar_mul: {len(bits)} bits, at most "
+                         f"{SCALAR_MUL_MAX_BITS}")
+    _on_card("scalar_mul", qx, qy)
+    batch = torch.broadcast_shapes(qx.shape[:-len(tail)],
+                                   qy.shape[:-len(tail)])
+    qx, qy = (x.expand(batch + tail).contiguous() for x in (qx, qy))
+    if not bits:
+        return {k: torch.zeros_like(qx) for k in "xyz"}
+    out = {k: torch.empty_like(qx) for k in "xyz"}
+    rows = qx.numel() // (len(tail) * fq.NUM_LIMBS)
+    if rows == 0:
+        return out
+    _launch("scalar_mul", qx.device, qx.data_ptr(), qy.data_ptr(),
+            out["x"].data_ptr(), out["y"].data_ptr(), out["z"].data_ptr(),
+            rows, int(g2), ctypes.addressof(_scalar_words(bits)), len(bits))
     return out

@@ -6,11 +6,13 @@ encodes infinity), batched over leading dims. The formulas are
 branchless: every special case of ``add_mixed`` is a select, so one call
 serves a whole batch. Every Fq product is one ``fq.mont_mul`` (the CUDA
 kernel on the card). The formulas are the oracle's
-(utils/bls12_381.py ec_double / ec_add).
+(utils/bls12_381.py ec_double / ec_add). ``scalar_mul_fixed`` on a CUDA
+tensor is one launch of csrc/scalar_mul.cu (ops/cuda_tower.scalar_mul).
 """
+import numpy as np
 import torch
 
-from . import fq
+from . import cuda_tower, fq
 from . import towers as tw
 
 # field-op namespaces so the same formulas serve G1 (Fq) and G2 (Fq2)
@@ -127,10 +129,20 @@ def _field_one(F, like):
 
 def scalar_mul_fixed(F, qx, qy, scalar_bits):
     """(scalar)·Q for affine Q by double-and-add over the STATIC msb-first
-    bit list ``scalar_bits``; returns a Jacobian point. The JAX package's
-    ``lax.scan`` becomes a loop over the bits: each bit doubles, and a set
-    bit takes the mixed addition (the select's other side, kept on a
-    clear bit, is the doubled point itself), so the limbs are the JAX
+    bit list ``scalar_bits``; returns a Jacobian point. On a CUDA tensor
+    the whole loop is one launch of csrc/scalar_mul.cu
+    (``cuda_tower.scalar_mul``, which raises rather than fall back);
+    elsewhere ``scalar_mul_fixed_plain``."""
+    if qx.device.type == "cuda":
+        return cuda_tower.scalar_mul(qx, qy, scalar_bits, g2=F is FQ2_OPS)
+    return scalar_mul_fixed_plain(F, qx, qy, scalar_bits)
+
+
+def scalar_mul_fixed_plain(F, qx, qy, scalar_bits):
+    """The loop of ``scalar_mul_fixed``, product by product. The JAX
+    package's ``lax.scan`` becomes a loop over the bits: each bit doubles,
+    and a set bit takes the mixed addition (the select's other side, kept
+    on a clear bit, is the doubled point itself), so the limbs are the JAX
     package's."""
     acc = point(F.zeros_like(qx), F.zeros_like(qy), torch.zeros_like(qx))
     for bit in scalar_bits:
@@ -145,3 +157,15 @@ def subgroup_check_bits():
     from ..utils.bls12_381 import R
 
     return [int(b) for b in bin(R)[2:]]
+
+
+def affine_limbs(points):
+    """(x, y) Montgomery limbs, int64 numpy arrays, of affine points as
+    utils/bls12_381 holds them: G1 points give rows of (15,), G2 points
+    rows of (2, 15)."""
+    def enc(v):
+        if hasattr(v, "c0"):
+            return np.stack([fq.to_mont_int(v.c0), fq.to_mont_int(v.c1)])
+        return fq.to_mont_int(v.n)
+    return tuple(np.stack([enc(p[i]) for p in points]).astype(np.int64)
+                 for i in (0, 1))

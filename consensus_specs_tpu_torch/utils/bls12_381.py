@@ -20,6 +20,7 @@ Contents:
 from __future__ import annotations
 
 import hashlib
+import random
 from typing import List, Optional, Tuple
 
 # ---------------------------------------------------------------------------
@@ -502,6 +503,67 @@ def is_in_g2_subgroup(pt) -> bool:
 def _is_in_g2_subgroup_scalar(pt) -> bool:
     """The definitional path — kept as the cross-check oracle."""
     return ec_mul(pt, R) is None
+
+
+# the cofactors, #E(Fq) = G1_COFACTOR * R and #E'(Fq2) = G2_COFACTOR * R,
+# from the BLS parameter x (G1: (x - 1)^2 / 3; G2: the twist's polynomial
+# in x over 9)
+G1_COFACTOR = (X_PARAM - 1) ** 2 // 3
+G2_COFACTOR = (X_PARAM**8 - 4 * X_PARAM**7 + 5 * X_PARAM**6
+               - 4 * X_PARAM**4 + 6 * X_PARAM**3 - 4 * X_PARAM**2
+               - 4 * X_PARAM + 13) // 9
+
+
+def curve_point(group: int, rng: random.Random):
+    """A point of E (group 1) or the twist E' (group 2), Jacobian, at the
+    first x drawn from ``rng`` with a square root: in general off the
+    order-R subgroup."""
+    while True:
+        if group == 1:
+            x = Fq(rng.randrange(P))
+            y = fq_sqrt((x.n**3 + 4) % P)
+            y = None if y is None else Fq(y)
+        else:
+            x = Fq2(rng.randrange(P), rng.randrange(P))
+            y = (x * x * x + B_G2).sqrt()
+        if y is not None:
+            return ec_from_affine((x, y))
+
+
+def off_subgroup_points(group: int, n: int, seed: int):
+    """n affine points of E (group 1) or E' (group 2) off the order-R
+    subgroup, from seeded x coordinates, each of an order that R divides
+    (cofactor * P is not infinity), so R * P takes the generic addition at
+    every set bit of R after the first."""
+    inside, cofactor = ((is_in_g1_subgroup, G1_COFACTOR) if group == 1
+                        else (is_in_g2_subgroup, G2_COFACTOR))
+    rng = random.Random(seed)
+    points = []
+    while len(points) < n:
+        pt = curve_point(group, rng)
+        if not inside(pt) and ec_mul(pt, cofactor) is not None:
+            points.append(ec_to_affine(pt))
+    return points
+
+
+def point_of_order(group: int, k: int, seed: int):
+    """An affine point of prime order k on E (group 1) or E' (group 2),
+    for a k that divides the cofactor (3 on G1, 13 on G2): a curve point's
+    k-power part (m P, m the group order with every factor k taken out)
+    times k until the next product would be infinity. Such a point meets
+    Q and -Q inside a double-and-add over a few bits."""
+    m = (G1_COFACTOR if group == 1 else G2_COFACTOR) * R
+    if m % k:
+        raise ValueError(f"no point of order {k} on group {group}")
+    while m % k == 0:
+        m //= k
+    rng = random.Random(seed)
+    while True:
+        pt = ec_mul(curve_point(group, rng), m)
+        if pt is not None:
+            while ec_mul(pt, k) is not None:
+                pt = ec_mul(pt, k)
+            return ec_to_affine(pt)
 
 
 # ---------------------------------------------------------------------------

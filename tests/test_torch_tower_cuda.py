@@ -3,9 +3,12 @@ versions, raw limbs equal (max |err| 0): the Fq12 ladder in both modes
 (runtime bits at 1, 3 and 64 rows; the x-chains and the 4,314-bit final
 exponent), the Fq12 fold (sequential from one and from the first value,
 and a pairwise tree level with an odd count), the Miller loop at 1, 3 and 64
-rows, and the G1 fold on a 512-point shard holding the point at infinity
-and a doubling; each wrapper's launches counted one a call; a card that
-is not the current device, where there is one.
+rows, the G1 fold on a 512-point shard holding the point at infinity
+and a doubling, and the scalar multiplication on G1 and G2 (r's bits and
+a short scalar at 1, 64 and 129 rows in and off the subgroup, points of
+order 3 and 13 through the mixed addition's special branches, an empty
+bit list); each wrapper's launches counted one a call; a card that is
+not the current device, where there is one.
 
 Marked ``cuda``: they skip where no CUDA device is present, and run on a
 GPU machine with
@@ -20,8 +23,9 @@ import pytest
 import torch
 from tests.torch_threads import one_thread
 
-from consensus_specs_tpu_torch.ops import (cuda_tower, fq, mesh_reduce,
-                                           mesh_rlc, pairing)
+from consensus_specs_tpu_torch.ops import (cuda_tower, curve, fq,
+                                           mesh_reduce, mesh_rlc, pairing,
+                                           towers)
 from consensus_specs_tpu_torch.utils import bls12_381 as O
 
 one_thread()
@@ -29,6 +33,8 @@ one_thread()
 pytestmark = pytest.mark.cuda
 
 L = fq.NUM_LIMBS
+# a 16-bit scalar for the scalar-multiplication kernel beside r's bits
+SHORT_BITS = [int(b) for b in bin(0xB5A3)[2:]]
 
 
 @pytest.fixture
@@ -183,7 +189,78 @@ def test_pairing_product_on_the_card(dev):
     after = cuda_tower.launches()
     assert got == [[True], [False]]
     assert {k: after[k] - before[k] for k in after} == {
-        "fq12_ladder": 10, "fq12_fold": 2, "miller_loop": 2, "g1_fold": 0}
+        "fq12_ladder": 10, "fq12_fold": 2, "miller_loop": 2, "g1_fold": 0,
+        "scalar_mul": 0}
+
+
+def _curve_rows(g2, rows, seed):
+    """(qx, qy) Montgomery limbs of ``rows`` points of G1 or G2: k P of
+    the subgroup, every fourth row off it."""
+    rng = np.random.default_rng(seed)
+    gen = O.G2_GEN if g2 else O.G1_GEN
+    off = O.off_subgroup_points(2 if g2 else 1, -(-rows // 4), seed)
+    affs = [off[i // 4] if i % 4 == 3 else
+            O.ec_to_affine(O.ec_mul(gen, int(rng.integers(2, 1 << 60))))
+            for i in range(rows)]
+    return _limbs_of_points(affs)
+
+
+def _limbs_of_points(affs):
+    return [torch.from_numpy(v) for v in curve.affine_limbs(affs)]
+
+
+def _same_pt(got, want):
+    for k in "xyz":
+        _same(got[k], want[k])
+
+
+@pytest.mark.parametrize("rows", [1, 64, 129])
+@pytest.mark.parametrize("group", ["g1", "g2"])
+@pytest.mark.parametrize("scalar", ["r", "short"])
+def test_scalar_mul(dev, rows, group, scalar):
+    """r * P (the subgroup check: infinity exactly on the subgroup rows)
+    and a 16-bit scalar, through curve.scalar_mul_fixed (one launch)
+    against the plain loop on the card."""
+    g2 = group == "g2"
+    F = curve.FQ2_OPS if g2 else curve.FQ_OPS
+    bits = (curve.subgroup_check_bits() if scalar == "r"
+            else SHORT_BITS)
+    qx, qy = (x.to(dev) for x in _curve_rows(g2, rows, rows + 7 * g2))
+    got = _counted("scalar_mul",
+                   lambda: curve.scalar_mul_fixed(F, qx, qy, bits))
+    _same_pt(got, curve.scalar_mul_fixed_plain(F, qx, qy, bits))
+    if scalar == "r":
+        is_zero = towers.fq2_is_zero if g2 else fq.is_zero
+        assert is_zero(got["z"]).tolist() == [i % 4 != 3
+                                              for i in range(rows)]
+
+
+@pytest.mark.parametrize("group,k,bits", [
+    (1, 3, [1, 0, 1]), (1, 3, [1, 1]),
+    (2, 13, [1, 1, 1, 1]), (2, 13, [1, 1, 0, 1])])
+def test_scalar_mul_special_branches(dev, group, k, bits):
+    """A point of order 3 (G1) or 13 (G2): the bits meet acc = Q (the
+    H == R == 0 branch, a doubling) or acc = -Q (H == 0: infinity) at
+    their last addition; the point's negation and a subgroup point
+    beside it."""
+    q = O.point_of_order(group, k, 2300 + k)
+    gen = O.G2_GEN if group == 2 else O.G1_GEN
+    affs = [q, (q[0], -q[1]), O.ec_to_affine(O.ec_mul(gen, 5))]
+    qx, qy = (x.to(dev) for x in _limbs_of_points(affs))
+    F = curve.FQ2_OPS if group == 2 else curve.FQ_OPS
+    got = _counted("scalar_mul",
+                   lambda: cuda_tower.scalar_mul(qx, qy, bits,
+                                                 g2=group == 2))
+    _same_pt(got, curve.scalar_mul_fixed_plain(F, qx, qy, bits))
+
+
+def test_scalar_mul_of_an_empty_bit_list(dev):
+    """No bits: the point at infinity (0, 0, 0), as the plain loop gives
+    it, without a launch."""
+    qx, qy = (x.to(dev) for x in _curve_rows(True, 3, 1))
+    got = _counted("scalar_mul", lambda: cuda_tower.scalar_mul(
+        qx, qy, [], g2=True), times=0)
+    _same_pt(got, curve.scalar_mul_fixed_plain(curve.FQ2_OPS, qx, qy, []))
 
 
 def test_a_card_that_is_not_the_current_device(dev):
@@ -201,3 +278,9 @@ def test_a_card_that_is_not_the_current_device(dev):
     got = _counted("miller_loop", lambda: cuda_tower.miller_loop(
         *args, pairing._ATE_BITS))
     _same(got, pairing.miller_loop_plain(*(a.cpu() for a in args)))
+    qx, qy = _curve_rows(True, 2, 11)
+    bits = SHORT_BITS
+    got = _counted("scalar_mul", lambda: cuda_tower.scalar_mul(
+        qx.to(other), qy.to(other), bits, g2=True))
+    assert got["z"].device == other
+    _same_pt(got, curve.scalar_mul_fixed_plain(curve.FQ2_OPS, qx, qy, bits))

@@ -5,7 +5,8 @@ NVIDIA GPU.
     python3 tools/torch_kernel_compare.py KERNEL NAME:SOURCE ...
 
 KERNEL is ``vm_step``, ``mont_mul``, ``pow_chain`` or one of the tower
-kernels, ``fq12_ladder``, ``fq12_fold``, ``miller_loop`` and ``g1_fold``.
+kernels, ``fq12_ladder``, ``fq12_fold``, ``miller_loop``, ``g1_fold`` and
+``scalar_mul``.
 Each NAME:SOURCE
 names a build: a CUDA source with the C interface of
 consensus_specs_tpu_torch/csrc/KERNEL.cu, as a path from the repository's
@@ -43,7 +44,9 @@ each):
                         product's 2 x 64 from the first, a tree level of 64;
             miller_loop the twins' stacked 128 rows and 8 rows;
             g1_fold     a mesh slot's 512-point shard (P2's 2,048 keys on
-                        4 slots).
+                        4 slots);
+            scalar_mul  the twins' subgroup checks over r's bits, 64 G1
+                        and 64 G2 points of the subgroup.
 
 Prints the card's name and power limit, one JSON line per build (ptxas
 registers and spill bytes) and one per workload (max |err| and ms of each
@@ -235,8 +238,8 @@ def _pow_chain(cs, torch, dev, rng, libs):
 def _tower_cases(cs, torch, dev, rng, kernel):
     """[(label, the wrapper's call, its plain version's call)] at the main
     path's shapes."""
-    from consensus_specs_tpu_torch.ops import (cuda_tower, fq, mesh_reduce,
-                                               mesh_rlc, pairing)
+    from consensus_specs_tpu_torch.ops import (cuda_tower, curve, fq,
+                                               mesh_reduce, mesh_rlc, pairing)
     from consensus_specs_tpu_torch.utils import bls12_381 as O
 
     fs = torch.from_numpy(cs._rand_loose_limbs(rng, (64, 12), bits=382)
@@ -270,6 +273,18 @@ def _tower_cases(cs, torch, dev, rng, kernel):
                  lambda: pairing.miller_loop_plain(*qpx)),
                 ("8 rows", lambda: cuda_tower.miller_loop(*few, ate),
                  lambda: pairing.miller_loop_plain(*few))]
+    if kernel == "scalar_mul":
+        _, limbs, _ = cs._twins_inputs(64, set(), cs.TWINS_SEED)
+        t = {k: torch.from_numpy(v.astype(np.int64)).to(dev)
+             for k, v in limbs.items()}
+        r_bits = curve.subgroup_check_bits()
+        return [(f"{g.upper()} r bits, 64 rows",
+                 lambda x=x, y=y, F=F: cuda_tower.scalar_mul(
+                     t[x], t[y], r_bits, g2=F is curve.FQ2_OPS),
+                 lambda x=x, y=y, F=F: cs._limbs_of(
+                     curve.scalar_mul_fixed_plain(F, t[x], t[y], r_bits)))
+                for g, x, y, F in (("g1", "px1", "py1", curve.FQ_OPS),
+                                   ("g2", "qx2", "qy2", curve.FQ2_OPS))]
     pts = np.zeros((512, 3, fq.NUM_LIMBS), dtype=np.uint64)
     for i in range(512):
         k = int(rng.integers(1, 1 << 62))
@@ -291,7 +306,8 @@ def _tower(cs, torch, dev, rng, libs, kernel):
 
     for label, call, plain in _tower_cases(cs, torch, dev, rng, kernel):
         want = plain()
-        outs = {name: through(lib, call) for name, lib in libs.items()}
+        outs = {name: cs._limbs_of(through(lib, call))
+                for name, lib in libs.items()}
         torch.cuda.synchronize()
         err = {name: int((out - want).abs().max().item())
                for name, out in outs.items()}
@@ -308,7 +324,7 @@ WORKLOADS = {"vm_step": _vm_step, "mont_mul": _mont_mul,
              **{k: (lambda cs, torch, dev, rng, libs, k=k:
                     _tower(cs, torch, dev, rng, libs, k))
                 for k in ("fq12_ladder", "fq12_fold", "miller_loop",
-                          "g1_fold")}}
+                          "g1_fold", "scalar_mul")}}
 
 
 def main(argv):
